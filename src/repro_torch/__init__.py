@@ -1,0 +1,12 @@
+"""repro_torch — the PyTorch/CUDA port of the ``repro`` package.
+
+The paper's main measurement runs end to end here: build a topology from a
+registry spec (:mod:`repro_torch.api.registry`), measure rho_2 / lambda
+(dense host oracle, or Lanczos on the card through the hand-written spmv
+kernel of :mod:`repro_torch.kernels.spmv`), check it against the Table-1
+bounds, and emit survey rows (:mod:`repro_torch.api`).
+
+The package imports torch, numpy and scipy — never jax, and nothing of the
+reference package.  Entry points run on ``device="cuda"`` unless the caller
+asks for the CPU.
+"""

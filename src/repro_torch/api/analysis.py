@@ -1,0 +1,275 @@
+"""Lazy, memoizing analysis session over one topology (PyTorch port).
+
+``Analysis(topo)`` computes-on-demand and caches every quantity the paper's
+survey reports: spectrum, rho2, diameter, witnessed bisection, the analytic
+bounds of :mod:`repro_torch.core.bounds`, and the equal-radix
+Ramanujan/LPS comparison.  The backend auto-selects by ``n``:
+
+* ``n <= dense_threshold`` — dense float64 numpy oracle on the host (full
+  spectrum, exact Fiedler vector);
+* larger — the matrix-free Lanczos path (``rho2_lanczos``, top-Ritz Fiedler
+  approximation) on ``device``, through the :mod:`repro_torch.kernels.spmv`
+  dispatcher: kernel K1 on the card, the plain PyTorch gather-sum on the CPU.
+
+``device`` defaults to ``"cuda"``; without a card the session raises at
+construction unless the caller asks for ``device="cpu"``.
+
+The main-path quantities are ported; the reference's routing, traffic,
+MCF-ceiling, collective-model, simulation and fault-sweep methods are not
+yet.  Nothing is computed in ``__init__``; every property memoizes on first
+access, so ``survey()`` can pre-populate (e.g. batched rho2 solves) without
+waste.
+"""
+from __future__ import annotations
+
+from functools import cached_property
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import bounds as B
+from repro_torch.core import properties as P
+from repro_torch.core import spectral as S
+from repro_torch.core.graphs import Topology
+from repro_torch.core.ramanujan import ramanujan_bound
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.kernels import spmv as KS
+
+from .registry import REGISTRY, SpecError
+
+__all__ = ["Analysis"]
+
+
+class Analysis:
+    """One topology, every survey quantity, computed lazily and cached."""
+
+    def __init__(self, topo: Union[Topology, str], *,
+                 dense_threshold: int = S.DENSE_THRESHOLD,
+                 lanczos_iters: int = 200, seed: int = 0,
+                 device: Union[str, torch.device, None] = DEFAULT_DEVICE
+                 ) -> None:
+        self.device = resolve_device(device)
+        if isinstance(topo, str):
+            topo = REGISTRY.build(topo)
+        self.topo = topo
+        self.dense_threshold = int(dense_threshold)
+        self.lanczos_iters = int(lanczos_iters)
+        self.seed = int(seed)
+
+    # -- identity ----------------------------------------------------------
+    @property
+    def n(self) -> int:
+        """Number of vertices (routers/chips)."""
+        return self.topo.n
+
+    @property
+    def name(self) -> str:
+        """Instance name, e.g. ``slimfly(13)``."""
+        return self.topo.name
+
+    @property
+    def family(self) -> Optional[str]:
+        """Registry family name, or None for hand-built topologies."""
+        return self.topo.meta.get("family")
+
+    @property
+    def spec(self) -> Optional[str]:
+        """Canonical spec string, or None for hand-built topologies."""
+        return self.topo.meta.get("spec")
+
+    @property
+    def backend(self) -> str:
+        """'dense' or 'lanczos' — chosen once by ``n`` vs the threshold."""
+        return "dense" if self.n <= self.dense_threshold else "lanczos"
+
+    @cached_property
+    def radix(self) -> Optional[float]:
+        """Degree if regular, else None (bounds fall back to max degree)."""
+        try:
+            return float(self.topo.radix)
+        except ValueError:
+            return None
+
+    @cached_property
+    def max_degree(self) -> float:
+        return float(self.topo.degrees().max())
+
+    # -- spectral quantities ----------------------------------------------
+    def _matvec(self):
+        tab, w = self.topo.gather_operands()
+        return KS.spmv_matvec(tab, w, device=self.device)
+
+    @cached_property
+    def spectrum(self) -> np.ndarray:
+        """Full adjacency spectrum (ascending) — dense backend only."""
+        if self.backend != "dense":
+            raise RuntimeError(
+                f"{self.name}: full spectrum needs the dense oracle "
+                f"(n={self.n} > dense_threshold={self.dense_threshold}); "
+                "raise dense_threshold or use rho2/lambda_nontrivial, which "
+                "route through Lanczos")
+        return S.adjacency_spectrum(self.topo)
+
+    @cached_property
+    def rho2(self) -> float:
+        """Algebraic connectivity rho_2 (second-smallest Laplacian eigenvalue)."""
+        if self.backend == "dense":
+            return float(S.laplacian_spectrum(self.topo)[1])
+        return S.rho2_lanczos(self.topo, iters=self.lanczos_iters,
+                              seed=self.seed, matvec=self._matvec(),
+                              device=self.device)
+
+    @cached_property
+    def lambda2(self) -> Optional[float]:
+        """Second-largest adjacency eigenvalue (k - rho2 for regular G)."""
+        if self.radix is not None:
+            return self.radix - self.rho2
+        if self.backend == "dense":
+            return float(self.spectrum[-2])
+        return None
+
+    @cached_property
+    def lambda_nontrivial(self) -> float:
+        """lambda(G): largest |eigenvalue| excluding the trivial ±k pair."""
+        if self.backend == "dense":
+            return S.lambda_nontrivial(self.topo)
+        lmax, lmin = S.lanczos_extremes(
+            self._matvec(), self.n, m=self.lanczos_iters, seed=self.seed,
+            deflate_vectors=S.trivial_deflation(self.topo),
+            device=self.device)
+        return float(max(abs(lmax), abs(lmin)))
+
+    @cached_property
+    def spectral_gap(self) -> float:
+        """k - lambda_2 (= rho2 for regular G); dense general fallback."""
+        if self.radix is not None:
+            return self.rho2
+        return S.spectral_gap(self.topo)
+
+    # -- combinatorial quantities -----------------------------------------
+    @cached_property
+    def diameter(self) -> int:
+        return P.diameter(
+            self.topo,
+            vertex_transitive=bool(self.topo.meta.get("vertex_transitive")))
+
+    @cached_property
+    def fiedler(self) -> np.ndarray:
+        """Canonical Fiedler vector: deterministic across eigensolver paths.
+
+        Routed through :func:`repro_torch.core.spectral.canonical_fiedler`, so
+        on degenerate Fiedler eigenspaces (butterfly, torus, ...) every
+        backend yields the *same* vector at dense-tractable sizes.
+        """
+        if self.backend == "dense":
+            return S.canonical_fiedler(self.topo)
+        vec = S.fiedler_lanczos(self.topo, iters=self.lanczos_iters,
+                                seed=self.seed, device=self.device)
+        return S.canonical_fiedler(self.topo, vec)
+
+    @cached_property
+    def bisection_mask(self) -> np.ndarray:
+        order = np.argsort(self.fiedler, kind="stable")
+        mask = np.zeros(self.n, dtype=bool)
+        mask[order[: self.n // 2]] = True
+        return mask
+
+    @cached_property
+    def bisection_witness(self) -> float:
+        """Edges crossing a balanced Fiedler sweep cut — a true bisection,
+        hence a certified upper bound on BW(G) on both backends."""
+        return P.bisection_witness(self.topo, self.bisection_mask)
+
+    # -- analytic bounds ---------------------------------------------------
+    @cached_property
+    def bounds(self) -> Dict[str, float]:
+        """Every closed-form bound of bounds.py evaluated at (n, deg, rho2)."""
+        n, rho2 = self.n, self.rho2
+        kmax = self.max_degree
+        out = dict(
+            fiedler_bw_lb=B.fiedler_bw_lb(n, rho2),
+            cheeger_bw_ub=B.cheeger_bw_ub(n, kmax, rho2),
+            first_moment_bw_ub=B.first_moment_bw_ub(self.topo.m),
+            alon_milman_diameter_ub=B.alon_milman_diameter_ub(n, kmax, rho2),
+            mohar_diameter_lb=B.mohar_diameter_lb(n, rho2),
+            fiedler_vertex_connectivity_lb=B.fiedler_vertex_connectivity_lb(rho2),
+        )
+        if self.radix is not None and self.lambda2 is not None:
+            out["tanner_isoperimetric_lb"] = B.tanner_isoperimetric_lb(
+                self.radix, self.lambda2)
+        return out
+
+    @cached_property
+    def closed_forms(self) -> Optional[Dict[str, float]]:
+        """The registered analytic Table-1 record for this instance, if any."""
+        if not self.spec:
+            return None
+        try:
+            fam, bound = REGISTRY.parse(self.spec)
+        except SpecError:
+            return None
+        if fam.variadic:
+            return fam.forms(*bound[fam.params[0][0]])
+        return fam.forms(**bound)
+
+    # -- Ramanujan comparison (equal radix, §3) ----------------------------
+    @cached_property
+    def ramanujan(self) -> Dict[str, Any]:
+        """Equal-radix comparison against the Ramanujan optimum (LPS class)."""
+        if self.radix is None:
+            raise RuntimeError(f"{self.name} is irregular — the equal-radix "
+                               "Ramanujan comparison needs a regular graph")
+        k = self.radix
+        opt = B.ramanujan_rho2(k)
+        lam = self.lambda_nontrivial
+        bound = ramanujan_bound(int(k))
+        return dict(
+            radix=k,
+            rho2_optimum=opt,
+            rho2_ratio=self.rho2 / opt,
+            bw_lb_at_optimum=B.ramanujan_bw_lb(self.n, k),
+            lambda_bound=bound,
+            lam=lam,
+            is_ramanujan=bool(lam <= bound + 1e-6),
+        )
+
+    # -- presentation ------------------------------------------------------
+    def report(self) -> str:
+        """Paper-style text report."""
+        g, bd = self.topo, self.bounds
+        lines = [
+            f"topology        : {g.name}",
+            f"spec            : {self.spec or '(hand-built)'}",
+            f"backend         : {self.backend} (n={self.n}, "
+            f"dense_threshold={self.dense_threshold})",
+            f"nodes / radix   : {self.n} / "
+            f"{int(self.radix) if self.radix is not None else 'irregular'}",
+            f"rho2 (measured) : {self.rho2:.5f}",
+        ]
+        cf = self.closed_forms
+        if cf and "rho2_ub" in cf:
+            rel = "=" if cf.get("rho2_exact") else "<="
+            lines.append(f"rho2 (paper)    : {rel} {cf['rho2_ub']:.5f}")
+        lines += [
+            f"diameter        : {self.diameter}  "
+            f"(Alon-Milman UB: {bd['alon_milman_diameter_ub']:.0f})",
+            f"bisection       : witnessed {self.bisection_witness:.0f}; "
+            f"Fiedler floor {bd['fiedler_bw_lb']:.0f}; "
+            f"m/2 cap {bd['first_moment_bw_ub']:.0f}",
+            f"fault tolerance : kappa >= rho2 = {self.rho2:.3f}",
+        ]
+        if self.radix is not None:
+            r = self.ramanujan
+            lines += [
+                "--- Ramanujan comparison (equal radix) ---",
+                f"rho2 optimum    : {r['rho2_optimum']:.5f} "
+                f"(this graph: {100 * r['rho2_ratio']:.1f}% of optimal)",
+                f"BW floor at opt : {r['bw_lb_at_optimum']:.0f} edges",
+                f"Ramanujan?      : {r['is_ramanujan']} "
+                f"(lambda={r['lam']:.4f}, bound={r['lambda_bound']:.4f})",
+            ]
+        return "\n".join(lines)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"Analysis({self.name}, n={self.n}, backend={self.backend})"

@@ -1,0 +1,273 @@
+"""The survey fan-out of the PyTorch port: one engine behind Table 1 and the
+LPS certification.
+
+``survey(specs, columns=...)`` builds every requested topology through the
+registry, wraps each in a lazy :class:`~repro_torch.api.analysis.Analysis`,
+batches same-shape Lanczos solves into a single batched call, and emits
+rows / CSV / JSON.  The main-path column sets are ported
+(:data:`DEFAULT_COLUMNS`, :data:`TABLE1_COLUMNS`, :data:`RAMANUJAN_COLUMNS`);
+the reference's ``faults=``, ``routing=``, ``simulate=`` and ``workload=``
+keywords and their column sets are not yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import pathlib
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core import spectral as S
+from repro_torch.core.graphs import Topology
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+from .analysis import Analysis
+from .registry import REGISTRY
+
+__all__ = ["survey", "SurveyResult", "COLUMNS", "DEFAULT_COLUMNS",
+           "TABLE1_COLUMNS", "RAMANUJAN_COLUMNS"]
+
+
+def _round(x: float, nd: int = 6) -> float:
+    return round(float(x), nd)
+
+
+def csv_field(v) -> str:
+    """One CSV cell, quoted/escaped when needed (shared by every CSV writer)."""
+    s = "" if v is None else str(v)
+    if any(ch in s for ch in ',"\n'):
+        s = '"' + s.replace('"', '""') + '"'
+    return s
+
+
+def _forms_value(a: Analysis, key: str) -> Any:
+    cf = a.closed_forms
+    return _round(cf[key]) if cf and key in cf else None
+
+
+#: column name -> Analysis -> value.  Scripts may register more.
+COLUMNS: Dict[str, Callable[[Analysis], Any]] = {
+    "topology": lambda a: a.family or a.name,
+    "instance": lambda a: a.name,
+    "spec": lambda a: a.spec or a.name,
+    "nodes": lambda a: a.n,
+    "radix": lambda a: None if a.radix is None else int(a.radix)
+        if float(a.radix).is_integer() else a.radix,
+    "backend": lambda a: a.backend,
+    "bipartite": lambda a: bool(a.topo.meta.get("bipartite")),
+    "rho2": lambda a: _round(a.rho2),
+    "rho2_ub_paper": lambda a: _forms_value(a, "rho2_ub"),
+    "rho2_lb_paper": lambda a: _forms_value(a, "rho2_lb"),
+    "rho2_ok": lambda a: _closed_form_ok(a),
+    "lambda": lambda a: _round(a.lambda_nontrivial),
+    "ramanujan_bound": lambda a: _round(a.ramanujan["lambda_bound"]),
+    "is_ramanujan": lambda a: a.ramanujan["is_ramanujan"],
+    "diameter": lambda a: a.diameter,
+    "alon_milman_diam_ub": lambda a: a.bounds["alon_milman_diameter_ub"],
+    "bw_witness": lambda a: a.bisection_witness,
+    "bw_fiedler_lb": lambda a: _round(a.bounds["fiedler_bw_lb"], 2),
+    "bw_ub_paper": lambda a: _forms_value(a, "bw_ub"),
+    "bw_m_half_ub": lambda a: a.bounds["first_moment_bw_ub"],
+    "ramanujan_rho2": lambda a: _round(a.ramanujan["rho2_optimum"]),
+    "rho2_gap_ratio": lambda a: _round(a.ramanujan["rho2_ratio"], 4),
+}
+
+DEFAULT_COLUMNS = [
+    "topology", "spec", "nodes", "radix", "backend", "rho2", "rho2_ub_paper",
+    "rho2_ok", "bw_fiedler_lb", "bw_witness", "bw_ub_paper",
+    "ramanujan_rho2", "rho2_gap_ratio",
+]
+
+#: the exact schema of the reference's benchmarks/out/table1.csv
+TABLE1_COLUMNS = [
+    "topology", "instance", "nodes", "radix", "rho2", "rho2_ub_paper",
+    "rho2_ok", "bw_fiedler_lb", "bw_witness", "bw_ub_paper",
+    "ramanujan_rho2", "rho2_gap_ratio", "seconds",
+]
+
+#: the LPS certification schema (the reference's benchmarks/lps_bench.py)
+RAMANUJAN_COLUMNS = [
+    "topology", "spec", "nodes", "radix", "bipartite", "backend", "lambda",
+    "ramanujan_bound", "is_ramanujan", "diameter", "alon_milman_diam_ub",
+    "seconds",
+]
+
+
+def _closed_form_ok(a: Analysis, tol: float = 1e-6) -> Optional[bool]:
+    """Measured rho2 against the registered closed form (None if no form)."""
+    cf = a.closed_forms
+    if not cf or not ({"rho2_ub", "rho2_lb"} & set(cf)):
+        return None
+    ok = True
+    if "rho2_ub" in cf:
+        if cf.get("rho2_exact"):
+            ok &= abs(a.rho2 - cf["rho2_ub"]) <= tol * max(1.0, cf["rho2_ub"])
+        else:
+            ok &= a.rho2 <= cf["rho2_ub"] + tol
+    if "rho2_lb" in cf:
+        ok &= a.rho2 >= cf["rho2_lb"] - tol
+    return bool(ok)
+
+
+@dataclasses.dataclass
+class SurveyResult:
+    """Rows + column order, with CSV/JSON emitters.
+
+    ``rows`` hold one dict per surveyed instance (eigenvalues dimensionless,
+    diameters in hops, ``seconds`` wall time); ``columns`` fixes the emission
+    order.
+    """
+    rows: List[Dict[str, Any]]
+    columns: List[str]
+
+    def __iter__(self):
+        return iter(self.rows)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def to_csv(self, path: Optional[str] = None) -> str:
+        """Render rows as CSV in column order (quoting comma-bearing cells).
+
+        Args: ``path`` — optional file to write (parents created).
+        Returns the CSV text either way.
+        """
+        text = "\n".join(
+            [",".join(self.columns)]
+            + [",".join(csv_field(r.get(c)) for c in self.columns)
+               for r in self.rows])
+        if path is not None:
+            p = pathlib.Path(path)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            p.write_text(text)
+        return text
+
+    def to_json(self, path: Optional[str] = None) -> str:
+        """Render rows as a JSON array (numpy scalars/arrays coerced).
+
+        Args: ``path`` — optional file to write (parents created).
+        Returns the JSON text either way.
+        """
+        text = json.dumps(self.rows, indent=2, default=_json_default)
+        if path is not None:
+            p = pathlib.Path(path)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            p.write_text(text)
+        return text
+
+
+def _json_default(x):
+    if isinstance(x, (np.integer,)):
+        return int(x)
+    if isinstance(x, (np.floating,)):
+        return float(x)
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    raise TypeError(f"not JSON-serializable: {type(x)}")
+
+
+def _as_analysis(spec: Union[str, Topology, Analysis], **kwargs) -> Analysis:
+    if isinstance(spec, Analysis):
+        return spec
+    if isinstance(spec, Topology):
+        return Analysis(spec, **kwargs)
+    return Analysis(REGISTRY.build(spec), **kwargs)
+
+
+def _batch_lanczos_rho2(analyses: Sequence[Analysis]) -> Dict[int, float]:
+    """Solve same-shape Lanczos-backend instances in one batched call each.
+
+    Groups by (device, n, gather-table width, iters, seed); groups of >= 2
+    regular, non-bipartite graphs share a single ``rho2_lanczos_batched``
+    solve (the (B, n, k) form of the spmv kernel) whose results pre-populate
+    each Analysis's rho2 cache.  Everything else falls back to the
+    per-instance path on first access.  Returns each batched analysis's share
+    of its group's solve time (id(a) -> seconds) so row timings stay honest.
+    """
+    groups: Dict[tuple, List[Analysis]] = {}
+    for a in analyses:
+        if a.backend != "lanczos" or "rho2" in a.__dict__:
+            continue
+        if a.topo.meta.get("bipartite") or a.radix is None:
+            continue
+        deg = np.bincount(a.topo.edges.reshape(-1), minlength=a.n)
+        key = (str(a.device), a.n, int(deg.max()), a.lanczos_iters, a.seed)
+        groups.setdefault(key, []).append(a)
+    shares: Dict[int, float] = {}
+    for (_, n, width, iters, seed), grp in groups.items():
+        if len(grp) < 2:
+            continue
+        obs.count("survey/lanczos_groups")
+        obs.count("survey/lanczos_grouped_instances", len(grp))
+        t0 = time.time()
+        vals = S.rho2_lanczos_batched([a.topo for a in grp], iters=iters,
+                                      seed=seed, device=grp[0].device)
+        share = (time.time() - t0) / len(grp)
+        for a, v in zip(grp, vals):
+            a.__dict__["rho2"] = v      # pre-populate the cached_property
+            shares[id(a)] = share
+    return shares
+
+
+def survey(specs: Sequence[Union[str, Topology, Analysis]],
+           columns: Optional[Sequence[str]] = None, *,
+           dense_threshold: int = S.DENSE_THRESHOLD,
+           lanczos_iters: int = 200, seed: int = 0,
+           batch_lanczos: bool = True,
+           trace: Union[bool, str, pathlib.Path, None] = None,
+           device: Union[str, torch.device, None] = DEFAULT_DEVICE
+           ) -> SurveyResult:
+    """Uniform spectral survey over many topologies (the paper's Table 1).
+
+    ``specs``: spec strings (``"slimfly(q=13)"``), Topology instances, or
+    pre-built Analysis sessions.  ``columns``: names from :data:`COLUMNS`
+    (plus ``"seconds"``, filled with per-row wall time); defaults to
+    :data:`DEFAULT_COLUMNS`.  Instances with ``n > dense_threshold`` route
+    through the Lanczos path on ``device`` automatically (default
+    ``"cuda"``; raises without a card unless ``device="cpu"``); same-shape
+    groups share one batched solve.
+
+    ``trace``: ``True`` records :mod:`repro_torch.obs` spans for the whole
+    survey (build / batched-solve / per-row), readable afterwards via
+    ``obs.trace_events()`` / ``obs.metrics_report()``; a path writes the
+    Chrome-trace-event ``trace.json`` there on exit (perfetto-loadable).
+    """
+    dev = resolve_device(device)
+    cols = list(columns if columns is not None else DEFAULT_COLUMNS)
+    unknown = [c for c in cols if c != "seconds" and c not in COLUMNS]
+    if unknown:
+        raise KeyError(f"unknown survey column(s) {unknown}; available: "
+                       f"{sorted(COLUMNS)} + ['seconds']")
+    with contextlib.ExitStack() as stack:
+        if trace not in (None, False):
+            path = None if trace is True else trace
+            stack.enter_context(obs.tracing(path))
+        analyses, build_secs = [], []
+        with obs.span("survey/build", phase="build", specs=len(specs)):
+            for s in specs:
+                t0 = time.time()
+                analyses.append(_as_analysis(
+                    s, dense_threshold=dense_threshold,
+                    lanczos_iters=lanczos_iters, seed=seed, device=dev))
+                build_secs.append(time.time() - t0)
+        solve_shares: Dict[int, float] = {}
+        if batch_lanczos:
+            with obs.span("survey/batched_lanczos", phase="execute"):
+                solve_shares = _batch_lanczos_rho2(analyses)
+        rows = []
+        for a, built in zip(analyses, build_secs):
+            t0 = time.time()
+            with obs.span("survey/row", phase="execute", instance=a.name,
+                          family=a.family or a.name):
+                row = {c: COLUMNS[c](a) for c in cols if c != "seconds"}
+            if "seconds" in cols:
+                # construction + (amortized) batched solve + lazy evaluation
+                row["seconds"] = round(
+                    built + solve_shares.get(id(a), 0.0) + time.time() - t0, 2)
+            rows.append(row)
+    return SurveyResult(rows=rows, columns=cols)
