@@ -4,7 +4,11 @@ The paper's main measurement runs end to end here: build a topology from a
 registry spec (:mod:`repro_torch.api.registry`), measure rho_2 / lambda
 (dense host oracle, or Lanczos on the card through the hand-written spmv
 kernel of :mod:`repro_torch.kernels.spmv`), check it against the Table-1
-bounds, and emit survey rows (:mod:`repro_torch.api`).
+bounds, and emit survey rows (:mod:`repro_torch.api`).  The LM stack
+serves the reference's model configs (:mod:`repro_torch.configs`,
+:mod:`repro_torch.models`, :mod:`repro_torch.serve`): prefill and greedy
+decode, with RMSNorm, prefill attention and the Mamba prefill scan as
+hand-written kernels on the card.
 
 The package imports torch, numpy and scipy — never jax, and nothing of the
 reference package.  Entry points run on ``device="cuda"`` unless the caller

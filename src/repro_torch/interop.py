@@ -1,12 +1,12 @@
 """Carry state from outside the port into it, as plain numpy.
 
 The port imports nothing of the reference package; a caller that holds a
-graph or start vectors made elsewhere (the parity tests hold the
-reference's) passes their arrays through these helpers.
+graph, start vectors or model weights made elsewhere (the parity tests hold
+the reference's) passes their arrays through these helpers.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -14,7 +14,7 @@ import torch
 from repro_torch.core.graphs import Topology
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["topology_from_arrays", "to_device"]
+__all__ = ["topology_from_arrays", "to_device", "params_from_reference"]
 
 
 def topology_from_arrays(name: str, n: int, edges: np.ndarray,
@@ -37,3 +37,48 @@ def to_device(array: np.ndarray,
     tensor of ``dtype`` on the port's ``device``."""
     return torch.as_tensor(np.asarray(array), dtype=dtype,
                            device=resolve_device(device))
+
+
+def _tensor_from_numpy(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A copy of ``a`` on ``dev`` in the same dtype; bfloat16 arrays (numpy
+    has no native bfloat16: they arrive as ml_dtypes' extension type) move
+    as their raw 16-bit patterns."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        raw = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return raw.view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def params_from_reference(tree: Dict[str, Any], cfg,
+                          device: Union[str, torch.device, None] = DEFAULT_DEVICE
+                          ) -> Dict[str, Any]:
+    """The port's LM parameters from the reference's parameter tree, given
+    as numpy arrays with the same nesting (``{"embed", "blocks": [...],
+    "final_norm", "head"}``, block leaves with their leading (R,) axis).
+    Every leaf is copied path by path, in its dtype, to ``device``; the tree
+    must have exactly the leaves of ``models.model.param_shapes(cfg)``."""
+    from repro_torch.models.model import param_shapes
+
+    dev = resolve_device(device)
+
+    def walk(shapes, sub, path):
+        if isinstance(shapes, dict):
+            if not isinstance(sub, dict) or set(sub) != set(shapes):
+                raise ValueError(f"params_from_reference: keys at {path!r} "
+                                 f"are {sorted(sub) if isinstance(sub, dict) else type(sub)}, "
+                                 f"expected {sorted(shapes)}")
+            return {k: walk(shapes[k], sub[k], f"{path}/{k}") for k in shapes}
+        if isinstance(shapes, list):
+            if len(sub) != len(shapes):
+                raise ValueError(f"params_from_reference: {path!r} has "
+                                 f"{len(sub)} entries, expected {len(shapes)}")
+            return [walk(s, x, f"{path}/{i}")
+                    for i, (s, x) in enumerate(zip(shapes, sub))]
+        t = _tensor_from_numpy(sub, dev)
+        if tuple(t.shape) != tuple(shapes):
+            raise ValueError(f"params_from_reference: {path!r} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(shapes)}")
+        return t
+
+    return walk(param_shapes(cfg), tree, "")

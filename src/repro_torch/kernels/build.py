@@ -23,12 +23,15 @@ import tempfile
 import threading
 from typing import Dict, List, Sequence
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "build_all", "load"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+#: every kernel source of the port: K1 (spmv), K5, K3, K4
+KERNELS = ("spmv", "rmsnorm", "flash_attention", "mamba_scan")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -51,7 +54,7 @@ def _library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names: Sequence[str]) -> List[pathlib.Path]:
+def build_all(names: Sequence[str] = KERNELS) -> List[pathlib.Path]:
     """Compile every named source that has no up-to-date library, one
     ``nvcc`` process per source, all started together.  Raises with the
     compiler's output if any of them fails."""

@@ -1,0 +1,133 @@
+"""Causal / non-causal flash attention: kernel K3 of the port, with its plain
+PyTorch version.
+
+Both take the model's layout: ``q`` (B, Sq, H, hd), ``k`` and ``v``
+(B, Sk, Kv, hd) with ``H % Kv == 0`` (GQA: query head h reads kv head
+h // (H // Kv)), and return (B, Sq, H, hd) in ``q``'s dtype.  The causal
+mask is aligned at position 0 of both (``q_pos >= k_pos``), as the
+reference's Pallas kernel and its ``attention_ref`` do.
+
+* :func:`attention_ref`        — plain PyTorch softmax attention in f32, any
+  device: the CPU path's oracle, and the version the kernel is held against
+  on the card;
+* :func:`flash_attention_cuda` — the wrapper of kernel K3
+  (``csrc/flash_attention.cu``), the Hopper port of the reference's Pallas
+  ``flash_attention`` (``src/repro/kernels/flash_attention/kernel.py``) with
+  its ``ops.gqa_flash_attention`` layout adaptation.  It takes CUDA tensors
+  only: it launches the kernel or raises, and never falls back.
+
+The model's prefill attention (``repro_torch.models.transformer``) routes a
+CUDA tensor here and a CPU tensor to ``models.attention.chunked_attention``.
+:func:`launches` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+__all__ = ["attention_ref", "flash_attention_cuda", "launches",
+           "reset_launches"]
+
+_LAUNCHES = 0
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def launches() -> int:
+    """Kernel launches made by :func:`flash_attention_cuda` since the last
+    reset."""
+    return _LAUNCHES
+
+
+def reset_launches() -> None:
+    global _LAUNCHES
+    _LAUNCHES = 0
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch attention: softmax(q k^T / sqrt(hd)) v in f32."""
+    B, Sq, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qg = q.float().reshape(B, Sq, Kv, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """K3's library, built on first use, with its C signatures declared."""
+    from . import build
+
+    lib = build.load("flash_attention")
+    lib.flash_attention_launch.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """Kernel K3 on the card (same result as :func:`attention_ref`).
+
+    ``q``, ``k``, ``v`` float32 or bfloat16, one dtype, on one CUDA device,
+    in the layout above.  float32 takes head widths up to 128 (the tiles
+    must fit one block's shared memory), bfloat16 up to 256.  Raises on any
+    other input and when the launch reports an error."""
+    global _LAUNCHES
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got q on "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not "
+                         "supported (float32, bfloat16)")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_cuda: {name} is {t.dtype} on "
+                             f"{t.device}; q is {q.dtype} on {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention_cuda: q (B, Sq, H, hd), k and v "
+                         f"(B, Sk, Kv, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or Kv == 0 or H % Kv:
+        raise ValueError("flash_attention_cuda: k, v must be (B, Sk, Kv, hd) "
+                         f"with H % Kv == 0; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    limit = 128 if q.dtype == torch.float32 else 256
+    if hd > limit:
+        raise ValueError(f"flash_attention_cuda: head width {hd} > {limit} "
+                         f"for {q.dtype}")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(qc)
+    if o.numel() == 0:
+        return o
+    if Sk == 0:
+        raise ValueError("flash_attention_cuda: no keys (Sk == 0)")
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _LAUNCHES += 1
+        rc = lib.flash_attention_launch(
+            _DTYPE_CODE[q.dtype], qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+            o.data_ptr(), B, Sq, Sk, H, Kv, hd, int(bool(causal)),
+            1.0 / math.sqrt(hd), stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention_cuda: kernel launch failed: "
+                           + lib.flash_attention_error_string(rc).decode())
+    return o

@@ -1,0 +1,101 @@
+"""Fused RMSNorm: kernel K5 of the port, with its plain PyTorch version.
+
+    y = x * rsqrt(mean(x**2, axis=-1) + eps) * w        over rows of (..., D)
+
+computed in float32 and returned in ``x``'s dtype.
+
+* :func:`rmsnorm_ref`  — plain PyTorch, any device: the CPU path, and the
+  version the kernel is held against on the card;
+* :func:`rmsnorm_cuda` — the wrapper of kernel K5 (``csrc/rmsnorm.cu``), the
+  Hopper port of the reference's Pallas ``rmsnorm``
+  (``src/repro/kernels/rmsnorm/kernel.py``).  It takes CUDA tensors only: it
+  launches the kernel or raises, and never falls back.
+
+``repro_torch.models.layers.rms_norm`` routes between the two by device:
+a CUDA tensor always goes to the kernel.  :func:`launches` counts the
+kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+__all__ = ["rmsnorm_ref", "rmsnorm_cuda", "launches", "reset_launches"]
+
+_LAUNCHES = 0
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def launches() -> int:
+    """Kernel launches made by :func:`rmsnorm_cuda` since the last reset."""
+    return _LAUNCHES
+
+
+def reset_launches() -> None:
+    global _LAUNCHES
+    _LAUNCHES = 0
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+                ) -> torch.Tensor:
+    """Plain PyTorch RMSNorm over the last axis, in float32."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """K5's library, built on first use, with its C signatures declared."""
+    from . import build
+
+    lib = build.load("rmsnorm")
+    lib.rmsnorm_launch.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.rmsnorm_launch.restype = ctypes.c_int
+    lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
+    lib.rmsnorm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+                 ) -> torch.Tensor:
+    """Kernel K5 on the card (same result as :func:`rmsnorm_ref`).
+
+    ``x`` (..., D) float32 or bfloat16 on a CUDA device; ``w`` (D,) on the
+    same device in the same dtype (every config keeps its norms in its
+    compute dtype).  Raises on any other input and when the launch reports
+    an error."""
+    global _LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_cuda needs CUDA tensors, got x on {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"rmsnorm_cuda: x dtype {x.dtype} not supported "
+                         "(float32, bfloat16)")
+    if x.dim() < 1 or w.shape != (x.shape[-1],):
+        raise ValueError(f"rmsnorm_cuda: w has shape {tuple(w.shape)}; "
+                         f"expected ({x.shape[-1] if x.dim() else '?'},)")
+    if w.device != x.device or w.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_cuda: w is {w.dtype} on {w.device}; x is "
+                         f"{x.dtype} on {x.device}")
+    D = int(x.shape[-1])
+    rows = x.numel() // D if D else 0
+    xc = x.contiguous()
+    wc = w.contiguous()
+    y = torch.empty_like(xc)
+    if rows == 0 or D == 0:
+        return y
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _LAUNCHES += 1
+        rc = lib.rmsnorm_launch(_DTYPE_CODE[x.dtype], xc.data_ptr(),
+                                wc.data_ptr(), y.data_ptr(), rows, D,
+                                float(eps), stream)
+    if rc != 0:
+        raise RuntimeError("rmsnorm_cuda: kernel launch failed: "
+                           + lib.rmsnorm_error_string(rc).decode())
+    return y

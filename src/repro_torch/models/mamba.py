@@ -1,0 +1,213 @@
+"""Mamba-1 selective SSM block (falcon-mamba / jamba substrate).
+
+The port of the reference's ``models/mamba.py``.  Prefill: on the card the
+selective scan is the hand-written kernel K4
+(:mod:`repro_torch.kernels.mamba_scan`), which also returns the final state
+for the decode cache; on the CPU it is ``selective_scan_chunked``, the time
+chunks in order with an associative (or sequential) scan inside each chunk,
+so the (B, L, d_inner, N) working set stays one chunk long.  Decode is a
+single recurrence step over (conv_state, ssm_state), plain PyTorch
+everywhere.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import mamba_scan as K4
+
+__all__ = ["mamba_params_shapes", "mamba_forward", "mamba_prefill",
+           "mamba_decode_step", "selective_scan_chunked", "selective_scan_ref"]
+
+_SCAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# --------------------------------------------------------------------------
+# selective scan
+# --------------------------------------------------------------------------
+
+def _ssm_inputs(x, delta, A, B_t, C_t):
+    """a_t = exp(delta_t A) (B,L,Di,N); b_t = delta_t * B_t * x_t."""
+    a = torch.exp(delta[..., None] * A[None, None])               # (B,L,Di,N)
+    b = (delta * x)[..., None] * B_t[:, :, None, :]               # (B,L,Di,N)
+    return a, b
+
+
+def selective_scan_ref(x, delta, A, B_t, C_t, D) -> torch.Tensor:
+    """Naive sequential oracle: h_t = a_t h_{t-1} + b_t; y_t = C_t.h_t + D x_t.
+
+    x/delta: (B, L, Di); A: (Di, N); B_t/C_t: (B, L, N); D: (Di,).
+    """
+    a, b = _ssm_inputs(x, delta, A, B_t, C_t)
+    a, b, c = a.float(), b.float(), C_t.float()
+    Bb, L, Di = x.shape
+    h = torch.zeros((Bb, Di, A.shape[1]), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(L):
+        h = a[:, t] * h + b[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    out = torch.stack(ys, dim=1) + x.float() * D[None, None]
+    return out.to(x.dtype)
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1):
+    """Inclusive scan of h -> a*h + b along ``dim`` (log-depth doubling):
+    returns (prod a, composed b) per position, the pair the reference's
+    ``jax.lax.associative_scan`` gives with the same combine."""
+    n = a.shape[dim]
+    step = 1
+    while step < n:
+        a_prev = a.narrow(dim, 0, n - step)
+        b_prev = b.narrow(dim, 0, n - step)
+        a_cur = a.narrow(dim, step, n - step)
+        b_cur = b.narrow(dim, step, n - step)
+        a = torch.cat([a.narrow(dim, 0, step), a_prev * a_cur], dim=dim)
+        b = torch.cat([b.narrow(dim, 0, step), a_cur * b_prev + b_cur], dim=dim)
+        step *= 2
+    return a, b
+
+
+def selective_scan_chunked(x, delta, A, B_t, C_t, D, chunk: int = 256,
+                           h0: Optional[torch.Tensor] = None,
+                           scan_dtype: torch.dtype = torch.float32,
+                           impl: str = "assoc"
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked scan; returns (y, h_final).  Same math as selective_scan_ref."""
+    Bb, L, Di = x.shape
+    N = A.shape[1]
+    chunk = min(chunk, L)
+    pad = (-L) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        delta = F.pad(delta, (0, 0, 0, pad))
+        B_t = F.pad(B_t, (0, 0, 0, pad))
+        C_t = F.pad(C_t, (0, 0, 0, pad))
+    Lp = L + pad
+    h = (torch.zeros((Bb, Di, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    ys = []
+    for c0 in range(0, Lp, chunk):
+        xc, dc = x[:, c0:c0 + chunk], delta[:, c0:c0 + chunk]
+        bc, cc = B_t[:, c0:c0 + chunk], C_t[:, c0:c0 + chunk]
+        if impl == "seq":
+            # time-sequential: a_t/b_t built per step, y emitted directly
+            yc = []
+            for t in range(xc.shape[1]):
+                d_t = dc[:, t]
+                a_t = torch.exp(d_t[..., None].float() * A[None])
+                b_t = ((d_t * xc[:, t])[..., None].float()
+                       * bc[:, t, None, :].float())
+                h = a_t * h + b_t
+                yc.append(torch.einsum("bdn,bn->bd", h, cc[:, t].float()))
+            ys.append(torch.stack(yc, dim=1))
+            continue
+        a, b = _ssm_inputs(xc, dc, A, bc, cc)
+        a_cum, b_cum = _assoc_scan(a.to(scan_dtype), b.to(scan_dtype))
+        h_t = a_cum.float() * h[:, None] + b_cum.float()            # (B,c,Di,N)
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_t, cc.float()))
+        h = h_t[:, -1]
+    y = torch.cat(ys, dim=1)[:, :L]
+    out = y + x[:, :L].float() * D[None, None]
+    return out.to(x.dtype), h
+
+
+def _scan(u, delta, A, B_t, C_t, D, cfg, impl: str = "assoc",
+          scan_dtype: torch.dtype = torch.float32):
+    """The prefill scan: kernel K4 on the card, else the chunked plain scan."""
+    if u.device.type == "cuda":
+        return K4.mamba_scan_cuda(u, delta, A, B_t, C_t, D)
+    return selective_scan_chunked(u, delta, A, B_t, C_t, D,
+                                  chunk=cfg.mamba_chunk,
+                                  scan_dtype=scan_dtype, impl=impl)
+
+
+# --------------------------------------------------------------------------
+# full mamba block
+# --------------------------------------------------------------------------
+
+def mamba_params_shapes(cfg) -> Dict[str, tuple]:
+    D, Di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                      cfg.ssm_conv)
+    return dict(in_proj=(D, 2 * Di), conv_w=(K, Di), conv_b=(Di,),
+                x_proj=(Di, R + 2 * N), dt_proj=(R, Di), dt_bias=(Di,),
+                A_log=(Di, N), D=(Di,), out_proj=(Di, D), norm=(D,))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv along time via K shifted adds. x: (B, L, Di)."""
+    K = w.shape[0]
+    if state is not None:                       # prepend cached context
+        x_ext = torch.cat([state, x], dim=1)
+    else:
+        x_ext = F.pad(x, (0, 0, K - 1, 0))
+    L = x.shape[1]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for k in range(K):
+        y = y + x_ext[:, k:k + L].float() * w[k][None, None]
+    return (y + b[None, None]).to(x.dtype)
+
+
+def _matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the promoted dtype of the two, as jnp's matmul promotes
+    (decode feeds f32 activations to bf16 projections)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
+def _ssm_projections(params, u, cfg):
+    N, R = cfg.ssm_state, cfg.dt_rank
+    proj = _matmul(u, params["x_proj"])                           # (B,L,R+2N)
+    dt, B_t, C_t = torch.split(proj, [R, N, N], dim=-1)
+    delta = F.softplus(_matmul(dt, params["dt_proj"]) + params["dt_bias"])
+    A = -torch.exp(params["A_log"].float())
+    return delta, A, B_t, C_t
+
+
+def mamba_forward(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (B, L, D) -> (B, L, D)."""
+    out, _ = mamba_prefill(params, x, cfg, impl=getattr(cfg, "ssm_impl",
+                                                        "assoc"),
+                           scan_dtype=_SCAN_DTYPES[getattr(
+                               cfg, "ssm_scan_dtype", "float32")])
+    return out
+
+
+def mamba_prefill(params: Dict, x: torch.Tensor, cfg, impl: str = "assoc",
+                  scan_dtype: torch.dtype = torch.float32
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """Forward over the prompt, returning the decode cache."""
+    Di, K = cfg.d_inner, cfg.ssm_conv
+    xz = x @ params["in_proj"]
+    u, z = torch.split(xz, [Di, Di], dim=-1)
+    conv_state = u[:, -(K - 1):, :]                               # raw inputs tail
+    uc = F.silu(_causal_conv(u, params["conv_w"], params["conv_b"]))
+    delta, A, B_t, C_t = _ssm_projections(params, uc, cfg)
+    y, h_final = _scan(uc, delta, A, B_t, C_t, params["D"].float(), cfg,
+                       impl=impl, scan_dtype=scan_dtype)
+    out = (y * F.silu(z)) @ params["out_proj"]
+    return out, dict(conv=conv_state, ssm=h_final)
+
+
+def mamba_decode_step(params: Dict, x: torch.Tensor, cache: Dict, cfg
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """x: (B, 1, D); cache: {conv: (B, K-1, Di), ssm: (B, Di, N)}."""
+    Di = cfg.d_inner
+    xz = x @ params["in_proj"]
+    u, z = torch.split(xz, [Di, Di], dim=-1)
+    conv_in = torch.cat([cache["conv"], u], dim=1)               # (B, K, Di)
+    w = params["conv_w"]
+    uc = torch.einsum("bkd,kd->bd", conv_in.float(),
+                      w.float()) + params["conv_b"]
+    u1 = F.silu(uc)[:, None]                                      # (B,1,Di)
+    delta, A, B_t, C_t = _ssm_projections(params, u1, cfg)
+    a = torch.exp(delta[..., None] * A[None, None])[:, 0]         # (B,Di,N)
+    b = ((delta * u1)[..., None] * B_t[:, :, None, :])[:, 0]
+    h = a.float() * cache["ssm"] + b.float()
+    y = torch.einsum("bdn,bn->bd", h, C_t[:, 0].float())
+    y = (y[:, None] + u1.float() * params["D"][None, None]).to(x.dtype)
+    out = (y * F.silu(z)) @ params["out_proj"]
+    new_cache = dict(conv=conv_in[:, 1:], ssm=h)
+    return out, new_cache

@@ -1,0 +1,190 @@
+"""LM model wrapper: params init, forward, prefill/decode.
+
+The port of the reference's ``models/model.py`` serving half
+(``loss_fn`` and training are not ported yet).  Parameters are a plain
+dict of tensors with the reference's tree and names:
+``{"embed", "blocks": [per-pattern-position dict with a leading (R,) axis],
+"final_norm", "head"}``, so weights carry over path by path
+(``repro_torch.interop.params_from_reference``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Union
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+from .layers import init_linear, mrope_positions, rms_norm, rope_angles
+from .transformer import (block_param_shapes, blocks_decode, blocks_forward,
+                          blocks_prefill, init_block_cache)
+
+__all__ = ["param_shapes", "init_params", "forward_hidden", "prefill",
+           "decode_step", "init_cache", "make_rope", "dtype_of"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``param_dtype`` / ``compute_dtype``."""
+    return _DTYPES[name]
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
+    """Nested dict of shape tuples (leading repeat axis on block params)."""
+    R = cfg.n_repeats
+
+    def mark(tree):
+        if isinstance(tree, dict):
+            return {k: mark(v) for k, v in tree.items()}
+        return (R, *tree)
+
+    out: Dict[str, Any] = dict(
+        embed=(cfg.vocab_size, cfg.d_model),
+        blocks=[mark(block_param_shapes(cfg, spec)) for spec in cfg.pattern],
+        final_norm=(cfg.d_model,))
+    if not cfg.tie_embeddings:
+        out["head"] = (cfg.d_model, cfg.vocab_size)
+    return out
+
+
+_BIAS_NAMES = {"bq", "bk", "bv", "conv_b", "dt_bias"}
+
+
+def init_params(cfg: ArchConfig, seed: int = 0,
+                device: Union[str, torch.device, None] = DEFAULT_DEVICE
+                ) -> Dict[str, Any]:
+    """Random parameters drawn on ``device`` from a ``torch.Generator``
+    seeded with ``seed``: truncated normal / sqrt(fan_in) for every weight,
+    then the reference's special initialisation (``_fix_special_init``)."""
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.param_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def build(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: build(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [build(v, name) for v in tree]
+        return _special_init(name, tree, dtype, gen, dev)
+
+    return build(param_shapes(cfg))
+
+
+def _special_init(name: str, shape, dtype, gen, dev) -> torch.Tensor:
+    """One leaf: the reference's ``_fix_special_init`` applied to a draw —
+    norms 1, biases 0, ``A_log = log(1..N)`` and ``D = 1`` in f32, the
+    embedding rescaled to std 0.02; every other weight the draw itself."""
+    if name.startswith("norm") or name == "final_norm":
+        return torch.ones(shape, dtype=dtype, device=dev)
+    if name in _BIAS_NAMES:
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if name == "A_log":   # mamba: A = -exp(A_log); A_log = log(1..N)
+        N = shape[-1]
+        base = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                      device=dev))
+        return base.expand(shape).contiguous()
+    if name == "D":
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+    d = init_linear(shape, dtype, gen, dev)
+    if name == "embed":
+        std = torch.clamp(d.float().std(correction=0), min=1e-6)
+        d = (d.float() / std * 0.02).to(dtype)
+    return d
+
+
+# --------------------------------------------------------------------------
+# rope helper
+# --------------------------------------------------------------------------
+
+def make_rope(cfg: ArchConfig, B: int, S: int, offset: int = 0, device=None):
+    if not cfg.causal:
+        return None                      # encoder-only: frontend supplies pos info
+    if cfg.mrope_sections is not None:
+        pos = mrope_positions(B, S, 0, device=device) + offset
+        return rope_angles(pos, cfg.head_dim, cfg.rope_theta,
+                           cfg.mrope_sections)
+    if isinstance(offset, torch.Tensor) and offset.dim() > 0:
+        pos = offset[:, None] + torch.arange(S, device=device)[None, :]
+    else:
+        pos = torch.arange(S, device=device)[None, :].repeat(B, 1) + offset
+    return rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def _embed_in(params, batch, cfg):
+    dtype = dtype_of(cfg.compute_dtype)
+    if "embeds" in batch:                     # stub frontends (vlm/audio)
+        return batch["embeds"].to(dtype)
+    return params["embed"][batch["tokens"].long()].to(dtype)
+
+
+def forward_hidden(params, batch, cfg):
+    """Final hidden states (before the final norm) and the MoE aux loss."""
+    x = _embed_in(params, batch, cfg)
+    B, S, _ = x.shape
+    rope = make_rope(cfg, B, S, device=x.device)
+    return blocks_forward(list(params["blocks"]), x, cfg, rope)
+
+
+def _head_weight(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["head"]
+
+
+def _logits(params, h, cfg):
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return (h @ _head_weight(params, cfg).to(h.dtype)).float()
+
+
+# --------------------------------------------------------------------------
+# serving: prefill + decode
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, B: int, max_len: int,
+               device=None) -> List[Dict]:
+    dtype = dtype_of(cfg.compute_dtype)
+    R = cfg.n_repeats
+    caches = []
+    for spec in cfg.pattern:
+        c = init_block_cache(cfg, spec, B, max_len, dtype, device)
+        caches.append({k: v.expand(R, *v.shape).clone() for k, v in c.items()})
+    return caches
+
+
+def prefill(params, batch, cfg, max_len: int):
+    """Returns (last-position logits (B, V) f32, caches).  Encoder-only:
+    (all logits (B, S, V), None)."""
+    x = _embed_in(params, batch, cfg)
+    B, S, _ = x.shape
+    rope = make_rope(cfg, B, S, device=x.device)
+    if not cfg.causal:
+        h, _ = blocks_forward(list(params["blocks"]), x, cfg, rope)
+        return _logits(params, h, cfg), None
+    h, caches = blocks_prefill(list(params["blocks"]), x, cfg, rope, max_len)
+    return _logits(params, h[:, -1:], cfg)[:, 0], caches
+
+
+def decode_step(params, token, caches, cur_pos: int, cfg):
+    """token: (B,) int (or (B, D) embeds for stub frontends); cur_pos: the
+    position being decoded.  Returns (logits (B, V) f32, new caches)."""
+    dtype = dtype_of(cfg.compute_dtype)
+    if token.dim() == 2:                   # stub frontend embeds
+        x = token.to(dtype)[:, None, :]
+    else:
+        x = params["embed"][token.long()].to(dtype)[:, None, :]
+    B = x.shape[0]
+    rope = make_rope(cfg, B, 1, offset=int(cur_pos), device=x.device)
+    h, new_caches = blocks_decode(list(params["blocks"]), caches, x, cfg,
+                                  rope, int(cur_pos))
+    return _logits(params, h, cfg)[:, 0], new_caches

@@ -1,0 +1,140 @@
+"""Token-choice top-k MoE with sort-based capacity dispatch.
+
+The port of the reference's ``models/moe.py``, plain PyTorch (the reference
+has no kernel here).  Routing is local to a group (one sequence): each group
+routes its own tokens with per-group capacity C = ceil(S*k/E * cf); tokens
+past an expert's capacity are dropped.  Dispatch and combine are gathers and
+scatters over the (G, E, C, D) slot tensor, and the expert FFN is one
+batched matmul per projection over the E axis.  The reference's per-group
+``vmap`` is written out as a leading group axis.
+
+``moe_ref`` is the capacity-unbounded dense oracle used by tests.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["moe_params_shapes", "moe_forward", "moe_ref", "capacity"]
+
+
+def capacity(tokens_per_group: int, n_experts: int, k: int, cf: float) -> int:
+    """Per-expert slot count C for one routing group.
+
+    ``ceil(tokens * k / n_experts * cf)``, floored at 1 — the padded slot
+    tensor is ``(n_experts, C, d_model)`` regardless of actual routing.
+    """
+    return max(1, math.ceil(tokens_per_group * k / n_experts * cf))
+
+
+def moe_params_shapes(cfg) -> Dict[str, tuple]:
+    D, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return dict(router=(D, E), wg=(E, D, F_), wu=(E, D, F_), wd=(E, F_, D),
+                norm=(D,))
+
+
+def _act(cfg):
+    if cfg.mlp_act == "silu":
+        return F.silu
+    return lambda a: F.gelu(a, approximate="tanh")
+
+
+def _route_group(router_logits: torch.Tensor, k: int, C: int, E: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Every group's routing at once.  router_logits: (G, S, E).
+
+    Returns (dispatch_idx (G, E, C) into each group's S*k assignment list
+    with sentinel S*k, gate (G, S, k), expert of each assignment (G, S*k),
+    valid mask (G, E, C)).
+    """
+    G, S, _ = router_logits.shape
+    dev = router_logits.device
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    expert_idx = torch.topk(probs, k, dim=-1).indices             # (G, S, k)
+    gate = torch.gather(probs, -1, expert_idx)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_expert = expert_idx.reshape(G, S * k)                    # (G, S*k)
+    ar = torch.arange(S * k, device=dev)
+    # stable sort by expert id (ties keep token order)
+    order = torch.argsort(flat_expert * (S * k) + ar, dim=-1)
+    sorted_expert = torch.gather(flat_expert, 1, order)
+    counts = torch.zeros(G, E, dtype=torch.long, device=dev).scatter_add_(
+        1, flat_expert, torch.ones_like(flat_expert))
+    starts = torch.cumsum(counts, dim=-1) - counts                # exclusive
+    rank = ar - torch.gather(starts, 1, sorted_expert)            # within-expert slot
+    slot = torch.where(rank < C, sorted_expert * C + rank,
+                       torch.full_like(rank, E * C))              # overflow -> dropped
+    dispatch = torch.full((G, E * C + 1), S * k, dtype=torch.long, device=dev)
+    dispatch.scatter_(1, slot, order)                             # sentinel slot E*C
+    dispatch = dispatch[:, :E * C].reshape(G, E, C)
+    valid = dispatch < S * k
+    return dispatch, gate, flat_expert, valid
+
+
+def moe_forward(params: Dict, x: torch.Tensor, cfg
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (G, S, D) grouped tokens -> (y, aux_loss)."""
+    G, S, D = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = capacity(S, E, k, cfg.capacity_factor)
+    if getattr(cfg, "moe_dispatch_dtype", "bfloat16").startswith("float8"):
+        raise NotImplementedError(
+            "moe_forward: the float8 dispatch payload is not ported")
+    logits = x @ params["router"].to(x.dtype)                     # (G, S, E)
+    dispatch, gate, flat_expert, valid = _route_group(logits, k, C, E)
+
+    # gather tokens into expert slots: token of assignment a is a // k
+    xpad = torch.cat([x, torch.zeros((G, 1, D), dtype=x.dtype,
+                                     device=x.device)], dim=1)    # sentinel row
+    token_idx = torch.where(valid, dispatch // k, torch.full_like(dispatch, S))
+    gidx = torch.arange(G, device=x.device)[:, None]
+    xe = xpad[gidx, token_idx.reshape(G, E * C)].reshape(G, E, C, D)
+
+    # expert FFN: (E, G*C, D) @ (E, D, F) per projection
+    act = _act(cfg)
+    xe_e = xe.permute(1, 0, 2, 3).reshape(E, G * C, D)
+    g = xe_e @ params["wg"].to(x.dtype)
+    u = xe_e @ params["wu"].to(x.dtype)
+    ye = (act(g) * u) @ params["wd"].to(x.dtype)                  # (E, G*C, D)
+    ye = ye.reshape(E, G, C, D).permute(1, 0, 2, 3)               # (G, E, C, D)
+
+    # combine: scatter expert outputs back to tokens with gate weights
+    gate_flat = torch.cat([gate.reshape(G, S * k),
+                           torch.zeros((G, 1), device=x.device)], dim=1)
+    assign_gate = torch.gather(
+        gate_flat, 1, torch.where(valid, dispatch, torch.full_like(
+            dispatch, S * k)).reshape(G, E * C)).reshape(G, E, C)
+    # bf16 accumulation, as the reference: each token sums <= k outputs
+    y = torch.zeros((G, S + 1, D), dtype=x.dtype, device=x.device)
+    y.index_put_((gidx[:, :, None].expand(G, E, C), token_idx),
+                 ye * assign_gate[..., None].to(ye.dtype), accumulate=True)
+    y = y[:, :S]
+
+    # switch-style load-balance aux loss
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = probs.mean(dim=(0, 1))                                   # (E,)
+    one_hot = F.one_hot(flat_expert.reshape(G, S, k)[..., 0], E).float()
+    ce = one_hot.reshape(-1, E).mean(dim=0)
+    aux = E * torch.sum(me * ce)
+    return y, aux
+
+
+def moe_ref(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Capacity-unbounded dense oracle: every token goes to its top-k experts."""
+    E, k = cfg.n_experts, cfg.experts_per_token
+    logits = x @ params["router"].to(x.dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    act = _act(cfg)
+    # run every expert on every token (test sizes only)
+    g = torch.einsum("gsd,edf->gsef", x, params["wg"].to(x.dtype))
+    u = torch.einsum("gsd,edf->gsef", x, params["wu"].to(x.dtype))
+    ye = torch.einsum("gsef,efd->gsed", act(g) * u, params["wd"].to(x.dtype))
+    mask = F.one_hot(idx, E).float() * gate[..., None]            # (G,S,k,E)
+    w = mask.sum(dim=2)                                           # (G,S,E)
+    return torch.einsum("gsed,gse->gsd", ye.float(), w).to(x.dtype)

@@ -1,0 +1,280 @@
+"""Block assembly: (attn | mamba) mixer + (dense | MoE) FFN, a loop over
+repeats.
+
+The port of the reference's ``models/transformer.py``.  A model is
+``pattern`` applied ``n_repeats`` times; parameters for pattern position p
+are stacked with a leading (R,) axis, and the reference's ``lax.scan`` over
+repeats is a Python loop over that axis here (so is the decode caches'
+leading axis).  There is no remat and no sharding on one card.
+
+Routing to the hand-written kernels, on a CUDA tensor: every ``norm1`` /
+``norm2`` goes to K5 (through ``layers.rms_norm``); prefill attention of a
+layer without a window goes to K3 (``kernels.flash_attention``); the Mamba
+prefill scan goes to K4 (through ``models.mamba``).  A windowed layer, or a
+query offset, raises ``NotImplementedError`` on the card: the K3 port has
+neither.  Decode attention is plain PyTorch everywhere.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import flash_attention as K3
+
+from .attention import chunked_attention
+from .layers import apply_rope, gated_mlp, rms_norm
+from .mamba import (mamba_decode_step, mamba_forward, mamba_params_shapes,
+                    mamba_prefill)
+from .moe import moe_forward, moe_params_shapes
+
+__all__ = ["block_param_shapes", "blocks_forward", "blocks_prefill",
+           "blocks_decode", "init_block_cache", "attn_cache_len"]
+
+
+# --------------------------------------------------------------------------
+# parameter shape declarations (one dict per pattern position; stacked by R)
+# --------------------------------------------------------------------------
+
+def _attn_shapes(cfg) -> Dict[str, tuple]:
+    D, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = dict(wq=(D, H * hd), wk=(D, Kv * hd), wv=(D, Kv * hd), wo=(H * hd, D))
+    if cfg.qkv_bias:
+        s.update(bq=(H * hd,), bk=(Kv * hd,), bv=(Kv * hd,))
+    return s
+
+
+def block_param_shapes(cfg, spec) -> Dict[str, Any]:
+    """Shapes for one pattern position (without the leading repeat axis)."""
+    D = cfg.d_model
+    p: Dict[str, Any] = dict(norm1=(D,))
+    if spec.kind == "attn":
+        p["attn"] = _attn_shapes(cfg)
+    else:
+        p["mamba"] = mamba_params_shapes(cfg)
+    if spec.moe:
+        p["norm2"] = (D,)
+        p["moe"] = moe_params_shapes(cfg)
+        del p["moe"]["norm"]
+    elif cfg.d_ff:
+        p["norm2"] = (D,)
+        p["mlp"] = dict(wg=(D, cfg.d_ff), wu=(D, cfg.d_ff), wd=(cfg.d_ff, D))
+    if spec.kind == "mamba":
+        del p["mamba"]["norm"]
+    return p
+
+
+# --------------------------------------------------------------------------
+# forward (train / prefill)
+# --------------------------------------------------------------------------
+
+def _qkv(p, x, cfg, S):
+    B = x.shape[0]
+    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, Kv, hd),
+            v.reshape(B, S, Kv, hd))
+
+
+def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
+                   return_kv: bool = False):
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, S)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    if q.device.type == "cuda":
+        if spec.window is not None or q_offset != 0:
+            raise NotImplementedError(
+                "prefill attention on the card: the flash-attention kernel "
+                "takes no sliding window and no query offset")
+        o = K3.flash_attention_cuda(q, k, v, causal=cfg.causal)
+    else:
+        o = chunked_attention(q, k, v, causal=cfg.causal, window=spec.window,
+                              q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk,
+                              q_offset=q_offset)
+    out = o.reshape(B, S, H * hd) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def _ffn_sublayer(p, x, cfg, spec) -> Tuple[torch.Tensor, torch.Tensor]:
+    if spec.moe:
+        return moe_forward(p["moe"], x, cfg)                      # groups = batch
+    return (gated_mlp(x, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"],
+                      cfg.mlp_act),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _one_block(spec, p, x, cfg, rope, cache_slice=None, cur_pos=None):
+    """Apply mixer + ffn.  If cache_slice is given we are decoding (S == 1)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = None
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if spec.kind == "attn":
+        if cache_slice is None:
+            h = _attn_sublayer(p["attn"], h, cfg, spec, rope)
+        else:
+            h, new_cache = _attn_decode(p["attn"], h, cfg, spec, rope,
+                                        cache_slice, cur_pos)
+    else:
+        if cache_slice is None:
+            h = mamba_forward(p["mamba"], h, cfg)
+        else:
+            h, new_cache = mamba_decode_step(p["mamba"], h, cache_slice, cfg)
+    x = x + h
+    if "norm2" in p:
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        h, aux = _ffn_sublayer(p, h, cfg, spec)
+        x = x + h
+    return x, aux, new_cache
+
+
+def _repeat(tree, r: int):
+    """Repeat ``r`` of a stacked parameter (or cache) dict."""
+    if isinstance(tree, dict):
+        return {k: _repeat(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _stack(trees: List[Dict]) -> Dict:
+    """Stack per-repeat dicts along a new leading (R,) axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def blocks_forward(block_params: List[Dict], x: torch.Tensor, cfg, rope
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Loop over repeats; returns (hidden, total_aux_loss)."""
+    h = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.n_repeats):
+        for spec, p in zip(cfg.pattern, block_params):
+            h, a, _ = _one_block(spec, _repeat(p, r), h, cfg, rope)
+            aux = aux + a
+    return h, aux
+
+
+# --------------------------------------------------------------------------
+# decode (+ cache plumbing)
+# --------------------------------------------------------------------------
+
+def attn_cache_len(cfg, spec, max_len: int) -> int:
+    if spec.window is not None:
+        return min(spec.window, max_len)
+    return max_len
+
+
+def init_block_cache(cfg, spec, B: int, max_len: int, dtype,
+                     device=None) -> Optional[Dict]:
+    """Cache dict for ONE pattern position (without the repeat axis)."""
+    if spec.kind == "attn":
+        L = attn_cache_len(cfg, spec, max_len)
+        Kv, hd = cfg.n_kv_heads, cfg.head_dim
+        return dict(k=torch.zeros((B, L, Kv, hd), dtype=dtype, device=device),
+                    v=torch.zeros((B, L, Kv, hd), dtype=dtype, device=device),
+                    pos=torch.full((L,), -1, dtype=torch.int32, device=device))
+    return dict(conv=torch.zeros((B, cfg.ssm_conv - 1, cfg.d_inner),
+                                 dtype=dtype, device=device),
+                ssm=torch.zeros((B, cfg.d_inner, cfg.ssm_state),
+                                dtype=torch.float32, device=device))
+
+
+def _attn_decode(p, x, cfg, spec, rope, cache, cur_pos: int):
+    B, S, D = x.shape            # S == 1
+    H, hd = cfg.n_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, 1)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    L = cache["k"].shape[1]
+    slot = cur_pos % L
+    kc = cache["k"].clone()
+    vc = cache["v"].clone()
+    posc = cache["pos"].clone()
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
+    posc[slot] = cur_pos
+    o = _decode_attn_with_slots(q, kc, vc, posc, cur_pos, spec.window)
+    out = o.reshape(B, 1, H * hd) @ p["wo"]
+    return out, dict(k=kc, v=vc, pos=posc)
+
+
+def _decode_attn_with_slots(q, k_cache, v_cache, slot_pos, cur_pos: int,
+                            window):
+    B, _, H, hd = q.shape
+    Kv = k_cache.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, Kv, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     k_cache.float()) / math.sqrt(hd)
+    valid = (slot_pos >= 0) & (slot_pos <= cur_pos)
+    if window is not None:
+        valid &= slot_pos > cur_pos - window
+    s = s.masked_fill(~valid[None, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def blocks_prefill(block_params: List[Dict], x: torch.Tensor, cfg, rope,
+                   max_len: int) -> Tuple[torch.Tensor, List[Dict]]:
+    """Forward over the prompt AND build the decode caches (leading (R,) axis)."""
+    B, S, _ = x.shape
+    h = x
+    per_repeat: List[List[Dict]] = [[] for _ in cfg.pattern]
+    for r in range(cfg.n_repeats):
+        for i, (spec, p_all) in enumerate(zip(cfg.pattern, block_params)):
+            p = _repeat(p_all, r)
+            hn = rms_norm(h, p["norm1"], cfg.norm_eps)
+            if spec.kind == "attn":
+                out, (k, v) = _attn_sublayer(p["attn"], hn, cfg, spec, rope,
+                                             return_kv=True)
+                L = attn_cache_len(cfg, spec, max_len)
+                keep = min(S, L)
+                # windowed layers keep the tail (window | S for our shapes)
+                kc = torch.zeros((B, L, cfg.n_kv_heads, cfg.head_dim),
+                                 dtype=k.dtype, device=k.device)
+                vc = torch.zeros_like(kc)
+                kc[:, :keep] = k[:, S - keep:]
+                vc[:, :keep] = v[:, S - keep:]
+                ar = torch.arange(L, device=k.device)
+                pos = torch.where(ar < keep, ar + (S - keep),
+                                  torch.full_like(ar, -1))
+                cache = dict(k=kc, v=vc, pos=pos.to(torch.int32))
+            else:
+                out, cache = mamba_prefill(p["mamba"], hn, cfg)
+            h = h + out
+            if "norm2" in p:
+                hn = rms_norm(h, p["norm2"], cfg.norm_eps)
+                out, _ = _ffn_sublayer(p, hn, cfg, spec)
+                h = h + out
+            per_repeat[i].append(cache)
+    return h, [_stack(c) for c in per_repeat]
+
+
+def blocks_decode(block_params: List[Dict], caches: List[Dict],
+                  x: torch.Tensor, cfg, rope, cur_pos: int
+                  ) -> Tuple[torch.Tensor, List[Dict]]:
+    """One decode step through all layers.  caches[p] has a leading (R,) axis."""
+    h = x
+    per_repeat: List[List[Dict]] = [[] for _ in cfg.pattern]
+    for r in range(cfg.n_repeats):
+        for i, (spec, p, c) in enumerate(zip(cfg.pattern, block_params,
+                                             caches)):
+            h, _, nc = _one_block(spec, _repeat(p, r), h, cfg, rope,
+                                  cache_slice=_repeat(c, r), cur_pos=cur_pos)
+            per_repeat[i].append(nc)
+    return h, [_stack(c) for c in per_repeat]

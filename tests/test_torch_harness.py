@@ -39,8 +39,17 @@ def load_reference() -> types.SimpleNamespace:
                  "repro.core.topologies", "repro.core.ramanujan",
                  "repro.core.properties", "repro.core.spectral",
                  "repro.core.faults", "repro.core.synthesis",
-                 "repro.kernels.spmv"):
+                 "repro.kernels.spmv", "repro.configs", "repro.models.layers",
+                 "repro.models.attention", "repro.models.mamba",
+                 "repro.models.moe", "repro.models.transformer",
+                 "repro.models.model"):
         mods[name.rsplit(".", 1)[-1]] = importlib.import_module(name)
+    mods["config_base"] = importlib.import_module("repro.configs.base")
+    # the LM kernels' Pallas bodies and oracles, e.g. ``rmsnorm_kernel``
+    for kern in ("rmsnorm", "flash_attention", "mamba_scan"):
+        for part in ("kernel", "ref", "ops"):
+            mods[f"{kern}_{part}"] = importlib.import_module(
+                f"repro.kernels.{kern}.{part}")
     return types.SimpleNamespace(jax=jax, jnp=jax.numpy, **mods)
 
 
