@@ -5,9 +5,9 @@ Run from the repository root on a machine with one NVIDIA card::
 
     python3 chip_smoke.py
 
-It builds the port's four CUDA kernels from the sources in this checkout
+It builds the port's five CUDA kernels from the sources in this checkout
 (one ``nvcc`` each, all at once), holds each kernel against its plain
-PyTorch version at its main path's shapes, and drives both main paths:
+PyTorch version at its main path's shapes, and drives every main path:
 
 * slice 1, the paper's measurement: registry spec -> topology -> Lanczos
   rho_2 / lambda on the card (kernel K1) -> survey rows, at full width,
@@ -17,7 +17,13 @@ PyTorch version at its main path's shapes, and drives both main paths:
   prompts and 32 greedy new tokens through ``repro_torch.serve.generate``
   (kernels K5 RMSNorm, K3 flash attention, K4 Mamba scan), checked against
   the same prefill run through the plain versions and against the CPU on
-  the reduced config.
+  the reduced config;
+* slice 3: the Cayley matvec K2 as the ``rho2_lanczos(matvec=)`` operator
+  on lps(61,5); the datacenter-scale survey row -- ``xpander(65536,32,0,0)``
+  synthesized on the card (signed K1 batches), its rho_2, 64-source sampled
+  routing and uniform ECMP traffic (K1 in float64) -- held to the scale
+  bench's conditions and the reference's values; torus(32,2)'s exact
+  antipodal path count; and the sample_fraction=1.0 exactness sweep.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -59,6 +65,64 @@ TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 0.15}
 
 SPMV_SOURCE = "src/repro_torch/kernels/csrc/spmv.cu"
 SPMV_REPLACES = "src/repro/kernels/spmv.py:172"
+
+#: kernel K2 (Cayley matvec): source in the port, the TPU kernel it replaces
+CAYLEY_SOURCE = "src/repro_torch/kernels/csrc/cayley_spmv.cu"
+CAYLEY_REPLACES = "src/repro/kernels/cayley_spmv/kernel.py:38"
+#: K2 vs its plain version, numpy allclose style (atol = rtol): the per-dtype
+#: TOL of tests/test_kernels.py:17
+CAYLEY_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the K2 path's rho_2 against the default K1 route's (same start vector;
+#: both kernels sum a row in table order)
+CAYLEY_VS_K1_RHO2_TOL = 1e-5
+
+#: the scale row's reference values: the JAX reference's row for
+#: xpander(65536,32,0,0) on the CPU, computed as the scale bench computes it
+#: (``survey([SCALE_SPEC], COLUMNS, routing=dict(pattern="uniform",
+#: sample_fraction=64/65536, seed=0))``, benchmarks/scale_bench.py), as
+#: rounded by the survey; tests/test_torch_synthesis.py::
+#: test_scale_tower_reference_winners_match_chip_smoke recomputes every
+#: value below from the reference.  (benchmarks/baselines/BENCH_scale.json
+#: predates the reference's current code: rho2 20.874629, diameter 4.)
+SCALE_REF = {"rho2": 20.884646, "diameter_bfs": 5, "diameter_lb": 5,
+             "avg_hops": 3.5995, "avg_hops_ci": [3.5992, 3.5998],
+             "path_diversity": 9.4328, "max_link_load": 33.664,
+             "saturation_throughput": 0.0061, "throughput_spectral": 20.8843}
+SCALE_RHO2_TOL = 1e-3
+#: the row's figures rounded to 4 decimals: one unit of the last digit
+SCALE_ROUNDED_TOL = 1e-4
+#: the reference's ECMP loads are float32 (its ``ecmp_link_loads`` casts),
+#: the port's float64: relative gap allowed on max_link_load
+SCALE_LOAD_REL_TOL = 1e-5
+#: the reference's lift tower for xpander(65536,32,0,0), levels 0-9
+#: (n = 64 .. 32768): the winning candidate (index into the 24 budget-0
+#: signings), its 90-step float32 Lanczos score, and its exact lambda_max
+#: (ARPACK on the host, float64, tol 1e-10).  The port draws the
+#: reference's start vectors, so it picks the same winners, and its scores
+#: differ from these only by float32 rounding.
+SCALE_REF_WINNERS = [12, 22, 10, 7, 4, 9, 4, 13, 3, 15]
+SCALE_REF_SCORES = [
+    9.780246737706195, 10.3906439346656, 10.715635709338704,
+    10.843595138655921, 10.940166743260809, 10.98972691361638,
+    11.058387110885924, 11.100757499928278, 11.102504333979972,
+    11.104822163037255]
+SCALE_REF_EXACT_LMAX = [
+    9.780246628100151, 10.390643838888002, 10.715635804249471,
+    10.843595224803622, 10.940172751334611, 10.989810825458408,
+    11.062769836515322, 11.100789170352813, 11.106249304773216,
+    11.115368588212077]
+#: the 64-node seed graph's lambda_2 (dense float64)
+SCALE_REF_SEED_LAM2 = 6.818187425784928
+#: card score vs the reference's, same start vectors: float32 rounding
+SCALE_SCORE_TOL = 1e-4
+#: exact lambda_max of the same signed adjacency, ARPACK to 1e-10
+SCALE_EXACT_TOL = 1e-8
+#: the row's rho2 (200-step Lanczos on the whole graph) against the
+#: Bilu-Linial value 32 - max(seed lambda_2, winners' exact lambda_max)
+SCALE_BILU_LINIAL_TOL = 1e-3
+#: torus(32,2)'s antipodal pair: 4 * C(32, 16) minimal paths, above int32
+#: and not a float32 value (tests/test_scale.py)
+TORUS_ANTIPODAL_PATHS = 4 * math.comb(32, 16)
 
 #: the LM kernels: source in the port, the TPU kernel it replaces
 LM_KERNELS = {
@@ -166,18 +230,19 @@ def _eager_ms(torch, fn, arg_sets, reps: int) -> float:
 # phase 2: K1 against its plain version
 # --------------------------------------------------------------------------
 
-def _csr_operator(torch, table, loops, signs, n):
-    """The case's operator as one torch sparse CSR matrix (the library
-    yardstick): (n, n), or block-diagonal (B n, B n) for per-batch tables."""
+def _csr_operator(torch, table, loops, signs, n, dt):
+    """The case's operator as one torch sparse CSR matrix of dtype ``dt``
+    (the library yardstick): (n, n), or block-diagonal (B n, B n) for
+    per-batch tables or per-batch signs."""
     tab = table.long()
+    if signs is not None and signs.dim() == 3 and tab.dim() == 2:
+        tab = tab.expand(signs.shape[0], -1, -1)   # B signings, one table
     batched = tab.dim() == 3
     B = tab.shape[0] if batched else 1
     k = tab.shape[-1]
     rows = torch.arange(B * n, device=tab.device).repeat_interleave(k)
     cols = (tab.reshape(B, n * k)
             + (torch.arange(B, device=tab.device) * n)[:, None]).reshape(-1)
-    dt = torch.float64 if (loops is not None and loops.dtype == torch.float64) \
-        else torch.float32
     vals = (signs.reshape(-1).to(dt) if signs is not None
             else torch.ones(rows.numel(), dtype=dt, device=tab.device))
     if loops is not None:
@@ -240,8 +305,8 @@ def check_kernel_case(torch, KS, case: dict) -> dict:
         B = x.shape[0] if x.dim() == 2 else 1
         lib_sets = []
         for s in sets[:max(2, copies // 2)]:
-            A = _csr_operator(torch, s[1], s[2], s[3], n)
-            if table.dim() == 3:
+            A = _csr_operator(torch, s[1], s[2], s[3], n, x.dtype)
+            if table.dim() == 3 or (signs is not None and signs.dim() == 3):
                 lib_sets.append((A, s[0].reshape(B * n)))
             elif x.dim() == 2:
                 lib_sets.append((A, s[0].T))
@@ -318,6 +383,376 @@ def kernel_cases(torch, np, REG, dev) -> list:
         t(rng.standard_normal(dv.n), torch.float32), t(tab_np, torch.int32),
         t(w_np, torch.float32))
     return cases
+
+
+# --------------------------------------------------------------------------
+# phase 2c: K2 against its plain version
+# --------------------------------------------------------------------------
+
+def cayley_cases(torch, np, REG, dev) -> list:
+    """K2's forms: lps(61,5) f32 with loops (the path's form), bf16, as
+    (1, n) and (4, n) batches over one table; hypercube(16) without loops;
+    ragged n with a compiled radix (7) and a runtime one (12)."""
+    rng = np.random.default_rng(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+
+    def add(name, x, table, loops=None):
+        cases.append(dict(name=name, x=x, table=table, loops=loops))
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    tab_np, w_np = REG.build("lps(61,5)").gather_operands()
+    n = tab_np.shape[0]
+    tab, loops = t(tab_np, torch.int32), t(w_np, f32)
+    x = rng.standard_normal(n)
+    add("lps(61,5) f32 loops (n,)", t(x, f32), tab, loops)
+    add("lps(61,5) bf16 loops (n,)", t(x, bf16), tab, loops)
+    add("lps(61,5) f32 loops (1,n)", t(x[None], f32), tab, loops)
+    add("lps(61,5) f32 loops (4,n) one table",
+        t(rng.standard_normal((4, n)), f32), tab, loops)
+    tab_np = REG.build("hypercube(16)").gather_operands()[0]
+    add("hypercube(16) f32 no loops",
+        t(rng.standard_normal(tab_np.shape[0]), f32), t(tab_np, torch.int32))
+    n = 100_003                               # ragged: not a block multiple
+    for k in (7, 12):
+        add(f"ragged n=100003 k={k} f32 loops",
+            t(rng.standard_normal(n), f32),
+            t(rng.integers(0, n, size=(n, k)), torch.int32),
+            t(rng.integers(0, 3, size=n), f32))
+    return cases
+
+
+def check_cayley_case(torch, CS, KS, case: dict) -> dict:
+    """K2 vs cayley_spmv_ref on one case: error (and, in f32, the gap to K1
+    on the same operands), then kernel / plain / CSR library / bound."""
+    x, table, loops = case["x"], case["table"], case["loops"]
+    dtype = str(x.dtype).replace("torch.", "")
+    tol = CAYLEY_TOL[dtype]
+    y_k = CS.cayley_spmv_cuda(x, table, loops)
+    y_p = CS.cayley_spmv_ref(x, table, loops)
+    torch.cuda.synchronize()
+    assert y_k.shape == y_p.shape and y_k.dtype == x.dtype, case["name"]
+    err, excess = _allclose_err(torch, y_k, y_p, tol)
+    if not (math.isfinite(err) and excess <= 0):
+        raise AssertionError(f"K2 {case['name']}: |kernel - plain| exceeds "
+                             f"{tol} (max abs {err}, excess {excess})")
+    row = dict(form=case["name"], dtype=dtype, shape=list(x.shape),
+               table_shape=list(table.shape), max_abs_err=err, tol=tol)
+    if dtype == "float32":
+        # K1 on the same operands: its kernel sums a row in the same order
+        row["vs_k1_kernel_max_abs"] = float(
+            (y_k - KS.spmv_cuda(x, table, loops)).abs().max())
+        row["vs_k1_plain_max_abs"] = float(
+            (y_k - KS.spmv_ref(x, table, loops)).abs().max())
+    B = x.shape[0] if x.dim() == 2 else 1
+    n, k = table.shape
+    nbytes = 2 * x.numel() * x.element_size() + table.numel() * 4 + \
+        (n * 4 if loops is not None else 0)
+    flops = B * n * (k + (2 if loops is not None else 0))
+    copies = max(2, min(64, math.ceil(COLD_BYTES / nbytes)))
+    sets = [(x.clone(), table.clone(),
+             None if loops is None else loops.clone())
+            for _ in range(copies)]
+    reps = max(64, copies)
+    row["ms"] = _graph_ms(torch, CS.cayley_spmv_cuda, sets, reps)
+    row["plain_ms"] = _graph_ms(torch, CS.cayley_spmv_ref, sets, reps)
+    row["library_ms"] = row["library_timing"] = None
+    if dtype == "float32":               # no bf16 sparse CSR matvec
+        lib_sets = [(_csr_operator(torch, s[1], s[2], None, n, x.dtype),
+                     s[0].T if x.dim() == 2 else s[0])
+                    for s in sets[:max(2, copies // 2)]]
+        try:
+            row["library_ms"] = _graph_ms(torch, torch.matmul, lib_sets, reps)
+            row["library_timing"] = "graph"
+        except RuntimeError:
+            torch.cuda.synchronize()
+            row["library_ms"] = _eager_ms(torch, torch.matmul, lib_sets, reps)
+            row["library_timing"] = "eager"
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    row.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes=nbytes, flops=flops, cold_copies=copies)
+    return row
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the K2 path (rho2_lanczos with kernel_matvec)
+# --------------------------------------------------------------------------
+
+def cayley_path(torch, S, CS, KS, REG, dev, iters: int) -> dict:
+    """rho2_lanczos(lps(61,5), matvec=kernel_matvec(...)): one K2 launch per
+    Lanczos step and no K1 launch, rho_2 against the known value and the
+    default K1 route's."""
+    topo = REG.build("lps(61,5)")
+    mv = CS.kernel_matvec(*topo.gather_operands(), device=dev)
+    CS.reset_launches()
+    KS.reset_launches()
+    t0 = time.time()
+    rho2 = S.rho2_lanczos(topo, iters=iters, seed=0, matvec=mv, device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    k2, k1 = CS.launches(), KS.launches()
+    rho2_k1 = S.rho2_lanczos(topo, iters=iters, seed=0, device=dev)
+    assert k2 == iters and k1 == 0, (k2, k1)
+    assert abs(rho2 - LPS_RHO2) <= LPS_RHO2_TOL, rho2
+    assert abs(rho2 - rho2_k1) <= CAYLEY_VS_K1_RHO2_TOL, (rho2, rho2_k1)
+    return dict(spec=topo.name, iters=iters, rho2=rho2, rho2_k1_route=rho2_k1,
+                gap_to_k1_route=abs(rho2 - rho2_k1), seconds=secs,
+                cayley_launches=k2, spmv_launches=k1)
+
+
+# --------------------------------------------------------------------------
+# phase 11: the datacenter-scale survey row, the sigma count, exactness
+# --------------------------------------------------------------------------
+
+def _k1_form(x, table, loops, signs) -> str:
+    """A K1 launch's form, for the launch tally by form."""
+    dt = str(x.dtype).replace("torch.", "")
+    batch = f"({x.shape[0]}, n)" if x.dim() == 2 else "(n,)"
+    tab = " table stack" if table.dim() == 3 else ""
+    return f"{dt} {'signed ' if signs is not None else ''}{batch}{tab}"
+
+
+def _exact_lmax(np, table, signs) -> float:
+    """lambda_max of one signed adjacency (n, k) table / slot signs, on the
+    host in float64 to 1e-10 (ARPACK)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+
+    n, k = table.shape
+    A = sp.csr_matrix((signs.ravel().astype(np.float64),
+                       (np.repeat(np.arange(n), k), table.ravel())),
+                      shape=(n, n))
+    return float(sla.eigsh(A, k=1, which="LA", tol=1e-10)[0][0])
+
+
+#: the scale path's K1 forms that the kernel check replays at their own
+#: shapes: (form, n) of the first launch of each, operands kept
+SCALE_K1_FORMS = {("float32 signed (24, n)", 16384),
+                  ("float32 signed (12, n)", 32768),
+                  ("float64 (64, n)", 65536), ("float64 (16, n)", 65536)}
+
+
+@contextlib.contextmanager
+def _scale_probes(S, KS):
+    """Tally K1 launches by form, keep the operands of the first launch of
+    each form in SCALE_K1_FORMS, and record each signed solve's winner, its
+    score and runner-up, and the winner's operands (for its exact
+    lambda_max) while the row runs."""
+    import collections
+
+    import numpy as np
+
+    forms, levels, operands = collections.Counter(), [], {}
+    orig_k1, orig_signed = KS.spmv_cuda, S.signed_extremes_batched
+
+    def k1(x, table, loops=None, signs=None):
+        form = _k1_form(x, table, loops, signs)
+        forms[form] += 1
+        key = (form, x.shape[-1])
+        if key in SCALE_K1_FORMS and key not in operands:
+            operands[key] = (tuple(x.shape), x.dtype, table, loops, signs)
+        return orig_k1(x, table, loops, signs)
+
+    def signed(table, slot_signs, *args, **kwargs):
+        lmax, lmin = orig_signed(table, slot_signs, *args, **kwargs)
+        order = np.argsort(lmax, kind="stable")
+        win = int(order[0])
+        levels.append(dict(
+            n=int(np.asarray(table).shape[0]), candidates=int(lmax.size),
+            winner=win, lmax=float(lmax[win]),
+            runner_up=int(order[1]), runner_up_lmax=float(lmax[order[1]]),
+            margin=float(lmax[order[1]] - lmax[win]),
+            operands=(np.array(table), np.array(slot_signs[win]))))
+        return lmax, lmin
+
+    KS.spmv_cuda, S.signed_extremes_batched = k1, signed
+    try:
+        yield forms, levels, operands
+    finally:
+        KS.spmv_cuda, S.signed_extremes_batched = orig_k1, orig_signed
+
+
+def scale_kernel_cases(torch, np, operands: dict, dev) -> list:
+    """K1 at the scale path's own shapes: the lift search's signed batches
+    (24 and 12 candidates' slot signs over one (n, 32) table, n = 16384 and
+    32768) and the sigma DP's / ECMP's float64 (64, n) and (16, n) batches
+    over the row's (65536, 32) table -- the operands of the path's first
+    launch of each form, with fresh standard-normal x."""
+    assert set(operands) == SCALE_K1_FORMS, sorted(operands)
+    rng = np.random.default_rng(11)
+    cases = []
+    for (form, n), (shape, dtype, table, loops, signs) in \
+            sorted(operands.items()):
+        x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=dev)
+        cases.append(dict(name=f"scale path n={n} {form}", x=x, table=table,
+                          loops=loops, signs=signs))
+    return cases
+
+
+def _seed_lam2(np, table) -> float:
+    """lambda_2 of the lift tower's seed, dense float64 from its table."""
+    n = table.shape[0]
+    A = np.zeros((n, n))
+    np.add.at(A, (np.repeat(np.arange(n), table.shape[1]), table.ravel()), 1)
+    return float(np.linalg.eigvalsh(A)[-2])
+
+
+def scale_row(torch, dev) -> tuple:
+    """survey([SCALE_SPEC], SCALE_COLUMNS, routing=...) on the card, with
+    its stage split (obs spans), K1 launches by form, peak memory and the
+    lift tower's levels; returns (the phase's record, the K1 operands kept
+    for :func:`scale_kernel_cases`)."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.api import survey
+    from repro_torch.core import spectral as S
+    from repro_torch.kernels import spmv as KS
+    from repro_torch.specs import (SCALE_COLUMNS, SCALE_NODES, SCALE_SOURCES,
+                                   SCALE_SPEC)
+
+    obs.reset()
+    KS.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _scale_probes(S, KS) as (forms, levels, operands), obs.tracing():
+        t0 = time.time()
+        res = survey([SCALE_SPEC], SCALE_COLUMNS,
+                     routing=dict(pattern="uniform",
+                                  sample_fraction=SCALE_SOURCES / SCALE_NODES,
+                                  seed=0), device=dev)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        rep = obs.metrics_report()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    spans = {k: v.total_seconds for k, v in rep.spans.items()}
+    calls = {k: v.calls for k, v in rep.spans.items()}
+    signed_s = spans.get("spectral/signed_extremes_batched", 0.0)
+    stages = dict(
+        construction_host_s=spans.get("synthesis/lift_search", 0.0) - signed_s,
+        signed_solves_s=signed_s,
+        signed_solve_calls=calls.get("spectral/signed_extremes_batched", 0),
+        final_rho2_s=spans.get("spectral/rho2_lanczos", 0.0),
+        final_rho2_calls=calls.get("spectral/rho2_lanczos", 0),
+        bfs_s=spans.get("routing/bfs", 0.0),
+        sigma_dp_s=spans.get("routing/sigma", 0.0),
+        ecmp_s=spans.get("traffic/ecmp", 0.0),
+        ucb_s=spans.get("traffic/ucb", 0.0),
+        registry_build_s=spans.get("registry/build", 0.0))
+    row = res.rows[0]
+    launches = KS.launches()
+    t0 = time.time()
+    seed_lam2 = _seed_lam2(np, levels[0]["operands"][0])
+    for lv in levels:
+        table, signs = lv.pop("operands")
+        lv["exact_lmax"] = _exact_lmax(np, table, signs)
+        lv["score_error"] = lv["exact_lmax"] - lv["lmax"]
+    exact_s = time.time() - t0
+    bilu_linial = 32 - max([seed_lam2] + [lv["exact_lmax"] for lv in levels])
+    return dict(row=row, seconds=seconds, stages=stages,
+                spmv_launches=launches, spmv_launches_by_form=dict(forms),
+                peak_device_gb=peak, levels=levels, seed_lam2=seed_lam2,
+                exact_lmax_host_s=exact_s, bilu_linial_rho2=bilu_linial,
+                reference=SCALE_REF,
+                rho2_gap_to_reference=abs(row["rho2"] - SCALE_REF["rho2"])), \
+        operands
+
+
+def check_scale_row(sc: dict) -> None:
+    """The scale bench's own conditions; the lift tower level by level
+    against the reference's (winner, score, exact lambda_max); the row's
+    rho_2 against the Bilu-Linial value of the tower and the reference's;
+    and its routing and traffic figures against the reference's."""
+    from repro_torch.specs import DIAMETER_LB_FLOOR, SCALE_NODES
+
+    row, ref = sc["row"], SCALE_REF
+    lo, hi = row["avg_hops_ci"]
+    assert row["nodes"] == SCALE_NODES and row["radix"] == 32, row
+    assert row["backend"] == "lanczos", row
+    assert DIAMETER_LB_FLOOR <= row["diameter_lb"] <= row["diameter_bfs"], row
+    assert lo <= row["avg_hops"] <= hi, row
+    assert row["saturation_throughput"] > 0, row
+    for c in ("rho2", "avg_hops", "path_diversity", "max_link_load",
+              "saturation_throughput", "throughput_spectral"):
+        assert math.isfinite(row[c]), (c, row)
+    levels = sc["levels"]
+    assert len(levels) == len(SCALE_REF_WINNERS) and sc["spmv_launches"] > 0
+    for i, lv in enumerate(levels):
+        assert lv["winner"] == SCALE_REF_WINNERS[i], (i, lv)
+        assert abs(lv["lmax"] - SCALE_REF_SCORES[i]) <= SCALE_SCORE_TOL, \
+            (i, lv)
+        assert abs(lv["exact_lmax"] - SCALE_REF_EXACT_LMAX[i]) \
+            <= SCALE_EXACT_TOL, (i, lv)
+    assert abs(sc["seed_lam2"] - SCALE_REF_SEED_LAM2) <= SCALE_EXACT_TOL, sc
+    assert abs(row["rho2"] - sc["bilu_linial_rho2"]) \
+        <= SCALE_BILU_LINIAL_TOL, (row["rho2"], sc["bilu_linial_rho2"])
+    assert sc["rho2_gap_to_reference"] <= SCALE_RHO2_TOL, sc
+    assert abs(row["throughput_spectral"] - ref["throughput_spectral"]) \
+        <= SCALE_RHO2_TOL, row
+    assert row["diameter_bfs"] == ref["diameter_bfs"], row
+    assert row["diameter_lb"] == ref["diameter_lb"], row
+    for c in ("avg_hops", "path_diversity", "saturation_throughput"):
+        assert abs(row[c] - ref[c]) <= SCALE_ROUNDED_TOL, (c, row)
+    for got, want in zip(row["avg_hops_ci"], ref["avg_hops_ci"]):
+        assert abs(got - want) <= SCALE_ROUNDED_TOL, row
+    assert abs(row["max_link_load"] - ref["max_link_load"]) <= \
+        SCALE_LOAD_REL_TOL * ref["max_link_load"] + SCALE_ROUNDED_TOL, row
+
+
+def sigma_exact(REG, R, KS, dev) -> dict:
+    """torus(32,2) from source 0: the antipodal minimal-path count, exact
+    through K1's float64 form."""
+    topo = REG.build("torus(32,2)")
+    tab, _ = topo.gather_operands()
+    KS.reset_launches()
+    dist = R.bfs_distances(tab, sources=[0], device=dev)
+    sigma = R.shortest_path_counts(tab, dist, device=dev)
+    launches = KS.launches()
+    antipode = 16 * 32 + 16                 # (16, 16) in row-major (32, 32)
+    got = float(sigma[0, antipode])
+    assert int(dist[0, antipode]) == 32, dist[0, antipode]
+    assert got == TORUS_ANTIPODAL_PATHS, (got, TORUS_ANTIPODAL_PATHS)
+    assert launches == 32, launches         # one f64 (1, n) launch per layer
+    return dict(spec=topo.name, antipode=antipode, sigma=got,
+                want=TORUS_ANTIPODAL_PATHS, spmv_launches=launches)
+
+
+def routing_exactness(np, REG, R, KS, dev, specs) -> dict:
+    """The reference's own ``_bitwise_case`` on the card for every spec:
+    sample_fraction=1.0 equals the exact all-sources analysis field for
+    field; the card's dist and sigma also equal the CPU's."""
+    KS.reset_launches()
+    cases = []
+    for spec in specs:
+        t0 = time.time()
+        topo = REG.build(spec)
+        exact = R.analyze_routing(topo, device=dev)
+        full = R.analyze_routing(topo, sample_fraction=1.0, seed=1,
+                                 device=dev)
+        bitwise = bool(
+            full.exact
+            and np.array_equal(full.sources, exact.sources)
+            and np.array_equal(full.dist, exact.dist)
+            and np.array_equal(full.sigma, exact.sigma)
+            and full.diameter == exact.diameter == full.diameter_lb
+            and full.avg_path_length == exact.avg_path_length
+            and np.array_equal(full.hop_histogram, exact.hop_histogram)
+            and full.path_diversity_mean == exact.path_diversity_mean
+            and full.avg_hops_ci == (exact.avg_path_length,
+                                     exact.avg_path_length))
+        host = R.analyze_routing(topo, device="cpu")
+        card_eq_cpu = bool(np.array_equal(exact.dist, host.dist)
+                           and np.array_equal(exact.sigma, host.sigma))
+        cases.append(dict(family=topo.name, spec=spec, nodes=topo.n,
+                          bitwise=bitwise, card_equals_cpu=card_eq_cpu,
+                          diameter=exact.diameter,
+                          seconds=time.time() - t0))
+        assert bitwise and card_eq_cpu, cases[-1]
+    return dict(cases=cases, spmv_launches=KS.launches())
 
 
 # --------------------------------------------------------------------------
@@ -908,12 +1343,14 @@ def run(torch, dev) -> int:
     from repro_torch.api import (DEFAULT_COLUMNS, RAMANUJAN_COLUMNS,
                                  TABLE1_COLUMNS, survey)
     from repro_torch.api.registry import REGISTRY
+    from repro_torch.core import routing as R
     from repro_torch.core import spectral as S
     from repro_torch.interop import topology_from_arrays
     from repro_torch.kernels import build
+    from repro_torch.kernels import cayley_spmv as CS
     from repro_torch.kernels import spmv as KS
     from repro_torch.specs import (LPS_DENSE_THRESHOLD, LPS_SPECS,
-                                   TABLE1_SPECS)
+                                   SCALE_BENCH_SPECS, TABLE1_SPECS)
 
     t_start = time.time()
 
@@ -940,6 +1377,15 @@ def run(torch, dev) -> int:
     for r in results:
         emit(dict(phase="kernel_check", kernel="spmv_padded", **r))
     emit(dict(phase="kernel_check_done", cases=len(results),
+              seconds=time.time() - t0))
+
+    # -- phase 2c: K2 against its plain version --------------------------
+    t0 = time.time()
+    k2_rows = [check_cayley_case(torch, CS, KS, c)
+               for c in cayley_cases(torch, np, REGISTRY, dev)]
+    for r in k2_rows:
+        emit(dict(phase="cayley_kernel_check", kernel="cayley_spmv", **r))
+    emit(dict(phase="cayley_kernel_check_done", cases=len(k2_rows),
               seconds=time.time() - t0))
 
     # -- phase 2b: K5, K3, K4 against their plain versions ---------------
@@ -984,11 +1430,15 @@ def run(torch, dev) -> int:
     assert launches >= lanczos_iters > 0, (launches, counts)
     assert counts.get("spmv/dispatch/cuda", 0) > 0, counts
     assert counts.get("spmv/dispatch/ref", 0) == 0, counts
-    main_launches = launches
+    k1_path_launches = launches
     emit(dict(phase="main_path", rows=res.rows, seconds=main_s,
               spmv_launches=launches,
               counters={k: v for k, v in counts.items()
                         if k.startswith(("spmv/", "lanczos/", "survey/"))}))
+
+    # -- phase 3b: the K2 path, rho2_lanczos(matvec=kernel_matvec) -------
+    cayley = cayley_path(torch, S, CS, KS, REGISTRY, dev, iters)
+    emit(dict(phase="cayley_path", **cayley))
 
     # -- phase 4: same-shape batch (B, n, k) over relabellings -----------
     topo = REGISTRY.build("lps(61,5)")
@@ -1009,6 +1459,7 @@ def run(torch, dev) -> int:
     vals = S.rho2_lanczos_batched(batch, iters=iters, seed=0, device=dev)
     batch_s = time.time() - t0
     batch_launches = KS.launches()
+    k1_path_launches += batch_launches
     assert max(vals) - min(vals) <= LPS_RHO2_TOL, vals
     assert all(abs(v - LPS_RHO2) <= LPS_RHO2_TOL for v in vals), vals
     assert batch_launches >= iters, batch_launches
@@ -1027,6 +1478,7 @@ def run(torch, dev) -> int:
     torch.cuda.synchronize()
     surveys_s = time.time() - t0
     oracle_launches = KS.launches()
+    k1_path_launches += oracle_launches
     gaps = []
     t0 = time.time()
     for r in res_lps.rows:
@@ -1057,6 +1509,35 @@ def run(torch, dev) -> int:
     emit(dict(phase="lanczos_split",
               **lanczos_split(torch, S, topo, dev, iters)))
 
+    # -- phase 7b: the datacenter-scale survey row (xpander, routing) ----
+    scale, scale_operands = scale_row(torch, dev)
+    emit(dict(phase="scale_row", **scale))
+    check_scale_row(scale)
+    k1_path_launches += scale["spmv_launches"]
+
+    # -- phase 7b': K1 against its plain version at the scale path's shapes
+    t0 = time.time()
+    scale_k1 = [check_kernel_case(torch, KS, c)
+                for c in scale_kernel_cases(torch, np, scale_operands, dev)]
+    del scale_operands
+    for r in scale_k1:
+        emit(dict(phase="kernel_check", kernel="spmv_padded", **r))
+    emit(dict(phase="scale_kernel_check_done", cases=len(scale_k1),
+              seconds=time.time() - t0))
+    results += scale_k1
+
+    # -- phase 7c: torus(32,2)'s antipodal count, exact in float64 -------
+    sig = sigma_exact(REGISTRY, R, KS, dev)
+    emit(dict(phase="sigma_exact", **sig))
+    k1_path_launches += sig["spmv_launches"]
+
+    # -- phase 7d: sample_fraction=1.0 against exact, nine families ------
+    t0 = time.time()
+    exactness = routing_exactness(np, REGISTRY, R, KS, dev, SCALE_BENCH_SPECS)
+    emit(dict(phase="routing_exactness", seconds=time.time() - t0,
+              **exactness))
+    k1_path_launches += exactness["spmv_launches"]
+
     # -- phase 8: LM serving at full width (K5, K3, K4) ------------------
     t0 = time.time()
     serve_row, params, prompts = serving_phase(torch, dev)
@@ -1082,14 +1563,23 @@ def run(torch, dev) -> int:
     # -- the kernels line, then the last line ----------------------------
     main = results[0]
     assert main["form"] == "lps(61,5) f32 plain+loops", main
+    k2 = k2_rows[0]
+    assert k2["form"] == "lps(61,5) f32 loops (n,)", k2
     kernels = [dict(
         name="spmv_padded", route="cuda", source=SPMV_SOURCE,
-        replaces=SPMV_REPLACES, launches=main_launches,
+        replaces=SPMV_REPLACES, launches=k1_path_launches,
         max_abs_err=max(r["max_abs_err"] for r in results
                         if r["dtype"] == "float32"),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
-        forms=[r["form"] for r in results])]
+        forms=[r["form"] for r in results]), dict(
+        name="cayley_spmv", route="cuda", source=CAYLEY_SOURCE,
+        replaces=CAYLEY_REPLACES, launches=cayley["cayley_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in k2_rows
+                        if r["dtype"] == "float32"),
+        ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+        bound_by=k2["bound_by"], library_ms=k2["library_ms"],
+        form=k2["form"], forms=[r["form"] for r in k2_rows])]
     for name, (source, replaces) in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["kernel"] == name]
         first = mine[0]               # the serving path's case

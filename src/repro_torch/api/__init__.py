@@ -13,7 +13,7 @@ __all__ = [
     "Family", "REGISTRY", "SpecError", "TopologyRegistry", "build",
     "closed_forms", "families", "get", "parse_spec", "register",
     "Analysis", "survey", "SurveyResult", "DEFAULT_COLUMNS", "TABLE1_COLUMNS",
-    "RAMANUJAN_COLUMNS",
+    "RAMANUJAN_COLUMNS", "ROUTING_COLUMNS",
 ]
 
 _LAZY = {
@@ -24,6 +24,7 @@ _LAZY = {
     "DEFAULT_COLUMNS": ("repro_torch.api.survey", "DEFAULT_COLUMNS"),
     "TABLE1_COLUMNS": ("repro_torch.api.survey", "TABLE1_COLUMNS"),
     "RAMANUJAN_COLUMNS": ("repro_torch.api.survey", "RAMANUJAN_COLUMNS"),
+    "ROUTING_COLUMNS": ("repro_torch.api.survey", "ROUTING_COLUMNS"),
 }
 
 

@@ -12,9 +12,11 @@ Ramanujan/LPS comparison.  The backend auto-selects by ``n``:
   dispatcher: kernel K1 on the card, the plain PyTorch gather-sum on the CPU.
 
 ``device`` defaults to ``"cuda"``; without a card the session raises at
-construction unless the caller asks for ``device="cpu"``.
+construction unless the caller asks for ``device="cpu"``.  A spec string of
+a designed family (``xpander``, ``rewired``) is synthesized on ``device``.
 
-The main-path quantities are ported; the reference's routing, traffic,
+The main-path quantities and the measured path structure (:meth:`routing`,
+:meth:`traffic` under minimal ECMP routing) are ported; the reference's
 MCF-ceiling, collective-model, simulation and fault-sweep methods are not
 yet.  Nothing is computed in ``__init__``; every property memoizes on first
 access, so ``survey()`` can pre-populate (e.g. batched rho2 solves) without
@@ -23,14 +25,16 @@ waste.
 from __future__ import annotations
 
 from functools import cached_property
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import bounds as B
 from repro_torch.core import properties as P
+from repro_torch.core import routing as R
 from repro_torch.core import spectral as S
+from repro_torch.core import traffic as TR
 from repro_torch.core.graphs import Topology
 from repro_torch.core.ramanujan import ramanujan_bound
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -51,7 +55,7 @@ class Analysis:
                  ) -> None:
         self.device = resolve_device(device)
         if isinstance(topo, str):
-            topo = REGISTRY.build(topo)
+            topo = REGISTRY.build(topo, device=self.device)
         self.topo = topo
         self.dense_threshold = int(dense_threshold)
         self.lanczos_iters = int(lanczos_iters)
@@ -233,6 +237,84 @@ class Analysis:
             lam=lam,
             is_ramanujan=bool(lam <= bound + 1e-6),
         )
+
+    # -- measured path structure (routing & traffic) -----------------------
+    def _routing_key(self, sample_fraction: Optional[float],
+                     seed: Optional[int]):
+        """Cache key of one routing configuration.  Exact analysis keys on
+        nothing (it is deterministic); sampled analyses key on BOTH the
+        fraction and the resolved seed so different samples never alias."""
+        if sample_fraction is None:
+            return ("exact",)
+        return ("sampled", float(sample_fraction),
+                self.seed if seed is None else int(seed))
+
+    def routing(self, sources: Optional[Sequence[int]] = None, *,
+                sample_fraction: Optional[float] = None,
+                seed: Optional[int] = None) -> "R.RoutingResult":
+        """Measured path structure via batched BFS on this session's device
+        (lazy, cached per config).
+
+        Args:
+            sources: explicit BFS source vertices (not cached).  ``None``
+                with no ``sample_fraction`` runs all n sources → exact
+                diameter, hop-count distribution, average shortest-path
+                length, and per-pair minimal-path counts.
+            sample_fraction: run BFS from a ``round(fraction * n)``-subset of
+                sources drawn by :func:`repro_torch.core.routing.
+                sample_sources` — the datacenter-scale estimator
+                (``diameter`` becomes a certified lower bound,
+                ``avg_hops_ci`` a bootstrap CI).  ``1.0`` reproduces the
+                exact analysis bit-for-bit.  Cached per
+                ``(sample_fraction, seed)``.
+            seed: source-sampling seed; defaults to this session's seed.
+
+        Returns:
+            :class:`repro_torch.core.routing.RoutingResult` (units: hops).
+        """
+        if sources is not None:
+            return R.analyze_routing(self.topo, sources=sources,
+                                     device=self.device)
+        cache = self.__dict__.setdefault("_routing_cache", {})
+        key = self._routing_key(sample_fraction, seed)
+        if key not in cache:
+            cache[key] = R.analyze_routing(
+                self.topo, sample_fraction=sample_fraction,
+                seed=self.seed if seed is None else int(seed),
+                device=self.device)
+        return cache[key]
+
+    def traffic(self, pattern: str = "uniform", *,
+                scheme: str = "minimal",
+                sample_fraction: Optional[float] = None,
+                seed: Optional[int] = None) -> "TR.TrafficResult":
+        """Link-load accounting of one synthetic pattern (lazy, cached).
+
+        Routes the named demand pattern (see
+        :data:`repro_torch.core.traffic.TRAFFIC_PATTERNS`) under minimal
+        ECMP routing (the only ``scheme`` ported; the others raise
+        ``NotImplementedError``), reusing this session's cached
+        :meth:`routing` matrices and (for ``adversarial``) canonical Fiedler
+        vector.  With ``sample_fraction``, only the sampled source rows are
+        routed and the loads carry the n/S unbiasedness correction; cache
+        entries key on ``(pattern, scheme, sample_fraction, seed)`` (the
+        reference's key also holds the ``ksp`` scheme's ``slack``, which
+        comes back with that scheme, ROADMAP Queue 1 item 8).
+
+        Returns:
+            :class:`repro_torch.core.traffic.TrafficResult` — per-directed-
+            link loads in injection units, max load, saturation throughput.
+        """
+        cache = self.__dict__.setdefault("_traffic", {})
+        key = (pattern, scheme) + self._routing_key(sample_fraction, seed)
+        if key not in cache:
+            fiedler = self.fiedler if pattern == "adversarial" else None
+            cache[key] = TR.evaluate_traffic(
+                self.topo, pattern, scheme=scheme,
+                routing=self.routing(sample_fraction=sample_fraction,
+                                     seed=seed),
+                fiedler=fiedler, device=self.device)
+        return cache[key]
 
     # -- presentation ------------------------------------------------------
     def report(self) -> str:

@@ -1,9 +1,10 @@
 """Unified topology registry of the PyTorch port (a copy of the reference
-registry; only :func:`_ensure_populated` differs).
+registry).
 
-The designed families ``xpander`` and ``rewired`` come with the synthesis
-subsystem, which the port does not carry yet: asking for them raises
-:class:`SpecError` naming what is missing.
+One addition: ``build(spec, device=...)`` hands ``device`` to the families
+whose constructors compute on the device — the designed families ``xpander``
+and ``rewired`` (:mod:`repro_torch.core.synthesis`), which search on the
+card by default — and ignores it for the host-built families.
 
 Every topology family of the survey (paper §4 + the LPS Ramanujan reference of
 §3) registers itself here via the :func:`register` decorator applied to its
@@ -34,6 +35,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import difflib
+import inspect
 import warnings
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple, TYPE_CHECKING)
@@ -106,14 +108,21 @@ class Family:
                                     f"{ptype.__name__}, got {val!r}")
         return bound
 
-    def build(self, *args: Any, **kwargs: Any) -> "Topology":
+    def build(self, *args: Any, device: Any = None,
+              **kwargs: Any) -> "Topology":
         """Construct an instance (schema-checked), stamping ``family``/
-        ``spec``/tag metadata onto the returned Topology."""
+        ``spec``/tag metadata onto the returned Topology.  ``device`` goes to
+        constructors that take one (the synthesis families; None keeps their
+        default, the card) and is ignored by the others."""
         bound = self.bind(args, kwargs)
+        extra = {}
+        if device is not None and \
+                "device" in inspect.signature(self.ctor).parameters:
+            extra["device"] = device
         if self.variadic:
-            topo = self.ctor(*bound[self.params[0][0]])
+            topo = self.ctor(*bound[self.params[0][0]], **extra)
         else:
-            topo = self.ctor(**bound)
+            topo = self.ctor(**bound, **extra)
         topo.meta.setdefault("family", self.name)
         topo.meta.setdefault("spec", self.spec_string(bound))
         for tag in self.tags:
@@ -192,10 +201,6 @@ class TopologyRegistry:
             warnings.warn(f"topology family {name!r} is deprecated; use "
                           f"{target!r}", DeprecationWarning, stacklevel=3)
             return self._families[target]
-        if name in _NOT_PORTED:
-            raise SpecError(f"topology family {name!r} needs the "
-                            f"{_NOT_PORTED[name]} subsystem, which the "
-                            "PyTorch port does not carry yet")
         known = sorted(set(self._families) | set(self._alias) | set(self._deprecated))
         hint = difflib.get_close_matches(name, known, n=1)
         suffix = f" — did you mean {hint[0]!r}?" if hint else ""
@@ -241,23 +246,21 @@ class TopologyRegistry:
             raise SpecError(f"**kwargs not allowed in spec {spec!r}")
         return fam, fam.bind(args, kwargs)
 
-    def build(self, spec: str) -> "Topology":
-        """Parse a spec string and construct the instance it names."""
+    def build(self, spec: str, *, device: Any = None) -> "Topology":
+        """Parse a spec string and construct the instance it names
+        (``device``: see :meth:`Family.build`)."""
         from repro_torch import obs
         fam, bound = self.parse(spec)
         with obs.span("registry/build", phase="build", spec=spec):
             if fam.variadic:
-                return fam.build(*bound[fam.params[0][0]])
-            return fam.build(**bound)
+                return fam.build(*bound[fam.params[0][0]], device=device)
+            return fam.build(**bound, device=device)
 
 
 #: process-wide singleton — the registration target of ``@register``.
 REGISTRY = TopologyRegistry()
 
 _populated = False
-
-#: reference families whose constructors live in modules not yet ported
-_NOT_PORTED = {"xpander": "synthesis", "rewired": "synthesis"}
 
 
 def _ensure_populated() -> None:
@@ -268,6 +271,7 @@ def _ensure_populated() -> None:
     _populated = True
     import repro_torch.core.topologies   # noqa: F401  (registration side effects)
     import repro_torch.core.ramanujan    # noqa: F401
+    import repro_torch.core.synthesis    # noqa: F401
 
 
 def register(name: str, **kwargs: Any) -> Callable:
@@ -290,16 +294,17 @@ def families() -> List[str]:
     return REGISTRY.families()
 
 
-def build(spec: str) -> "Topology":
+def build(spec: str, *, device: Any = None) -> "Topology":
     """Construct a topology from a spec string (or bare family name).
 
     Args: ``spec`` — e.g. ``"slimfly(q=13)"``, ``"torus(16,2)"`` or
     ``"petersen"``; values are Python literals, positional args bind in
-    schema order.  Returns the built :class:`~repro_torch.core.graphs.Topology`
+    schema order.  ``device`` — where the synthesis families
+    (``xpander``, ``rewired``) search; default the card.  Returns the built :class:`~repro_torch.core.graphs.Topology`
     (with ``family``/``spec`` recorded in ``meta``); raises
     :class:`SpecError` on unknown families or malformed parameters.
     """
-    return REGISTRY.build(spec)
+    return REGISTRY.build(spec, device=device)
 
 
 def parse_spec(spec: str) -> Tuple[Family, Dict[str, Any]]:

@@ -5,9 +5,11 @@ LPS certification.
 registry, wraps each in a lazy :class:`~repro_torch.api.analysis.Analysis`,
 batches same-shape Lanczos solves into a single batched call, and emits
 rows / CSV / JSON.  The main-path column sets are ported
-(:data:`DEFAULT_COLUMNS`, :data:`TABLE1_COLUMNS`, :data:`RAMANUJAN_COLUMNS`);
-the reference's ``faults=``, ``routing=``, ``simulate=`` and ``workload=``
-keywords and their column sets are not yet.
+(:data:`DEFAULT_COLUMNS`, :data:`TABLE1_COLUMNS`, :data:`RAMANUJAN_COLUMNS`),
+and so is the ``routing=`` keyword with :data:`ROUTING_COLUMNS` under
+minimal ECMP routing (``routing=dict(schemes=True)`` raises until the
+reference's other schemes are ported); the ``faults=``, ``simulate=`` and
+``workload=`` keywords and their column sets are not yet.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from .analysis import Analysis
 from .registry import REGISTRY
 
 __all__ = ["survey", "SurveyResult", "COLUMNS", "DEFAULT_COLUMNS",
-           "TABLE1_COLUMNS", "RAMANUJAN_COLUMNS"]
+           "TABLE1_COLUMNS", "RAMANUJAN_COLUMNS", "ROUTING_COLUMNS"]
 
 
 def _round(x: float, nd: int = 6) -> float:
@@ -95,6 +97,25 @@ RAMANUJAN_COLUMNS = [
     "topology", "spec", "nodes", "radix", "bipartite", "backend", "lambda",
     "ramanujan_bound", "is_ramanujan", "diameter", "alon_milman_diam_ub",
     "seconds",
+]
+
+
+#: measured path-structure columns appended when ``survey(routing=...)``:
+#: exact BFS diameter (hops) + agreement with the registered closed form,
+#: the certified diameter lower bound (= diameter when exact; the sampled
+#: estimator's guarantee otherwise), average shortest-path length (hops) with
+#: its 95% bootstrap CI (degenerate when exact), mean minimal-path count per
+#: pair, max directed link load (injection units) and saturation throughput
+#: under the configured traffic pattern, and the spectral throughput
+#: prediction.  The routing-scheme comparison columns (``thpt_valiant``,
+#: ``thpt_ugal``, ``thpt_ksp``, ``thpt_mcf_ub``, ``thpt_gap_to_opt``) stay
+#: None: ``routing={"schemes": True}``, which fills them in the reference,
+#: raises until those schemes are ported.
+ROUTING_COLUMNS = [
+    "diameter_bfs", "diameter_lb", "diameter_ok", "avg_hops", "avg_hops_ci",
+    "path_diversity", "traffic_pattern", "max_link_load",
+    "saturation_throughput", "throughput_spectral", "thpt_valiant",
+    "thpt_ugal", "thpt_ksp", "thpt_mcf_ub", "thpt_gap_to_opt",
 ]
 
 
@@ -176,7 +197,7 @@ def _as_analysis(spec: Union[str, Topology, Analysis], **kwargs) -> Analysis:
         return spec
     if isinstance(spec, Topology):
         return Analysis(spec, **kwargs)
-    return Analysis(REGISTRY.build(spec), **kwargs)
+    return Analysis(REGISTRY.build(spec, device=kwargs["device"]), **kwargs)
 
 
 def _batch_lanczos_rho2(analyses: Sequence[Analysis]) -> Dict[int, float]:
@@ -214,11 +235,56 @@ def _batch_lanczos_rho2(analyses: Sequence[Analysis]) -> Dict[int, float]:
     return shares
 
 
+def _routing_config(routing: Union[bool, Dict[str, Any]]) -> Dict[str, Any]:
+    cfg = {} if routing is True else dict(routing)
+    cfg.setdefault("pattern", "uniform")
+    cfg.setdefault("sample_fraction", None)   # None = exact all-sources BFS
+    cfg.setdefault("seed", None)              # None = the session's seed
+    cfg.setdefault("schemes", False)          # fill the thpt_* comparison
+    if cfg["schemes"]:
+        raise NotImplementedError(
+            "survey(routing=dict(schemes=True)) needs the Valiant, UGAL and "
+            "KSP schemes and the MCF ceiling, which are not ported to "
+            "repro_torch yet (ROADMAP Queue 1 item 8)")
+    return cfg
+
+
+def _routing_values(a: Analysis, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Measured routing/traffic quantities for one survey row (ROUTING_COLUMNS)."""
+    from repro_torch.core.traffic import spectral_throughput_estimate
+
+    r = a.routing(sample_fraction=cfg["sample_fraction"], seed=cfg["seed"])
+    t = a.traffic(cfg["pattern"], sample_fraction=cfg["sample_fraction"],
+                  seed=cfg["seed"])
+    cf = a.closed_forms
+    # exact runs assert equality with the closed form; a sampled run can only
+    # certify that its lower bound does not exceed it
+    diameter_ok = None if not cf or "diameter" not in cf \
+        else bool(r.diameter == int(cf["diameter"])) if r.exact \
+        else bool(r.diameter_lb <= int(cf["diameter"]))
+    return dict(
+        diameter_bfs=r.diameter,
+        diameter_lb=r.diameter_lb,
+        diameter_ok=diameter_ok,
+        avg_hops=_round(r.avg_path_length, 4),
+        avg_hops_ci=[_round(c, 4) for c in r.avg_hops_ci],
+        path_diversity=_round(r.path_diversity_mean, 4),
+        traffic_pattern=t.pattern,
+        max_link_load=_round(t.max_link_load, 4),
+        saturation_throughput=_round(t.saturation_throughput, 4),
+        throughput_spectral=_round(
+            spectral_throughput_estimate(a.n, a.rho2), 4),
+        thpt_valiant=None, thpt_ugal=None, thpt_ksp=None, thpt_mcf_ub=None,
+        thpt_gap_to_opt=None,
+    )
+
+
 def survey(specs: Sequence[Union[str, Topology, Analysis]],
            columns: Optional[Sequence[str]] = None, *,
            dense_threshold: int = S.DENSE_THRESHOLD,
            lanczos_iters: int = 200, seed: int = 0,
            batch_lanczos: bool = True,
+           routing: Optional[Union[bool, Dict[str, Any]]] = None,
            trace: Union[bool, str, pathlib.Path, None] = None,
            device: Union[str, torch.device, None] = DEFAULT_DEVICE
            ) -> SurveyResult:
@@ -232,6 +298,19 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
     ``"cuda"``; raises without a card unless ``device="cpu"``); same-shape
     groups share one batched solve.
 
+    ``routing``: ``True`` or a config dict (``routing=dict(pattern=
+    "adversarial")``) runs the measured path-level analysis on ``device`` —
+    batched all-sources BFS + minimal-path ECMP link loads under one
+    synthetic traffic pattern — appending :data:`ROUTING_COLUMNS` to every
+    row (diameters/hops in hops, loads in injection units).  Config keys
+    ``sample_fraction`` / ``seed`` switch to the sampled-source estimator
+    (``routing=dict(sample_fraction=0.01, seed=0)``): ``diameter_bfs`` is
+    then the certified lower bound ``diameter_lb``, ``avg_hops_ci`` its
+    bootstrap CI, and traffic loads carry the n/S correction — the
+    datacenter-scale path (``sample_fraction=1.0`` reproduces exact).
+    ``routing=dict(schemes=True)`` raises ``NotImplementedError`` (ROADMAP
+    Queue 1 item 8).
+
     ``trace``: ``True`` records :mod:`repro_torch.obs` spans for the whole
     survey (build / batched-solve / per-row), readable afterwards via
     ``obs.trace_events()`` / ``obs.metrics_report()``; a path writes the
@@ -239,10 +318,16 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
     """
     dev = resolve_device(device)
     cols = list(columns if columns is not None else DEFAULT_COLUMNS)
-    unknown = [c for c in cols if c != "seconds" and c not in COLUMNS]
+    routing_cfg = None
+    extra = {"seconds"}
+    if routing not in (None, False):   # {} is a valid all-defaults config
+        routing_cfg = _routing_config(routing)
+        cols += [c for c in ROUTING_COLUMNS if c not in cols]
+        extra |= set(ROUTING_COLUMNS)  # only meaningful with routing=...
+    unknown = [c for c in cols if c not in extra and c not in COLUMNS]
     if unknown:
         raise KeyError(f"unknown survey column(s) {unknown}; available: "
-                       f"{sorted(COLUMNS)} + ['seconds']")
+                       f"{sorted(COLUMNS)} + {sorted(extra)}")
     with contextlib.ExitStack() as stack:
         if trace not in (None, False):
             path = None if trace is True else trace
@@ -264,7 +349,10 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
             t0 = time.time()
             with obs.span("survey/row", phase="execute", instance=a.name,
                           family=a.family or a.name):
-                row = {c: COLUMNS[c](a) for c in cols if c != "seconds"}
+                row = {c: COLUMNS[c](a) for c in cols
+                       if c != "seconds" and c in COLUMNS}
+                if routing_cfg is not None:
+                    row.update(_routing_values(a, routing_cfg))
             if "seconds" in cols:
                 # construction + (amortized) batched solve + lazy evaluation
                 row["seconds"] = round(

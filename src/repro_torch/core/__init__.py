@@ -1,10 +1,13 @@
-"""repro_torch.core — topologies, their bounds and spectra (PyTorch port).
+"""repro_torch.core — topologies, their bounds and spectra, lifts and the
+Reduction Lemma, topology synthesis, and path-level routing / minimal-ECMP
+traffic (PyTorch port).
 
-Only the modules of the main path are ported: graphs, bounds, topologies,
-ramanujan, properties and spectral.
+Not ported yet: the reference's faults, collectives, placement, simulate and
+workloads modules, and the non-minimal routing schemes of traffic.
 """
-from . import bounds, graphs, properties, ramanujan, spectral, topologies
+from . import (bounds, graphs, lifts, properties, ramanujan, reduction,
+               routing, spectral, topologies, traffic)
 from .graphs import Topology
 
-__all__ = ["Topology", "bounds", "graphs", "properties", "ramanujan",
-           "spectral", "topologies"]
+__all__ = ["Topology", "bounds", "graphs", "lifts", "properties", "ramanujan",
+           "reduction", "routing", "spectral", "topologies", "traffic"]

@@ -165,15 +165,5 @@ class Topology:
         u, v = self.edges[:, 0], self.edges[:, 1]
         return float(np.sum(inX[u] & inY[v]) + np.sum(inY[u] & inX[v]))
 
-    def to_networkx(self):
-        """networkx MultiGraph view (lazy import; nothing in the port calls
-        it, and networkx is absent where the card is)."""
-        import networkx as nx
-
-        G = nx.MultiGraph()
-        G.add_nodes_from(range(self.n))
-        G.add_edges_from(self.edges.tolist())
-        return G
-
     def __repr__(self) -> str:  # pragma: no cover
         return f"Topology({self.name}, n={self.n}, m={self.m})"

@@ -12,10 +12,11 @@ Every Lanczos recurrence here is one batched loop over (B, n) vectors (a
 single graph is B = 1): the reference's ``vmap`` is a batch dimension written
 out.  The loop never waits for the device — the breakdown test is a
 ``torch.where`` — and alpha/beta come to the host once per solve, for the
-float64 tridiagonal eigensolve.  Start vectors come from a
-``torch.Generator`` seeded with ``seed``; they differ from the reference's
-``jax.random`` draws, so results agree to solver accuracy, not bit for bit
-(the private solvers take explicit start vectors for exact comparison).
+float64 tridiagonal eigensolve.  Start vectors are the reference's own
+``jax.random.normal(PRNGKey(seed), shape)`` draws, recomputed without JAX
+(:mod:`.threefry`) on every device: an argmin over unconverged scores (the
+lift tower's signed solves) then picks what the reference picks, and the
+CPU and the card start from the same vectors.
 
 The batched solvers stream their (B, n, k) operand stacks in memory-bounded
 batch tiles (:data:`DEFAULT_BATCH_TILE_BYTES`).  On one card the reference's
@@ -36,6 +37,7 @@ from repro_torch import obs
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import spmv as KS
 
+from . import threefry
 from .graphs import Topology
 
 __all__ = [
@@ -318,9 +320,8 @@ def _tridiag_eigvals(alphas: np.ndarray, betas: np.ndarray) -> np.ndarray:
 
 def _start_vectors(shape: Tuple[int, ...], seed: int,
                    dev: torch.device) -> torch.Tensor:
-    """Standard-normal f32 start vectors from a device generator."""
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+    """The reference's f32 start vectors for ``seed``, on ``dev``."""
+    return threefry.normal(seed, shape, dev)
 
 
 def _deflation_rows(deflate_vectors: Optional[Sequence[np.ndarray]],

@@ -13,8 +13,10 @@ Table-1 closed forms, so consumers build instances from spec strings
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import math
+import random
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -541,19 +543,73 @@ def fat_tree(depth: int, base_mult: int = 1) -> Topology:
                     meta=dict(depth=depth))
 
 
+def _random_regular_edge_set(n: int, k: int,
+                             rnd: random.Random) -> Optional[set]:
+    """One attempt of the Steger–Wormald stub pairing (networkx's
+    ``_try_creation``): shuffle the stubs, pair them off, keep the pairs
+    that are new simple edges and re-pair the stubs of the rest; None when
+    no suitable pair can remain."""
+    def suitable(edges, potential_edges):
+        if not potential_edges:
+            return True
+        for s1 in potential_edges:
+            for s2 in potential_edges:
+                if s1 == s2:         # each s1-s2 pair once
+                    break
+                if s1 > s2:
+                    s1, s2 = s2, s1
+                if (s1, s2) not in edges:
+                    return True
+        return False
+
+    edges = set()
+    stubs = list(range(n)) * k
+    while stubs:
+        potential_edges = collections.defaultdict(lambda: 0)
+        rnd.shuffle(stubs)
+        stubiter = iter(stubs)
+        for s1, s2 in zip(stubiter, stubiter):
+            if s1 > s2:
+                s1, s2 = s2, s1
+            if s1 != s2 and ((s1, s2) not in edges):
+                edges.add((s1, s2))
+            else:
+                potential_edges[s1] += 1
+                potential_edges[s2] += 1
+        if not suitable(edges, potential_edges):
+            return None
+        stubs = [node for node, potential in potential_edges.items()
+                 for _ in range(potential)]
+    return edges
+
+
 @register("random_regular", params=dict(n=int, k=int, seed=int),
           defaults=dict(seed=0), closed_forms=_cf_random_regular,
           aliases=("jellyfish",), default_instance="random_regular(64,4,seed=1)")
 def random_regular(n: int, k: int, seed: int = 0) -> Topology:
     """Jellyfish-style random k-regular graph (configuration model, simple).
 
-    Drawn by networkx, imported lazily so the family yields the same graph as
-    the reference package.  networkx is not part of the port's requirements
-    (the machine with the card has none): there this family raises
-    ImportError, and nothing on the port's main path builds it.
+    The port's own copy of networkx 3.x's ``random_regular_graph(k, n,
+    seed)`` (BSD-3-Clause, Copyright (C) 2004-2024 NetworkX Developers):
+    Steger–Wormald stub pairing driven by ``random.Random(seed)``, retried
+    until a suitable edge set is found.  Edges come out in the order
+    ``list(G.edges())`` gives for that graph — vertex by vertex, each
+    vertex's higher neighbors in the order their edges were inserted from
+    the edge set — so the family yields the reference's graph edge for edge
+    without importing networkx.
     """
-    import networkx as nx
-
-    G = nx.random_regular_graph(k, n, seed=seed)
-    e = np.array(list(G.edges()), dtype=np.int64)
+    if (n * k) % 2 != 0:
+        raise ValueError("n * k must be even")
+    if not 0 <= k < n:
+        raise ValueError("the 0 <= k < n inequality must be satisfied")
+    rnd = random.Random(seed)
+    edges = _random_regular_edge_set(n, k, rnd) if k else set()
+    while edges is None:
+        edges = _random_regular_edge_set(n, k, rnd)
+    nbrs: List[List[int]] = [[] for _ in range(n)]
+    for u, v in edges:                 # Graph.add_edges_from's adjacency order
+        nbrs[u].append(v)
+        nbrs[v].append(u)
+    e = np.array([(u, v) for u in range(n) for v in nbrs[u] if v > u],
+                 dtype=np.int64).reshape(-1, 2)
     return Topology(f"random_regular({n},{k})", n, e, meta=dict(k=k, seed=seed))

@@ -2,8 +2,8 @@
 
 The port may not import the reference's ``benchmarks`` package (it imports
 the JAX stack), so the lists its checks run over live here; a test holds them
-equal to ``benchmarks/table1.py``, ``benchmarks/lps_bench.py`` and
-``benchmarks/routing_eval.py``.
+equal to ``benchmarks/table1.py``, ``benchmarks/lps_bench.py``,
+``benchmarks/routing_eval.py`` and ``benchmarks/scale_bench.py``.
 """
 
 #: benchmarks/table1.py SPECS — the paper's Table 1 instances
@@ -24,4 +24,27 @@ ROUTING_EVAL_SPECS = [
     "lps(13,5)", "slimfly(13)", "torus(16,2)", "hypercube(8)", "ccc(6)",
     "butterfly(3,4)", "petersen_torus(5,4)", "dragonfly",
     "random_regular(256,6,0)",
+]
+
+#: benchmarks/scale_bench.py SPECS — the exactness sweep's families
+SCALE_BENCH_SPECS = [
+    "lps(13,5)", "slimfly(13)", "torus(16,2)", "hypercube(8)", "ccc(6)",
+    "butterfly(3,4)", "petersen_torus(5,4)", "dragonfly",
+    "random_regular(256,6,0)",
+]
+
+#: benchmarks/scale_bench.py — the datacenter-scale survey row
+SCALE_SPEC = "xpander(65536,32,0,0)"
+SCALE_NODES = 65536
+SCALE_SOURCES = 64            # sample_fraction = 64 / 65536 ~ 0.1%
+#: Moore bound: a 32-regular graph on 65536 nodes has diameter >= 4; the
+#: sampled lower bound must land in [3, true diameter]
+DIAMETER_LB_FLOOR = 3
+
+#: benchmarks/scale_bench.py COLUMNS — the scale row's schema
+SCALE_COLUMNS = [
+    "instance", "nodes", "radix", "backend", "rho2",
+    "diameter_bfs", "diameter_lb", "diameter_ok", "avg_hops", "avg_hops_ci",
+    "path_diversity", "traffic_pattern", "max_link_load",
+    "saturation_throughput", "throughput_spectral", "seconds",
 ]

@@ -39,14 +39,16 @@ def load_reference() -> types.SimpleNamespace:
                  "repro.core.topologies", "repro.core.ramanujan",
                  "repro.core.properties", "repro.core.spectral",
                  "repro.core.faults", "repro.core.synthesis",
+                 "repro.core.lifts", "repro.core.reduction",
+                 "repro.core.routing", "repro.core.traffic",
                  "repro.kernels.spmv", "repro.configs", "repro.models.layers",
                  "repro.models.attention", "repro.models.mamba",
                  "repro.models.moe", "repro.models.transformer",
                  "repro.models.model"):
         mods[name.rsplit(".", 1)[-1]] = importlib.import_module(name)
     mods["config_base"] = importlib.import_module("repro.configs.base")
-    # the LM kernels' Pallas bodies and oracles, e.g. ``rmsnorm_kernel``
-    for kern in ("rmsnorm", "flash_attention", "mamba_scan"):
+    # the kernels' Pallas bodies and oracles, e.g. ``rmsnorm_kernel``
+    for kern in ("cayley_spmv", "rmsnorm", "flash_attention", "mamba_scan"):
         for part in ("kernel", "ref", "ops"):
             mods[f"{kern}_{part}"] = importlib.import_module(
                 f"repro.kernels.{kern}.{part}")
@@ -75,13 +77,11 @@ def _imported_roots(path: pathlib.Path) -> set:
 @pytest.mark.parametrize("path", _python_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_imports_no_jax_or_reference(path):
-    """Static check: no port module (nor chip_smoke.py) names jax or repro
-    in an import statement, and networkx appears only in the two lazy
-    imports off the main path (``Topology.to_networkx``, ``random_regular``)."""
+    """Static check: no port module (nor chip_smoke.py) names jax, repro or
+    networkx in an import statement (the machine with the card has none of
+    them; ``random_regular`` carries its own copy of networkx's pairing)."""
     roots = _imported_roots(path)
-    assert not roots & {"jax", "jaxlib", "repro"}
-    if path.name not in ("graphs.py", "topologies.py"):
-        assert "networkx" not in roots
+    assert not roots & {"jax", "jaxlib", "repro", "networkx"}
 
 
 def test_importing_the_port_loads_no_jax_or_reference():
@@ -153,6 +153,7 @@ def test_port_spec_lists_equal_the_benchmarks(ref):
     benchmarks import the reference); they must not drift."""
     import benchmarks.lps_bench as LB
     import benchmarks.routing_eval as RE
+    import benchmarks.scale_bench as SB
     import benchmarks.table1 as T1
     from repro_torch import specs
 
@@ -160,6 +161,12 @@ def test_port_spec_lists_equal_the_benchmarks(ref):
     assert specs.LPS_SPECS == LB.SPECS
     assert specs.LPS_DENSE_THRESHOLD == LB.DENSE_THRESHOLD
     assert specs.ROUTING_EVAL_SPECS == RE.SPECS
+    assert specs.SCALE_BENCH_SPECS == SB.SPECS
+    assert specs.SCALE_SPEC == SB.SCALE_SPEC
+    assert specs.SCALE_NODES == SB.SCALE_NODES
+    assert specs.SCALE_SOURCES == SB.SCALE_SOURCES
+    assert specs.DIAMETER_LB_FLOOR == SB.DIAMETER_LB_FLOOR
+    assert specs.SCALE_COLUMNS == SB.COLUMNS
 
 
 def test_obs_copy_keeps_the_reference_api(ref):

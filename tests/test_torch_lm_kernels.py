@@ -229,8 +229,8 @@ def test_route_sends_cpu_tensors_to_the_plain_versions():
 
 
 def test_build_knows_every_kernel_source():
-    assert build.KERNELS == ("spmv", "rmsnorm", "flash_attention",
-                             "mamba_scan")
+    assert build.KERNELS == ("spmv", "cayley_spmv", "rmsnorm",
+                             "flash_attention", "mamba_scan")
     for name in build.KERNELS:
         src = build.CSRC / f"{name}.cu"
         assert src.is_file(), src

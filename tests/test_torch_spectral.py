@@ -4,9 +4,10 @@ The private solvers take start vectors, so both sides get the same numpy
 draws and their extreme Ritz values must agree to 1e-5 relative
 (|a - b| <= 1e-5 max(1, |b|)): both run the same f32 recurrence, and f32
 roundoff in a different summation order is the only difference.  The public
-entry points draw from their own generators (``torch.Generator`` here,
-``jax.random`` there), so they are held to the reference's 1e-3 bar against
-the dense oracle and the reference (tests/test_api_analysis.py).
+entry points draw the reference's own ``jax.random`` start vectors
+(``repro_torch.core.threefry``, held to jax's draws in
+tests/test_torch_synthesis.py); they are held to the reference's 1e-3 bar
+against the dense oracle and the reference (tests/test_api_analysis.py).
 """
 import numpy as np
 import pytest
