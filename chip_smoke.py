@@ -23,7 +23,11 @@ PyTorch version at its main path's shapes, and drives every main path:
   synthesized on the card (signed K1 batches), its rho_2, 64-source sampled
   routing and uniform ECMP traffic (K1 in float64) -- held to the scale
   bench's conditions and the reference's values; torus(32,2)'s exact
-  antipodal path count; and the sample_fraction=1.0 exactness sweep.
+  antipodal path count; and the sample_fraction=1.0 exactness sweep;
+* slice 4, dense attention at full depth: qwen2-7b at its published widths
+  and all 28 layers (K3 in every one), bf16, random weights from seed 0,
+  4 requests of 1024-token prompts and 8 greedy new tokens, checked
+  against the same prefill through the plain versions.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -49,9 +53,12 @@ SRC = ROOT / "src"
 #: published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
-#: the same for work on the tensor cores (K3's bf16 products); K3's f32 path
-#: runs on the f32 FMA pipes
-TENSOR_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: the same for work on the tensor cores (K3's products).  f32-accurate
+#: products run there as 3xTF32 (each operand split into two TF32 parts,
+#: three TF32 products per product, error near f32's), so the card's f32
+#: attention rate is the 495 TFLOP/s TF32 peak over 3, not the 67 TFLOP/s
+#: of the FMA pipes
+TENSOR_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 
 #: reference values of the main path (JAX reference on the CPU, iters 200)
 LPS_RHO2 = 1.5883946
@@ -167,6 +174,18 @@ SERVE_LOGITS_REL_TOL = SERVE_MIXER_REL_TOL * math.sqrt(SERVE_LAYERS)
 #: K3's bf16 forms, beside the allclose: each output row's relative L2 gap
 #: to the plain version, at most 4 bf16 ulps (2^-8 each) of relative error
 ATTN_ROW_REL_TOL = 4 * 2.0 ** -8
+
+#: the dense-attention serving phase: qwen2-7b at full width and depth (28
+#: attention layers, ~15 GB of bf16 weights), 4 requests of 1024-token
+#: prompts and 8 greedy new tokens
+QWEN_ARCH = "qwen2-7b"
+QWEN_REQUESTS, QWEN_PROMPT, QWEN_NEW = 4, 1024, 8
+#: its last-position logits through the kernels against a plain prefill,
+#: relative L2, derived as SERVE_LOGITS_REL_TOL is: the per-layer mixer
+#: bound times sqrt(layers) = 1e-2 * sqrt(28) = 0.053 (qwen2 is dense, so no
+#: MoE routing is replayed)
+QWEN_LAYERS = 28
+QWEN_LOGITS_REL_TOL = SERVE_MIXER_REL_TOL * math.sqrt(QWEN_LAYERS)
 
 #: enough copies of a case's operands that one timed launch finds the
 #: previous copies' bytes evicted from the 50 MB L2, as a Lanczos step does
@@ -825,9 +844,13 @@ def lm_kernel_checks(torch, dev) -> list:
     rows = []
     bf, f32 = torch.bfloat16, torch.float32
 
-    # K5: prefill rows (B*S, D), decode rows, f32, ragged rows and widths
+    # K5: prefill rows (B*S, D), decode rows (jamba, then qwen2-7b's width),
+    # f32, ragged rows and widths
     for form, (R, D), dt in (("prefill (4096, 4096) bf16", (4096, 4096), bf),
                              ("decode (4, 4096) bf16", (4, 4096), bf),
+                             ("qwen prefill (4096, 3584) bf16", (4096, 3584),
+                              bf),
+                             ("qwen decode (4, 3584) bf16", (4, 3584), bf),
                              ("prefill (4096, 4096) f32", (4096, 4096), f32),
                              ("ragged rows (1001, 1024) bf16", (1001, 1024), bf),
                              ("ragged width (37, 4095) f32", (37, 4095), f32)):
@@ -840,7 +863,10 @@ def lm_kernel_checks(torch, dev) -> list:
             library=lambda a, b: F.rms_norm(a, (a.shape[-1],), b, 1e-6),
             lib_args=lambda a: a))
 
-    # K3: the serving prefill (B 4, S 1024, H 32, Kv 8, hd 128)
+    # K3: the serving prefill (B 4, S 1024, H 32, Kv 8, hd 128), then the
+    # qwen2-7b phase's prefill (G = 7), gemma-2b's MQA hd 256 and an hd 64
+    # form: each of these holds more work tiles than the card has SMs, so
+    # the persistent bf16 blocks take several tiles at every compiled width
     def attn_pairs(S, causal):
         return S * (S + 1) // 2 if causal else S * S
 
@@ -864,7 +890,10 @@ def lm_kernel_checks(torch, dev) -> list:
             ("prefill causal f32", (4, 1024, 32, 8, 128), True, f32),
             ("ragged S=1000 causal bf16", (4, 1000, 32, 8, 128), True, bf),
             ("ragged S=1000 non-causal f32", (2, 1000, 32, 8, 128), False,
-             f32)):
+             f32),
+            ("qwen prefill causal bf16", (4, 1024, 28, 4, 128), True, bf),
+            ("gemma-2b prefill causal bf16", (4, 1024, 8, 1, 256), True, bf),
+            ("hd 64 non-causal bf16", (4, 1024, 16, 2, 64), False, bf)):
         q, k, v = randn(B, S, H, hd, dtype=dt), randn(B, S, Kv, hd, dtype=dt), \
             randn(B, S, Kv, hd, dtype=dt)
         es = q.element_size()
@@ -1160,63 +1189,69 @@ def _leaves(tree):
         yield tree
 
 
-def serve_split(torch, dev, params, prompts) -> dict:
-    """Device time of one prefill and of 4 decode steps by kernel class, from
-    torch.profiler's CUDA kernel events, and the device idle share."""
+def _classify_kernel(name: str) -> str:
+    n = name.lower()
+    if "rmsnorm_kernel" in n:
+        return "rmsnorm_ms"
+    if "fa_kernel" in n:
+        return "flash_attention_ms"
+    if "scan_kernel" in n:
+        return "mamba_scan_ms"
+    if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+        return "matmul_ms"
+    return "other_ms"
+
+
+def _profiled(torch, fn):
+    """``fn()`` under torch.profiler: its result and a row of device time by
+    kernel class (CUDA kernel events), busy time and idle share of the
+    host-clock wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes = dict.fromkeys(("rmsnorm_ms", "flash_attention_ms",
+                             "mamba_scan_ms", "matmul_ms", "other_ms"), 0.0)
+    kernels = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        kernels += 1
+        classes[_classify_kernel(e.name)] += us / 1e3
+    busy = sum(classes.values())
+    row = dict(wall_ms=wall * 1e3, device_kernels=kernels)
+    if busy > 0:
+        row.update(classes, device_busy_ms=busy,
+                   device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
+                   flash_attention_share=classes["flash_attention_ms"]
+                   / busy)
+    else:
+        row.update({c: "not measured" for c in classes},
+                   device_busy_ms="not measured",
+                   device_idle_share="not measured",
+                   flash_attention_share="not measured")
+    return out, row
+
+
+def serve_split(torch, dev, params, prompts) -> dict:
+    """Device time of one prefill and of 4 decode steps by kernel class, from
+    torch.profiler's CUDA kernel events, and the device idle share."""
     from repro_torch.models import model as M
     from repro_torch.serve import serving_config
 
     cfg = serving_config(SERVE_ARCH, layers=SERVE_LAYERS)
     max_len = SERVE_PROMPT + SERVE_NEW
-
-    def classify(name):
-        n = name.lower()
-        if "rmsnorm_kernel" in n:
-            return "rmsnorm_ms"
-        if "fa_kernel" in n:
-            return "flash_attention_ms"
-        if "scan_kernel" in n:
-            return "mamba_scan_ms"
-        if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
-            return "matmul_ms"
-        return "other_ms"
-
-    def profiled(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        classes = dict.fromkeys(("rmsnorm_ms", "flash_attention_ms",
-                                 "mamba_scan_ms", "matmul_ms", "other_ms"),
-                                0.0)
-        kernels = 0
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "device_time_total", None)
-            if us is None:
-                us = e.cuda_time_total
-            kernels += 1
-            classes[classify(e.name)] += us / 1e3
-        busy = sum(classes.values())
-        row = dict(wall_ms=wall * 1e3, device_kernels=kernels)
-        if busy > 0:
-            row.update(classes, device_busy_ms=busy,
-                       device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)))
-        else:
-            row.update({c: "not measured" for c in classes},
-                       device_busy_ms="not measured",
-                       device_idle_share="not measured")
-        return out, row
-
-    (logits, caches), prefill_row = profiled(
-        lambda: M.prefill(params, {"tokens": prompts}, cfg, max_len))
+    (logits, caches), prefill_row = _profiled(
+        torch, lambda: M.prefill(params, {"tokens": prompts}, cfg, max_len))
     tok = logits.argmax(-1)
 
     def four_steps():
@@ -1226,8 +1261,86 @@ def serve_split(torch, dev, params, prompts) -> dict:
             t = lg.argmax(-1)
         return t
 
-    _, decode_row = profiled(four_steps)
+    _, decode_row = _profiled(torch, four_steps)
     return dict(prefill=prefill_row, decode_4_steps=decode_row)
+
+
+def qwen_phase(torch, dev) -> dict:
+    """qwen2-7b at full width and depth, served through ``generate``: every
+    layer's prefill attention is K3.  Counts the launches, profiles one
+    prefill, and holds the logits against the same prefill through the
+    plain versions (and reports one bf16 ulp on the input embeddings for
+    scale)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import generate, serving_config
+
+    cfg = serving_config(QWEN_ARCH)
+    assert cfg.n_layers == QWEN_LAYERS, cfg.n_layers
+    n_attn = sum(s.kind == "attn" for s in cfg.pattern) * cfg.n_repeats
+    max_len = QWEN_PROMPT + QWEN_NEW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (QWEN_REQUESTS, QWEN_PROMPT),
+                            generator=gen, device=dev)
+    generate(params, cfg, prompts[:, :64], 2)       # warm-up, not counted
+
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.reset_launches()
+    res = generate(params, cfg, prompts, QWEN_NEW)
+    launches = {n: mod.launches() for n, mod in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = res.decode_steps
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * (1 + steps),
+            "flash_attention": n_attn, "mamba_scan": 0}
+    assert launches == want, (launches, want)
+
+    (logits, _), prefill_row = _profiled(
+        torch, lambda: M.prefill(params, {"tokens": prompts}, cfg, max_len))
+    with _plain_kernels():
+        plain_logits, _ = M.prefill(params, {"tokens": prompts}, cfg,
+                                    max_len)
+        x = M._embed_in(params, {"tokens": prompts}, cfg)
+        g2 = torch.Generator(device=dev)
+        g2.manual_seed(2)
+        sign = torch.randint(0, 2, x.shape, generator=g2, device=dev) * 2 - 1
+        x_ulp = (x.float() * (1 + sign * 2.0 ** -8)).to(x.dtype)
+        ulp_logits, _ = M.prefill(params, {"embeds": x_ulp}, cfg, max_len)
+        del x, sign, x_ulp
+    torch.cuda.synchronize()
+    for lg in (res.prefill_logits, logits, plain_logits, ulp_logits):
+        assert lg.shape == (QWEN_REQUESTS, cfg.vocab_size), lg.shape
+        assert torch.isfinite(lg).all()
+    toks = res.tokens
+    assert toks.shape == (QWEN_REQUESTS, QWEN_NEW), toks.shape
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    rel = _rel_l2(res.prefill_logits, plain_logits)
+    assert rel <= QWEN_LOGITS_REL_TOL, (rel, QWEN_LOGITS_REL_TOL)
+    del params
+    torch.cuda.empty_cache()
+    return dict(
+        arch=QWEN_ARCH, n_layers=cfg.n_layers, reduced=[], params=n_params,
+        dtype=cfg.compute_dtype, seed=0, init_seconds=init_s,
+        requests=QWEN_REQUESTS, prompt_len=QWEN_PROMPT, max_new=QWEN_NEW,
+        prefill_ms=res.prefill_s * 1e3,
+        prefill_tokens_per_s=QWEN_REQUESTS * QWEN_PROMPT / res.prefill_s,
+        decode_ms_per_step=res.decode_s / steps * 1e3,
+        peak_memory_gb=peak_gb, launches=launches, launches_expected=want,
+        prefill_profile=prefill_row,
+        flash_attention_ms=prefill_row["flash_attention_ms"],
+        flash_attention_share=prefill_row["flash_attention_share"],
+        logits_rel_l2_vs_plain=rel, logits_rel_tol=QWEN_LOGITS_REL_TOL,
+        one_ulp_input_logits_rel_l2=_rel_l2(ulp_logits, plain_logits),
+        first_token_agree=int((res.prefill_logits.argmax(-1)
+                               == plain_logits.argmax(-1)).sum()),
+        tokens_head=toks.tolist())
 
 
 def reduced_cpu_check(torch, dev) -> dict:
@@ -1556,6 +1669,12 @@ def run(torch, dev) -> int:
     del params, prompts
     torch.cuda.empty_cache()
 
+    # -- phase 9b: dense attention at full depth, qwen2-7b (K3 x 28) -----
+    t0 = time.time()
+    qwen = qwen_phase(torch, dev)
+    qwen["seconds"] = time.time() - t0
+    emit(dict(phase="qwen_serving", **qwen))
+
     # -- phase 10: the reduced model, card against CPU -------------------
     emit(dict(phase="reduced_card_vs_cpu", **reduced_cpu_check(torch, dev)))
     emit(dict(phase="total", seconds=time.time() - t_start))
@@ -1584,9 +1703,10 @@ def run(torch, dev) -> int:
         mine = [r for r in lm_rows if r["kernel"] == name]
         first = mine[0]               # the serving path's case
         assert lm_launches[name] > 0, (name, lm_launches)
+        path_launches = lm_launches[name] + qwen["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=lm_launches[name], max_abs_err=first["max_abs_err"],
+            launches=path_launches, max_abs_err=first["max_abs_err"],
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=first["library_ms"], form=first["form"],

@@ -17,7 +17,8 @@ reference's Pallas kernel and its ``attention_ref`` do.
   only: it launches the kernel or raises, and never falls back.
 
 The model's prefill attention (``repro_torch.models.transformer``) routes a
-CUDA tensor here and a CPU tensor to ``models.attention.chunked_attention``.
+CUDA tensor of a layer without a window or query offset here, and every
+other layer, and any CPU tensor, to ``models.attention.chunked_attention``.
 :func:`launches` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -27,12 +28,15 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["attention_ref", "flash_attention_cuda", "launches",
            "reset_launches"]
 
 _LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+#: elements in 16 bytes: the kernel's head width is a multiple of this
+_ROW_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def launches() -> int:
@@ -85,9 +89,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel K3 on the card (same result as :func:`attention_ref`).
 
     ``q``, ``k``, ``v`` float32 or bfloat16, one dtype, on one CUDA device,
-    in the layout above.  float32 takes head widths up to 128 (the tiles
-    must fit one block's shared memory), bfloat16 up to 256.  Raises on any
-    other input and when the launch reports an error."""
+    in the layout above.  float32 takes head widths up to 128, bfloat16 up
+    to 256 (the kernel compiles widths 64, 128 and 256 and zero-fills
+    narrower heads; a width that is no multiple of 16 bytes is padded here).
+    Raises on any other input and when the launch reports an error."""
     global _LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got q on "
@@ -113,10 +118,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd > limit:
         raise ValueError(f"flash_attention_cuda: head width {hd} > {limit} "
                          f"for {q.dtype}")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel reads 16-byte rows (TMA, cp.async): pad the head width to a
+    # multiple of 8 (bf16) or 4 (f32) with zero columns, which change no
+    # product, and slice the output back
+    width = -(-hd // _ROW_ELEMS[q.dtype]) * _ROW_ELEMS[q.dtype]
+    if width != hd:
+        q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
+    qc, kc, vc = (_aligned(t) for t in (q, k, v))
     o = torch.empty_like(qc)
     if o.numel() == 0:
-        return o
+        return o[..., :hd]
     if Sk == 0:
         raise ValueError("flash_attention_cuda: no keys (Sk == 0)")
     lib = _library()
@@ -125,9 +136,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _LAUNCHES += 1
         rc = lib.flash_attention_launch(
             _DTYPE_CODE[q.dtype], qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-            o.data_ptr(), B, Sq, Sk, H, Kv, hd, int(bool(causal)),
+            o.data_ptr(), B, Sq, Sk, H, Kv, width, int(bool(causal)),
             1.0 / math.sqrt(hd), stream)
     if rc != 0:
         raise RuntimeError("flash_attention_cuda: kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
-    return o
+    return o if width == hd else o[..., :hd].contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, copied if its data does not start on 16 bytes."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

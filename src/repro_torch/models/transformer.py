@@ -9,10 +9,12 @@ leading axis).  There is no remat and no sharding on one card.
 
 Routing to the hand-written kernels, on a CUDA tensor: every ``norm1`` /
 ``norm2`` goes to K5 (through ``layers.rms_norm``); prefill attention of a
-layer without a window goes to K3 (``kernels.flash_attention``); the Mamba
-prefill scan goes to K4 (through ``models.mamba``).  A windowed layer, or a
-query offset, raises ``NotImplementedError`` on the card: the K3 port has
-neither.  Decode attention is plain PyTorch everywhere.
+layer without a window and without a query offset goes to K3
+(``kernels.flash_attention``); the Mamba prefill scan goes to K4 (through
+``models.mamba``).  K3, like the reference's Pallas kernel, has no window
+and no query offset: a windowed layer, or a query offset, runs the plain
+``chunked_attention`` on whatever device its tensors are, as the reference
+runs every layer.  Decode attention is plain PyTorch everywhere.
 """
 from __future__ import annotations
 
@@ -90,11 +92,7 @@ def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    if q.device.type == "cuda":
-        if spec.window is not None or q_offset != 0:
-            raise NotImplementedError(
-                "prefill attention on the card: the flash-attention kernel "
-                "takes no sliding window and no query offset")
+    if q.device.type == "cuda" and spec.window is None and q_offset == 0:
         o = K3.flash_attention_cuda(q, k, v, causal=cfg.causal)
     else:
         o = chunked_attention(q, k, v, causal=cfg.causal, window=spec.window,

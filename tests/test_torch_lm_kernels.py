@@ -24,6 +24,10 @@ from test_torch_harness import load_reference
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+#: bf16 flash attention on the card, beside the allclose: each output row's
+#: relative L2 gap to the plain version, at most 4 bf16 ulps (chip_smoke.py's
+#: ATTN_ROW_REL_TOL)
+ATTN_ROW_REL_TOL = 4 * 2.0 ** -8
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -134,6 +138,85 @@ def test_attention_plain_gqa_matches_reference_ops(ref):
     got = K3.attention_ref(_t(q, "float32"), _t(k, "float32"),
                            _t(v, "float32"), causal=True)
     _close(got, want, ATTN_TOL["float32"])
+
+
+def _tf32(x):
+    """float32 -> TF32 (10-bit mantissa), rounding to nearest with ties away
+    from zero, as the card's ``cvt.rna.tf32.f32`` does."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as K3's f32 path computes it: small * big + big * small +
+    big * big, each a product of TF32 values summed in f32."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _attention_3xtf32(q, k, v, causal, mm=_mm_3xtf32, bk=32):
+    """K3's f32 path in torch: 32-key tiles, online softmax in exp2 with
+    scale * log2(e) folded in, both products in 3xTF32 (P split too)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    qh = q.permute(0, 2, 1, 3)
+    kh, vh = (t.repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))
+    sl2 = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32) * \
+        torch.tensor(1.4426950408889634, dtype=torch.float32)
+    m = torch.full((B, H, S, 1), -np.inf)
+    l = torch.zeros((B, H, S, 1))
+    o = torch.zeros((B, H, S, hd))
+    q_pos = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        s = mm(qh, kh[:, :, k0:k0 + bk].transpose(-1, -2))
+        k_pos = k0 + torch.arange(s.shape[-1])[None, :]
+        if causal:
+            s = s.masked_fill(k_pos > q_pos, -np.inf)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+        mu = torch.where(torch.isinf(mn), torch.zeros_like(mn), mn)
+        corr = torch.exp2(m - mu)
+        m = mn
+        p = torch.exp2(s * sl2 - mu)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + mm(p, vh[:, :, k0:k0 + bk])
+    return (o / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("S,causal", [(1024, True), (256, False)],
+                         ids=["1024-causal", "256-full"])
+def test_flash_attention_3xtf32_meets_f32_tolerance(ref, S, causal):
+    """The f32 path's split-precision TF32 products, emulated here, hold
+    the reference's Pallas kernel (interpret mode) to the f32 attention
+    tolerance at the serving head width; plain TF32 products would not."""
+    B, H, Kv, hd = 1, 4, 2, 128
+    rng = _rng(S + 7)
+    q, k, v = (rng.standard_normal((B, S, n, hd)).astype(np.float32)
+               for n in (H, Kv, Kv))
+    jnp = ref.jnp
+    tr = (0, 2, 1, 3)
+    G = H // Kv
+    want = ref.flash_attention_kernel.flash_attention(
+        jnp.asarray(q.transpose(tr)),
+        jnp.asarray(np.repeat(k.transpose(tr), G, axis=1)),
+        jnp.asarray(np.repeat(v.transpose(tr), G, axis=1)), causal=causal,
+        block_q=256, block_k=256, interpret=True)
+    want = np.asarray(want, np.float32).transpose(tr)
+    tq, tk, tv = (torch.as_tensor(a) for a in (q, k, v))
+    got = _attention_3xtf32(tq, tk, tv, causal)
+    _close(got, want, ATTN_TOL["float32"])
+    _close(got, K3.attention_ref(tq, tk, tv, causal=causal),
+           ATTN_TOL["float32"])
+    plain_tf32 = _attention_3xtf32(
+        tq, tk, tv, causal, mm=lambda a, b: _tf32(a) @ _tf32(b))
+    err = np.abs(_np(plain_tf32) - want) - ATTN_TOL["float32"] * (
+        1 + np.abs(want))
+    assert err.max() > 0
 
 
 # --------------------------------------------------------------------------
@@ -260,12 +343,33 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, shape, dtype):
         K5.rmsnorm_cuda(x, w.to(other))
 
 
+FA_CARD_CASES = [  # (B, S, H, Kv, hd, causal)
+    (2, 256, 8, 2, 128, True),
+    (1, 200, 4, 4, 64, False),
+    (1, 77, 4, 1, 80, True),
+    (2, 130, 2, 2, 16, True),
+    (1, 96, 2, 1, 256, True),
+    (1, 300, 8, 1, 112, True),       # MQA at the configs' other widths
+    (1, 257, 8, 1, 120, False),
+    (2, 384, 8, 1, 256, True),       # gemma-2b's MQA head
+    (1, 4096, 4, 2, 128, True),      # many key tiles: the ring wraps
+    (2, 1000, 4, 2, 64, True),       # S no multiple of the 128-row q tile
+    (1, 150, 4, 2, 77, True),        # hd padded by the wrapper
+    (2, 512, 10, 5, 64, True),       # lm100m's attention (f32 config)
+    # more 128-row work tiles than an H100 has SMs (132), so a persistent
+    # bf16 block takes several tiles at each compiled width (64, 128, 256)
+    (4, 1024, 16, 2, 64, True),
+    (4, 1024, 16, 2, 64, False),
+    (4, 1024, 16, 2, 128, True),
+    (4, 1024, 16, 2, 128, False),
+    (4, 1024, 8, 1, 256, True),      # gemma-2b's prefill: 256 tiles
+    (4, 1024, 8, 1, 256, False),
+    (2, 1000, 28, 4, 128, True),     # qwen2-7b's heads (G = 7), ragged S
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(2, 256, 8, 2, 128, True),
-                                  (1, 200, 4, 4, 64, False),
-                                  (1, 77, 4, 1, 80, True),
-                                  (2, 130, 2, 2, 16, True),
-                                  (1, 96, 2, 1, 256, True)])
+@pytest.mark.parametrize("case", FA_CARD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain_on_card(cuda_device, case,
                                                       dtype):
@@ -281,7 +385,12 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device, case,
     got = K3.flash_attention_cuda(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert K3.launches() == before + 1
-    _close(got, K3.attention_ref(q, k, v, causal=causal), ATTN_TOL[dtype])
+    want = K3.attention_ref(q, k, v, causal=causal)
+    _close(got, want, ATTN_TOL[dtype])
+    if dtype == "bfloat16":
+        g, w = got.double(), want.double()
+        rel = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+        assert float(rel.max()) <= ATTN_ROW_REL_TOL, float(rel.max())
 
 
 @pytest.mark.cuda

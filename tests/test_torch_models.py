@@ -496,11 +496,35 @@ def test_reduced_jamba_on_card_goes_through_the_kernels(cuda_device,
 
 @pytest.mark.cuda
 def test_windowed_attention_raises_on_card(cuda_device):
+    """Windowed layers no longer raise on the card: a reduced gemma3-12b
+    (5 windowed layers to 1 global) prefills there as on the CPU, its
+    windowed layers through the plain ``chunked_attention`` and only its
+    global layers through K3."""
     cfg = reduced(get_config("gemma3-12b"))
-    p = PM.init_params(cfg, seed=0, device=cuda_device)
-    toks = torch.zeros(1, 16, dtype=torch.long, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="window"):
-        PM.prefill(p, {"tokens": toks}, cfg, 20)
+    p = PM.init_params(cfg, seed=0, device="cpu")
+    B, S = 2, 40                   # past the reduced window of 8
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, S)))
+    want, want_c = PM.prefill(p, {"tokens": toks}, cfg, S + 2)
+    p_dev = {k: _to(v, cuda_device) for k, v in p.items()}
+    K3.reset_launches()
+    got, got_c = PM.prefill(p_dev, {"tokens": toks.to(cuda_device)}, cfg,
+                            S + 2)
+    torch.cuda.synchronize()
+    n_global = sum(s.window is None for s in cfg.pattern) * cfg.n_repeats
+    assert 0 < n_global < cfg.n_layers
+    assert K3.launches() == n_global
+    _close(got, _np(want), 1e-3)
+    _tree_close(got_c, [{k: _np(v) for k, v in c.items()} for c in want_c],
+                1e-3)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def test_lm_entry_points_default_to_the_card():
