@@ -5,9 +5,11 @@ Run from the repository root on a machine with one NVIDIA card::
 
     python3 chip_smoke.py
 
-It builds the port's five CUDA kernels from the sources in this checkout
-(one ``nvcc`` each, all at once), holds each kernel against its plain
-PyTorch version at its main path's shapes, and drives every main path:
+It builds the port's five CUDA kernels and its measurement probes
+(``csrc/probe.cu``: the L2 read bandwidth, the launch floor) from the
+sources in this checkout (one ``nvcc`` each, all at once), holds each
+kernel against its plain PyTorch version at its main path's shapes, and
+drives every main path:
 
 * slice 1, the paper's measurement: registry spec -> topology -> Lanczos
   rho_2 / lambda on the card (kernel K1) -> survey rows, at full width,
@@ -52,6 +54,15 @@ SRC = ROOT / "src"
 
 #: published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
+#: an L2 sector: the least a random read moves between L2 and an SM
+L2_SECTOR_BYTES = 32
+#: the measurement probes' source (csrc/probe.cu; no kernel of the port)
+PROBE_LIB = "probe"
+#: the L2 read-bandwidth probe: a buffer this size (L2-resident), read this
+#: many times per launch, by this many blocks per SM
+L2_PROBE_BYTES = 16 << 20
+L2_PROBE_REPS = 16
+L2_PROBE_BLOCKS_PER_SM = 8
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
 #: the same for work on the tensor cores (K3's products).  f32-accurate
 #: products run there as 3xTF32 (each operand split into two TF32 parts,
@@ -71,6 +82,8 @@ ORACLE_TOL = 1e-3
 TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 0.15}
 
 SPMV_SOURCE = "src/repro_torch/kernels/csrc/spmv.cu"
+#: K1's CUDA kernels, as the profiler names them (prefixes)
+K1_KERNEL_NAMES = ("spmv_rows_kernel", "spmv_batch_", "spmv_interleave_")
 SPMV_REPLACES = "src/repro/kernels/spmv.py:172"
 
 #: kernel K2 (Cayley matvec): source in the port, the TPU kernel it replaces
@@ -294,9 +307,166 @@ def _case_bytes_ops(x, table, loops, signs) -> tuple:
     return nbytes, flops
 
 
-def check_kernel_case(torch, KS, case: dict) -> dict:
-    """Kernel K1 vs spmv_ref on one case: error, then kernel / plain /
-    library / bound times."""
+def gather_l2_bytes(x_shape, elem: int, table_shape) -> int:
+    """L2 bytes the gathers of K1 (and K2) move if each gathered value costs
+    a whole 32-byte sector and none is reused in L1 or shared memory: for B
+    vectors over one (n, k) table, n k gathers of ceil(B elem / 32) sectors
+    each (a neighbour's B values side by side); for one vector (x (n,)) and
+    for a (B, n, k) table stack, B n k gathers of one sector each."""
+    n, k = table_shape[-2], table_shape[-1]
+    B = x_shape[0] if len(x_shape) == 2 else 1
+    if len(table_shape) == 2:
+        sectors = -(-B * elem // L2_SECTOR_BYTES)
+        return n * k * sectors * L2_SECTOR_BYTES
+    return B * n * k * L2_SECTOR_BYTES
+
+
+def kernel_bound(nbytes: int, flops: int, peak_flops: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes the function must move over 3.35 TB/s ("bytes") and its
+    operations over the peak rate ("operations"); ms."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak_flops * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def l2_sector_time(l2_bytes: int, l2_bytes_per_s: float) -> dict:
+    """A diagnostic beside the bound, never part of it: the time the
+    sectors of :func:`gather_l2_bytes` take at the L2 read bandwidth the
+    smoke measures.  It is no floor: a cluster's shared memory could hold
+    x at these sizes, and hypercube(16)'s low-bit neighbours share sectors
+    in L1, so a kernel may read faster than it; ms."""
+    return dict(l2_bytes=l2_bytes,
+                l2_sector_ms=l2_bytes / l2_bytes_per_s * 1e3)
+
+
+def _probe_library(build):
+    """csrc/probe.cu's library (built with the kernels), C signatures set."""
+    import ctypes
+
+    lib = build.load(PROBE_LIB)
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.probe_l2_read.argtypes = [vp, ll, ci, vp, ci, vp]
+    lib.probe_empty.argtypes = [ci, ci, vp]
+    lib.probe_l2_read.restype = lib.probe_empty.restype = ci
+    lib.probe_error_string.argtypes = [ci]
+    lib.probe_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _probe_ok(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: " + lib.probe_error_string(rc).decode())
+
+
+def measure_l2_read_bw(torch, build) -> dict:
+    """The card's L2 read bandwidth: ``probe_l2_read`` reads an
+    L2_PROBE_BYTES buffer (written just before, so it sits in the 50 MB L2)
+    L2_PROBE_REPS times in 16-byte loads that bypass L1, over
+    L2_PROBE_BLOCKS_PER_SM blocks of 256 threads per SM; a CUDA graph of 16
+    launches, median of 5 replays (:func:`_graph_ms`)."""
+    lib = _probe_library(build)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = L2_PROBE_BLOCKS_PER_SM * sms
+    buf = torch.randint(0, 2 ** 31 - 1, (L2_PROBE_BYTES // 4,),
+                        dtype=torch.int32, device="cuda")
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def probe(b, o):
+        _probe_ok(lib, lib.probe_l2_read(
+            b.data_ptr(), b.numel() * 4, L2_PROBE_REPS, o.data_ptr(), blocks,
+            torch.cuda.current_stream().cuda_stream), "probe_l2_read")
+
+    ms = _graph_ms(torch, probe, [(buf, out)], 16)
+    read = L2_PROBE_BYTES * L2_PROBE_REPS
+    return dict(l2_read_bytes_per_s=read / (ms * 1e-3), probe_ms=ms,
+                buffer_bytes=L2_PROBE_BYTES, reps=L2_PROBE_REPS,
+                blocks=blocks, threads=256, sms=sms)
+
+
+def k1_floor(torch, np, KS, REG, build, dev) -> dict:
+    """What a single-vector K1 call can come down to, each timed as a CUDA
+    graph of 64 calls (:func:`_graph_ms`): an empty kernel on one block and
+    on the (n,) form's grid (ceil(n / 256) blocks of 256: the launch
+    floor), and K1 on lps(61,5)'s (n,) x with loops over the first 1, 2
+    and all 6 columns of its table (k = 1: one dependent table read and
+    gather per row, the latency floor of the gather itself).  The operands
+    cycle through copies as :func:`check_kernel_case`'s do."""
+    lib = _probe_library(build)
+    tab_np, w_np = REG.build("lps(61,5)").gather_operands()
+    n = tab_np.shape[0]
+    grid = -(-n // 256)
+
+    def empty(blocks):
+        return lambda: _probe_ok(lib, lib.probe_empty(
+            blocks, 256, torch.cuda.current_stream().cuda_stream),
+            "probe_empty")
+
+    out = dict(n=n, grid_blocks=grid,
+               empty_one_block_ms=_graph_ms(torch, empty(1), [()], 64),
+               empty_grid_ms=_graph_ms(torch, empty(grid), [()], 64))
+    rng = np.random.default_rng(16)
+    loops = torch.as_tensor(w_np, dtype=torch.float32, device=dev)
+    for k in (1, 2, tab_np.shape[1]):
+        tab = torch.as_tensor(np.ascontiguousarray(tab_np[:, :k]),
+                              dtype=torch.int32, device=dev)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device=dev)
+        nbytes = _case_bytes_ops(x, tab, loops, None)[0]
+        copies = max(2, min(64, math.ceil(COLD_BYTES / nbytes)))
+        sets = [(x.clone(), tab.clone(), loops.clone())
+                for _ in range(copies)]
+        out[f"k1_k{k}_ms"] = _graph_ms(torch, KS.spmv_cuda, sets,
+                                       max(64, copies))
+        out[f"k1_k{k}_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def _sequential_signed(torch, x, table, signs):
+    """``acc = acc + s[..., j] * x[table[..., j]]`` for j = 0..k-1 in plain
+    PyTorch, in x's dtype: the order of the kernel's sum."""
+    acc = torch.zeros_like(x)
+    for j in range(table.shape[-1]):
+        idx = table[..., j].long()
+        if x.dim() == 1:
+            g = x[idx]
+        elif idx.dim() == 1:
+            g = x[:, idx]
+        else:
+            g = torch.gather(x, 1, idx)
+        acc = acc + signs[..., j].to(x.dtype) * g
+    return acc
+
+
+def bitwise_check(torch, CS, case: dict, y_k) -> str:
+    """f32 forms that K2 also takes (one (n, k) table, no signs, loops
+    (n,) or none) equal K2's result bit for bit; signed f32 forms without
+    loops equal the sequential sum bit for bit.  Returns what was compared
+    ("k2", "sequential" or "none"); raises where the bits differ."""
+    x, table, loops, signs = case["x"], case["table"], case["loops"], \
+        case["signs"]
+    if x.dtype != torch.float32:
+        return "none"
+    if signs is None and table.dim() == 2 and (loops is None
+                                               or loops.dim() == 1):
+        want, what = CS.cayley_spmv_cuda(x, table, loops), "k2"
+    elif signs is not None and loops is None:
+        want, what = _sequential_signed(torch, x, table, signs), "sequential"
+    else:
+        return "none"
+    torch.cuda.synchronize()
+    if not torch.equal(y_k, want):
+        diff = float((y_k.double() - want.double()).abs().max())
+        raise AssertionError(f"K1 {case['name']}: not bit-equal to {what} "
+                             f"(max abs {diff})")
+    return what
+
+
+def check_kernel_case(torch, KS, CS, case: dict, l2_bw: float) -> dict:
+    """Kernel K1 vs spmv_ref on one case: error, the bit-equality of
+    :func:`bitwise_check`, then kernel / plain / library / bound times."""
     x, table, loops, signs = case["x"], case["table"], case["loops"], \
         case["signs"]
     dtype = str(x.dtype).replace("torch.", "")
@@ -307,6 +477,7 @@ def check_kernel_case(torch, KS, case: dict) -> dict:
     if not math.isfinite(err) or err > TOL[dtype]:
         raise AssertionError(f"K1 {case['name']}: max |kernel - plain| = "
                              f"{err} > {TOL[dtype]}")
+    bitwise = bitwise_check(torch, CS, case, y_k)
     nbytes, flops = _case_bytes_ops(x, table, loops, signs)
     copies = max(2, min(64, math.ceil(COLD_BYTES / nbytes)))
     sets = [(x.clone(), table.clone(),
@@ -341,16 +512,16 @@ def check_kernel_case(torch, KS, case: dict) -> dict:
             torch.cuda.synchronize()
             library_ms = _eager_ms(torch, libfn, lib_sets, reps)
             library_timing = "eager"
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bound = kernel_bound(nbytes, flops, PEAK_FLOPS[dtype])
+    l2 = l2_sector_time(gather_l2_bytes(
+        tuple(x.shape), x.element_size(), tuple(table.shape)), l2_bw)
     return dict(
         form=case["name"], dtype=dtype, shape=list(x.shape),
         table_shape=list(table.shape), max_abs_err=err, tol=TOL[dtype],
-        ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
-        library_timing=library_timing,
-        bound_ms=max(bound_bytes_ms, bound_ops_ms),
-        bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-        bytes=nbytes, flops=flops, cold_copies=copies)
+        bitwise=bitwise, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+        library_ms=library_ms, library_timing=library_timing,
+        bound_share=bound["bound_ms"] / ms, **bound, **l2,
+        cold_copies=copies)
 
 
 def kernel_cases(torch, np, REG, dev) -> list:
@@ -404,6 +575,60 @@ def kernel_cases(torch, np, REG, dev) -> list:
     return cases
 
 
+def k1_interleave_threshold(torch, np, KS, REG, dev) -> dict:
+    """K1's two paths for a shared-table batch timed on the same operands:
+    the row path (one thread per (b, row)) and the batch path (interleave
+    x, then gather a neighbour's B values together), at lps(61,5) f32 with
+    loops, hypercube(16) f32 and a random (16384, 32) table with per-b f32
+    signs, for small B (and the lift search's B = 24).  Every pair must
+    agree bit for bit.  Reports the B from which the batch path (taken by
+    every shared-table batch of B >= 2) pays on every form; asserts no
+    speed."""
+    rng = np.random.default_rng(15)
+    f32 = torch.float32
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    def timed(x, table, loops, signs, **kw):
+        nbytes = _case_bytes_ops(x, table, loops, signs)[0]
+        copies = max(2, min(64, math.ceil(COLD_BYTES / nbytes)))
+        sets = [(x.clone(), table, loops, signs) for _ in range(copies)]
+        return _graph_ms(torch, lambda *a: KS._spmv_cuda(*a, **kw), sets,
+                         max(64, copies))
+
+    forms = []
+    lps_tab, lps_w = REG.build("lps(61,5)").gather_operands()
+    hc_tab = REG.build("hypercube(16)").gather_operands()[0]
+    rnd_tab = rng.integers(0, 16384, size=(16384, 32))
+    for name, tab_np, loops_np, signed, bs in (
+            ("lps(61,5) f32 loops", lps_tab, lps_w, False, (2, 3, 4, 8)),
+            ("hypercube(16) f32", hc_tab, None, False, (2, 4, 8)),
+            ("random (16384, 32) f32 per-b signs", rnd_tab, None, True,
+             (2, 4, 8, 24))):
+        n, k = tab_np.shape
+        tab = t(tab_np, torch.int32)
+        loops = None if loops_np is None else t(loops_np, f32)
+        for B in bs:
+            x = t(rng.standard_normal((B, n)), f32)
+            signs = (t(rng.choice([-1.0, 1.0], size=(B, n, k)), f32)
+                     if signed else None)
+            y_r = KS._spmv_cuda(x, tab, loops, signs, interleave=False)
+            y_b = KS._spmv_cuda(x, tab, loops, signs, interleave=True)
+            torch.cuda.synchronize()
+            assert torch.equal(y_r, y_b), (name, B)
+            rows_ms = timed(x, tab, loops, signs, interleave=False)
+            batch_ms = timed(x, tab, loops, signs, interleave=True)
+            forms.append(dict(form=name, B=B, rows_ms=rows_ms,
+                              batch_ms=batch_ms,
+                              batch_pays=batch_ms < rows_ms))
+    pays = [f["B"] for f in forms if f["batch_pays"]]
+    smallest = min((B for B in pays if all(
+        f["batch_pays"] for f in forms if f["B"] >= B)), default=None)
+    return dict(forms=forms,
+                smallest_b_where_batch_pays_on_every_form=smallest)
+
+
 # --------------------------------------------------------------------------
 # phase 2c: K2 against its plain version
 # --------------------------------------------------------------------------
@@ -443,7 +668,7 @@ def cayley_cases(torch, np, REG, dev) -> list:
     return cases
 
 
-def check_cayley_case(torch, CS, KS, case: dict) -> dict:
+def check_cayley_case(torch, CS, KS, case: dict, l2_bw: float) -> dict:
     """K2 vs cayley_spmv_ref on one case: error (and, in f32, the gap to K1
     on the same operands), then kernel / plain / CSR library / bound."""
     x, table, loops = case["x"], case["table"], case["loops"]
@@ -460,11 +685,13 @@ def check_cayley_case(torch, CS, KS, case: dict) -> dict:
     row = dict(form=case["name"], dtype=dtype, shape=list(x.shape),
                table_shape=list(table.shape), max_abs_err=err, tol=tol)
     if dtype == "float32":
-        # K1 on the same operands: its kernel sums a row in the same order
+        # K1 on the same operands: its kernel sums a row in the same order,
+        # so the two agree bit for bit
         row["vs_k1_kernel_max_abs"] = float(
             (y_k - KS.spmv_cuda(x, table, loops)).abs().max())
         row["vs_k1_plain_max_abs"] = float(
             (y_k - KS.spmv_ref(x, table, loops)).abs().max())
+        assert row["vs_k1_kernel_max_abs"] == 0, (case["name"], row)
     B = x.shape[0] if x.dim() == 2 else 1
     n, k = table.shape
     nbytes = 2 * x.numel() * x.element_size() + table.numel() * 4 + \
@@ -489,11 +716,11 @@ def check_cayley_case(torch, CS, KS, case: dict) -> dict:
             torch.cuda.synchronize()
             row["library_ms"] = _eager_ms(torch, torch.matmul, lib_sets, reps)
             row["library_timing"] = "eager"
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    row.update(bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes=nbytes, flops=flops, cold_copies=copies)
+    row.update(kernel_bound(nbytes, flops, PEAK_FLOPS[dtype]),
+               **l2_sector_time(gather_l2_bytes(
+                   tuple(x.shape), x.element_size(), tuple(table.shape)),
+                   l2_bw), cold_copies=copies)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     return row
 
 
@@ -1401,7 +1628,7 @@ def lanczos_split(torch, S, topo, dev, iters: int) -> dict:
             us = e.cuda_time_total
         kernels += 1
         name = e.name.lower()
-        if "spmv_kernel" in name:
+        if any(k in name for k in K1_KERNEL_NAMES):
             classes["spmv_kernel_ms"] += us / 1e3
         elif any(s in name for s in ("gemv", "gemm", "xmma", "cutlass")):
             classes["reorth_gemv_ms"] += us / 1e3
@@ -1474,7 +1701,8 @@ def run(torch, dev) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.time()
-    build.build_all()                 # every kernel source, nvcc in parallel
+    # every kernel source and the probes, nvcc in parallel
+    build.build_all(build.KERNELS + (PROBE_LIB,))
     build_s = time.time() - t0
     emit(dict(phase="device", nvidia_smi=smi,
               name=torch.cuda.get_device_name(0),
@@ -1483,18 +1711,36 @@ def run(torch, dev) -> int:
               kernels_built=list(build.KERNELS),
               allow_tf32=torch.backends.cuda.matmul.allow_tf32))
 
+    # -- phase 1b: the L2 read bandwidth K1's and K2's sectors read at --
+    l2 = measure_l2_read_bw(torch, build)
+    l2_bw = l2["l2_read_bytes_per_s"]
+    print(f"L2 read bandwidth {l2_bw / 1e12:.4f} TB/s "
+          f"({L2_PROBE_BYTES >> 20} MiB read {L2_PROBE_REPS}x per launch; "
+          f"{smi})", flush=True)
+    emit(dict(phase="l2_read_bandwidth", nvidia_smi=smi, **l2))
+
     # -- phase 2: K1 against its plain version ---------------------------
     t0 = time.time()
-    results = [check_kernel_case(torch, KS, c)
+    results = [check_kernel_case(torch, KS, CS, c, l2_bw)
                for c in kernel_cases(torch, np, REGISTRY, dev)]
     for r in results:
         emit(dict(phase="kernel_check", kernel="spmv_padded", **r))
     emit(dict(phase="kernel_check_done", cases=len(results),
               seconds=time.time() - t0))
 
+    # -- phase 2a: K1's row path against its batch path, small B ---------
+    t0 = time.time()
+    threshold = k1_interleave_threshold(torch, np, KS, REGISTRY, dev)
+    emit(dict(phase="k1_interleave_threshold", seconds=time.time() - t0,
+              **threshold))
+
+    # -- phase 2a': the floor of a single-vector K1 call -----------------
+    emit(dict(phase="k1_floor", nvidia_smi=smi,
+              **k1_floor(torch, np, KS, REGISTRY, build, dev)))
+
     # -- phase 2c: K2 against its plain version --------------------------
     t0 = time.time()
-    k2_rows = [check_cayley_case(torch, CS, KS, c)
+    k2_rows = [check_cayley_case(torch, CS, KS, c, l2_bw)
                for c in cayley_cases(torch, np, REGISTRY, dev)]
     for r in k2_rows:
         emit(dict(phase="cayley_kernel_check", kernel="cayley_spmv", **r))
@@ -1630,7 +1876,7 @@ def run(torch, dev) -> int:
 
     # -- phase 7b': K1 against its plain version at the scale path's shapes
     t0 = time.time()
-    scale_k1 = [check_kernel_case(torch, KS, c)
+    scale_k1 = [check_kernel_case(torch, KS, CS, c, l2_bw)
                 for c in scale_kernel_cases(torch, np, scale_operands, dev)]
     del scale_operands
     for r in scale_k1:
@@ -1691,6 +1937,8 @@ def run(torch, dev) -> int:
                         if r["dtype"] == "float32"),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
+        l2_bytes=main["l2_bytes"], l2_sector_ms=main["l2_sector_ms"],
+        l2_read_bytes_per_s=l2_bw,
         forms=[r["form"] for r in results]), dict(
         name="cayley_spmv", route="cuda", source=CAYLEY_SOURCE,
         replaces=CAYLEY_REPLACES, launches=cayley["cayley_launches"],
@@ -1698,6 +1946,8 @@ def run(torch, dev) -> int:
                         if r["dtype"] == "float32"),
         ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
         bound_by=k2["bound_by"], library_ms=k2["library_ms"],
+        l2_bytes=k2["l2_bytes"], l2_sector_ms=k2["l2_sector_ms"],
+        l2_read_bytes_per_s=l2_bw,
         form=k2["form"], forms=[r["form"] for r in k2_rows])]
     for name, (source, replaces) in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["kernel"] == name]

@@ -9,7 +9,14 @@ with ``signs`` defaulting to all-ones (plain adjacency; the signed form is
 the Bilu–Linial operator of the synthesis subsystem) and ``loops`` to zero.
 Batched forms write the batch out as a leading dimension: ``x`` (B, n) with
 a shared (n, k) table or a (B, n, k) table stack; ``loops`` (n,) or (B, n);
-``signs`` (n, k) or (B, n, k).
+``signs`` (n, k) or (B, n, k).  The reference batches by ``vmap``; its
+Pallas body had no batch.  On the card the batched forms split two ways
+(``csrc/spmv.cu``): a shared table with two or more vectors goes through a
+batch-interleaved copy of ``x`` (n, P), so that one gathered neighbour
+brings its B values in ceil(B elem / 32) L2 sectors instead of B; a table
+stack and a single vector take the row path (one thread per row, the table
+tile staged in shared memory).
+Both sum each row's slots in table order, so the two give the same bits.
 
 * :func:`spmv_ref`  — plain PyTorch (gather + sum), any device: the CPU path,
   and the version the kernel is held against on the card;
@@ -44,7 +51,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 __all__ = [
     "BACKENDS", "spmv", "spmv_ref", "spmv_cuda", "spmv_matvec",
     "default_backend", "resolve_backend", "use_backend", "launches",
-    "reset_launches",
+    "reset_launches", "interleave_stride",
 ]
 
 #: "ref" = plain PyTorch gather+sum; "cuda" = the hand-written kernel K1.
@@ -149,15 +156,29 @@ def _library() -> ctypes.CDLL:
     from . import build
 
     lib = build.load("spmv")
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.spmv_padded_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-    lib.spmv_padded_launch.restype = ctypes.c_int
-    lib.spmv_error_string.argtypes = [ctypes.c_int]
+        ci, vp, vp, vp, vp, vp, ll, ci, ci, ll, ll, ll, vp, ci, vp]
+    lib.spmv_padded_launch.restype = ci
+    lib.spmv_error_string.argtypes = [ci]
     lib.spmv_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def interleave_stride(B: int, elem: int) -> int:
+    """Row stride P, in elements, of the batch path's interleaved x (n, P):
+    a row of B values padded to a power of two below 32 bytes (so that it
+    never straddles a sector), else to whole 32-byte sectors."""
+    nbytes = B * elem
+    if nbytes < 32:
+        return (1 << (nbytes - 1).bit_length()) // elem
+    return -(-nbytes // 32) * 32 // elem
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy where it does not start on a 16-byte boundary
+    (the kernel stages its tiles in 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _batch_operand(t: torch.Tensor, what: str, dev: torch.device,
@@ -169,9 +190,9 @@ def _batch_operand(t: torch.Tensor, what: str, dev: torch.device,
     if t.dtype != dtype:
         raise ValueError(f"spmv_cuda: {what} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) == row_shape:
-        return t.contiguous(), 0
+        return _aligned(t.contiguous()), 0
     if batched and tuple(t.shape) == (B,) + row_shape:
-        return t.contiguous(), int(np.prod(row_shape))
+        return _aligned(t.contiguous()), int(np.prod(row_shape))
     raise ValueError(f"spmv_cuda: {what} has shape {tuple(t.shape)}; expected "
                      f"{row_shape}" + (f" or {(B,) + row_shape}" if batched
                                        else ""))
@@ -188,8 +209,17 @@ def spmv_cuda(x: torch.Tensor, table: torch.Tensor,
     reference's ``astype(acc_dt)``.  Table entries must lie in ``[0, n)``;
     :func:`spmv_matvec` checks that once on the host, since a per-call check
     would make the device wait.  Raises on any other input and when the
-    launch reports an error; never falls back to the plain path.
+    launch reports an error; never falls back to the plain path.  One call
+    counts one launch (:func:`launches`), whichever path it takes.
     """
+    return _spmv_cuda(x, table, loops, signs)
+
+
+def _spmv_cuda(x, table, loops=None, signs=None,
+               interleave: bool = True) -> torch.Tensor:
+    """:func:`spmv_cuda`; ``interleave=False`` sends a shared-table batch
+    down the row path instead of the batch path (the card tests and
+    chip_smoke.py hold the two to the same bits)."""
     global _LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"spmv_cuda needs CUDA tensors, got x on {x.device}")
@@ -217,6 +247,10 @@ def spmv_cuda(x: torch.Tensor, table: torch.Tensor,
         sg, sg_bs = _batch_operand(signs.to(acc), "signs", dev, acc, (n, k),
                                    B, batched)
     y = torch.empty_like(x)
+    xt, P = None, 0
+    if batched and tab_bs == 0 and B > 1 and interleave and n > 0:
+        P = interleave_stride(B, x.element_size())
+        xt = torch.empty(n * P, dtype=x.dtype, device=dev)    # scratch
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -225,7 +259,8 @@ def spmv_cuda(x: torch.Tensor, table: torch.Tensor,
             _DTYPE_CODE[x.dtype], x.data_ptr(), tab.data_ptr(),
             None if lps is None else lps.data_ptr(),
             None if sg is None else sg.data_ptr(), y.data_ptr(),
-            n, k, B, n, tab_bs, lps_bs or 0, sg_bs or 0, stream)
+            n, k, B, tab_bs, lps_bs or 0, sg_bs or 0,
+            None if xt is None else xt.data_ptr(), P, stream)
     if rc != 0:
         raise RuntimeError("spmv_cuda: kernel launch failed: "
                            + lib.spmv_error_string(rc).decode())
