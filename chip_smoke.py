@@ -29,7 +29,11 @@ drives every main path:
 * slice 4, dense attention at full depth: qwen2-7b at its published widths
   and all 28 layers (K3 in every one), bf16, random weights from seed 0,
   4 requests of 1024-token prompts and 8 greedy new tokens, checked
-  against the same prefill through the plain versions.
+  against the same prefill through the plain versions;
+* slice 6: K4's forms beyond the model's (a general A, one request, N 5
+  at an odd Di, one step), each with the time its exponentials take at
+  the special-function units beside the bound; and the gradients of one
+  reduced-jamba prefill through K5, K3 and K4 against the plain path's.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -188,6 +192,15 @@ SERVE_LOGITS_REL_TOL = SERVE_MIXER_REL_TOL * math.sqrt(SERVE_LAYERS)
 #: to the plain version, at most 4 bf16 ulps (2^-8 each) of relative error
 ATTN_ROW_REL_TOL = 4 * 2.0 ** -8
 
+#: lm_grad_check: each gradient through the kernels against the plain
+#: path's, relative L2, reduced jamba in f32.  Both backwards are the plain
+#: versions' autograd; they differ only by the forward activations they are
+#: evaluated at, which the kernels give within LM_TOL / ATTN_TOL (at most
+#: 3e-5) of the plain versions'.  1e-3 allows ~30x that for the growth
+#: through 16 layers, forward and back; a dropped gradient reads 1.0, two
+#: unrelated ones ~1.4.
+GRAD_REL_TOL = 1e-3
+
 #: the dense-attention serving phase: qwen2-7b at full width and depth (28
 #: attention layers, ~15 GB of bf16 weights), 4 requests of 1024-token
 #: prompts and 8 greedy new tokens
@@ -340,6 +353,22 @@ def l2_sector_time(l2_bytes: int, l2_bytes_per_s: float) -> dict:
     in L1, so a kernel may read faster than it; ms."""
     return dict(l2_bytes=l2_bytes,
                 l2_sector_ms=l2_bytes / l2_bytes_per_s * 1e3)
+
+
+def sm_clock_hz() -> float:
+    """The SM clock ``nvidia-smi`` reports as the card's maximum, Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def sfu_time(exps: int, sms: int, sm_hz: float) -> dict:
+    """A diagnostic beside K4's bound, never part of it: ``exps``
+    exponentials at the special-function units' 16 per SM per clock, on
+    ``sms`` SMs at ``sm_hz``; ms."""
+    return dict(exponentials=exps, sm_clock_hz=sm_hz,
+                sfu_ms=exps / (16 * sms * sm_hz) * 1e3)
 
 
 def _probe_library(build):
@@ -1146,7 +1175,10 @@ def lm_kernel_checks(torch, dev) -> list:
             lib_args=sdpa_args, reps=16, plain_reps=8,
             extra_check=row_check))
 
-    # K4: the serving prefill (B 4, L 1024, Di 8192, N 16), the model's A
+    # K4: the serving prefill (B 4, L 1024, Di 8192, N 16) with the model's
+    # A = -(n+1) and with a general A, f32, ragged L and Di, one request
+    # (B 1), N 5 (no multiple of K4's eight states a lane) at an odd Di
+    # (which the wrapper pads to a 16-byte row), and one step (L 1)
     def h_check(got, want):
         err, excess = _allclose_err(torch, got[1], want[1], H_FINAL_TOL)
         if not (math.isfinite(err) and excess <= 0):
@@ -1154,24 +1186,36 @@ def lm_kernel_checks(torch, dev) -> list:
                                  f"exceeds {H_FINAL_TOL} (max abs {err})")
         return dict(h_final_max_abs_err=err, h_final_tol=H_FINAL_TOL)
 
-    for form, (B, L, Di, N), dt in (
-            ("prefill bf16", (4, 1024, 8192, 16), bf),
-            ("prefill f32", (4, 1024, 8192, 16), f32),
-            ("ragged L=1000 Di=8100 bf16", (4, 1000, 8100, 16), bf)):
+    sm_hz = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for form, (B, L, Di, N), dt, general_a in (
+            ("prefill bf16", (4, 1024, 8192, 16), bf, False),
+            ("prefill f32", (4, 1024, 8192, 16), f32, False),
+            ("ragged L=1000 Di=8100 bf16", (4, 1000, 8100, 16), bf, False),
+            ("prefill general A bf16", (4, 1024, 8192, 16), bf, True),
+            ("B 1 prefill bf16", (1, 1024, 8192, 16), bf, False),
+            ("N 5 ragged L=1000 Di=4099 bf16", (2, 1000, 4099, 5), bf, True),
+            ("L 1 bf16", (4, 1, 8192, 16), bf, False)):
         x = randn(B, L, Di, dtype=dt)
         delta = F.softplus(randn(B, L, Di) * 0.5 - 1.0).to(dt)
-        A = -torch.arange(1, N + 1, device=dev, dtype=f32).expand(Di, N) \
-            .contiguous()
+        if general_a:      # -exp(U(-1, 2)) per (d, n): no structure in n
+            A = -torch.exp(torch.rand(Di, N, generator=gen, device=dev) * 3
+                           - 1)
+        else:
+            A = -torch.arange(1, N + 1, device=dev, dtype=f32).expand(
+                Di, N).contiguous()
         B_t, C_t = randn(B, L, N, dtype=dt), randn(B, L, N, dtype=dt)
         Dw = torch.ones(Di, device=dev)
         es = x.element_size()
         nbytes = (3 * B * L * Di + 2 * B * L * N) * es + (Di * N + Di) * 4 \
             + B * Di * N * 4
-        rows.append(_lm_case(
+        row = _lm_case(
             torch, "mamba_scan", form, K4.mamba_scan_cuda, K4.mamba_scan_ref,
             (x, delta, A, B_t, C_t, Dw), LM_TOL[str(dt)[6:]], nbytes,
             6 * B * L * Di * N + 3 * B * L * Di, PEAK_FLOPS["float32"],
-            reps=8, plain_reps=2, extra_check=h_check))
+            reps=8, plain_reps=2, extra_check=h_check)
+        row.update(sfu_time(B * L * Di * N, sms, sm_hz))
+        rows.append(row)
     return rows
 
 
@@ -1600,6 +1644,70 @@ def reduced_cpu_check(torch, dev) -> dict:
                                               on_cpu.tokens)))
 
 
+def lm_grad_check(torch, dev) -> dict:
+    """Gradients through one reduced-jamba prefill on the card (f32), through
+    the kernels (K5, K3, K4 forward; their plain versions' gradient) and
+    through the plain versions, replaying the kernel run's MoE expert
+    choices: w.r.t. the input embeddings and one parameter each of a Mamba
+    layer (A_log, K4's A), an attention layer (wq, upstream of K3) and a
+    norm (that attention block's norm1, K5's weight)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import serving_config
+
+    cfg = serving_config(SERVE_ARCH, use_reduced=True)
+    params = M.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    B, S = 2, 40
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    embeds = M._embed_in(params, {"tokens": tokens}, cfg).detach()
+    kinds = [spec.kind for spec in cfg.pattern]
+    mi, ai = kinds.index("mamba"), kinds.index("attn")
+    leaves = {"embeds": embeds,
+              "mamba.A_log": params["blocks"][mi]["mamba"]["A_log"],
+              "attn.wq": params["blocks"][ai]["attn"]["wq"],
+              "attn.norm1": params["blocks"][ai]["norm1"]}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    weights = torch.randn(B, cfg.vocab_size, generator=gen, device=dev)
+
+    def grads():
+        logits, _ = M.prefill(params, {"embeds": embeds}, cfg, S + 4)
+        return torch.autograd.grad((logits * weights).sum(),
+                                   list(leaves.values()))
+
+    counters = _lm_counters()
+    for mod in counters.values():
+        mod.reset_launches()
+    with _moe_routes() as routes:
+        got = grads()
+    launches = {n: mod.launches() for n, mod in counters.items()}
+    with _plain_kernels(), _moe_routes(replay=routes):
+        want = grads()
+    torch.cuda.synchronize()
+    n_attn = sum(k == "attn" for k in kinds) * cfg.n_repeats
+    expect = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": n_attn,
+              "mamba_scan": cfg.n_layers - n_attn}
+    assert launches == expect, (launches, expect)
+    rows = {}
+    for name, g, w in zip(leaves, got, want):
+        assert g is not None and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        rel = _rel_l2(g, w)
+        dropped = int(((w != 0) & (g == 0)).sum())
+        rows[name] = dict(rel_l2=rel, plain_norm=float(w.norm()),
+                          nonzero_plain=int((w != 0).sum()),
+                          zero_where_plain_nonzero=dropped)
+        assert float(w.norm()) > 0, (name, "plain gradient is zero")
+        assert rel <= GRAD_REL_TOL, (name, rel, GRAD_REL_TOL)
+        assert dropped == 0, (name, dropped)
+    for t in leaves.values():
+        t.requires_grad_(False)
+    return dict(config=cfg.name, dtype=cfg.compute_dtype, batch=B, seq=S,
+                launches=launches, rel_tol=GRAD_REL_TOL, grads=rows)
+
+
 # --------------------------------------------------------------------------
 # phase 7: where a Lanczos solve's device time goes
 # --------------------------------------------------------------------------
@@ -1923,6 +2031,9 @@ def run(torch, dev) -> int:
 
     # -- phase 10: the reduced model, card against CPU -------------------
     emit(dict(phase="reduced_card_vs_cpu", **reduced_cpu_check(torch, dev)))
+
+    # -- phase 10b: gradients through K5, K3, K4 against the plain path --
+    emit(dict(phase="lm_grad_check", **lm_grad_check(torch, dev)))
     emit(dict(phase="total", seconds=time.time() - t_start))
 
     # -- the kernels line, then the last line ----------------------------

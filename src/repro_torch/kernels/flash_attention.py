@@ -14,7 +14,11 @@ reference's Pallas kernel and its ``attention_ref`` do.
   (``csrc/flash_attention.cu``), the Hopper port of the reference's Pallas
   ``flash_attention`` (``src/repro/kernels/flash_attention/kernel.py``) with
   its ``ops.gqa_flash_attention`` layout adaptation.  It takes CUDA tensors
-  only: it launches the kernel or raises, and never falls back.
+  only: it launches the kernel or raises, and never falls back.  Its
+  gradient is that of :func:`attention_ref` at the same inputs
+  (:mod:`.grad`): a stop-gap whose backward builds the O(S^2) plain scores,
+  until LM training gets a backward kernel.  Under ``torch.no_grad()`` it
+  is one launch and saves nothing.
 
 The model's prefill attention (``repro_torch.models.transformer``) routes a
 CUDA tensor of a layer without a window or query offset here, and every
@@ -29,6 +33,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from . import grad as G
 
 __all__ = ["attention_ref", "flash_attention_cuda", "launches",
            "reset_launches"]
@@ -52,18 +58,19 @@ def reset_launches() -> None:
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """Plain PyTorch attention: softmax(q k^T / sqrt(hd)) v in f32."""
+    """Plain PyTorch attention: softmax(q k^T / sqrt(hd)) v in f32 (f64 for
+    f64 inputs)."""
     B, Sq, H, hd = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
-    G = H // Kv
-    qg = q.float().reshape(B, Sq, Kv, G, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
+    ct = G.compute_dtype(q)
+    qg = q.to(ct).reshape(B, Sq, Kv, H // Kv, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(ct)) / math.sqrt(hd)
     if causal:
         mask = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(ct))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -93,7 +100,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to 256 (the kernel compiles widths 64, 128 and 256 and zero-fills
     narrower heads; a width that is no multiple of 16 bytes is padded here).
     Raises on any other input and when the launch reports an error."""
-    global _LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got q on "
                          f"{q.device}")
@@ -118,6 +124,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd > limit:
         raise ValueError(f"flash_attention_cuda: head width {hd} > {limit} "
                          f"for {q.dtype}")
+    return _differentiable(_launch, q, k, v, causal)
+
+
+def _differentiable(launch, q, k, v, causal):
+    """``launch(q, k, v, causal=causal)`` with :func:`attention_ref`'s
+    gradient when autograd records the call (:func:`.grad.through_kernel`)."""
+    return G.through_kernel(launch, attention_ref, (q, k, v), causal=causal)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool) -> torch.Tensor:
+    """One launch of K3 on inputs :func:`flash_attention_cuda` has checked."""
+    global _LAUNCHES
+    B, Sq, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
     # the kernel reads 16-byte rows (TMA, cp.async): pad the head width to a
     # multiple of 8 (bf16) or 4 (f32) with zero columns, which change no
     # product, and slice the output back

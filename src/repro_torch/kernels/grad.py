@@ -1,0 +1,75 @@
+"""A gradient for the LM kernels K3 (flash attention), K4 (Mamba scan) and
+K5 (RMSNorm).
+
+:class:`PlainBackward` is a ``torch.autograd.Function`` whose forward calls
+the kernel's launch, exactly as without autograd, and whose backward
+recomputes the module's plain version under ``torch.enable_grad()`` on the
+saved inputs and returns ``torch.autograd.grad`` of it.  The reference has
+no backward Pallas kernel, and its models never call their kernels, so the
+plain path under autograd is the parity target.
+
+:func:`through_kernel` takes the Function only when autograd would record
+the call (grad mode on and an input that requires grad).  Otherwise it
+calls the launch directly: one launch, nothing saved.  That is so under
+``torch.no_grad()``, which :func:`repro_torch.serve.generate` runs in, and
+wherever no input requires grad.
+
+A stop-gap until LM training gets backward kernels: the backward costs the
+plain version's forward and backward, for K3 the O(S^2) plain attention with
+its (B, H, S, S) scores, for K4 an L-step Python loop that keeps every
+step's (B, Di, N) state.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch.autograd.function import once_differentiable
+
+__all__ = ["PlainBackward", "through_kernel", "compute_dtype"]
+
+
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: float32, or float64 for float64
+    inputs (which no kernel takes; it lets ``gradcheck`` run on them)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+class PlainBackward(torch.autograd.Function):
+    """forward: ``launch(*tensors, **kwargs)``; backward: the gradient of
+    ``plain(*tensors, **kwargs)`` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, launch: Callable, plain: Callable, kwargs: dict,
+                *tensors):
+        ctx.plain, ctx.kwargs = plain, kwargs
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        return launch(*tensors, **kwargs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = ctx.plain(*inputs, **ctx.kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wrt = [t for t, n in zip(inputs, need) if n]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True) if pairs else [None] * len(wrt))
+        return (None, None, None,
+                *(next(got) if n else None for n in need))
+
+
+def through_kernel(launch: Callable, plain: Callable, tensors: tuple,
+                   **kwargs):
+    """``launch(*tensors, **kwargs)``, through :class:`PlainBackward` when
+    autograd would record the call."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return PlainBackward.apply(launch, plain, kwargs, *tensors)
+    return launch(*tensors, **kwargs)

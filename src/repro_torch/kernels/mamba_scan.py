@@ -15,7 +15,11 @@ dtype and the state after the last step, ``h_final`` (B, Di, N) in f32.
   the Hopper port of the reference's Pallas ``mamba_scan``
   (``src/repro/kernels/mamba_scan/kernel.py``), which also returns
   ``h_final`` for the decode cache.  It takes CUDA tensors only: it launches
-  the kernel or raises, and never falls back.
+  the kernel or raises, and never falls back.  Its gradient is that of
+  :func:`mamba_scan_ref` at the same inputs (:mod:`.grad`): a stop-gap whose
+  backward runs the plain L-step loop and keeps every step's (B, Di, N)
+  state, until LM training gets a backward kernel.  Under
+  ``torch.no_grad()`` it is one launch and saves nothing.
 
 The model's Mamba prefill (``repro_torch.models.mamba``) routes a CUDA tensor
 here and a CPU tensor to ``selective_scan_chunked``.  :func:`launches`
@@ -28,6 +32,9 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
+
+from . import grad as G
 
 __all__ = ["mamba_scan_ref", "mamba_scan_cuda", "launches", "reset_launches",
            "MAX_STATE"]
@@ -51,20 +58,21 @@ def reset_launches() -> None:
 
 def mamba_scan_ref(x, delta, A, B_t, C_t, D
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch: the recurrence one step at a time, in f32."""
+    """Plain PyTorch: the recurrence one step at a time, in f32 (f64 for
+    f64 inputs)."""
     Bb, L, Di = x.shape
-    x32, d32 = x.float(), delta.float()
-    A32, b32, c32 = A.float(), B_t.float(), C_t.float()
-    D32 = D.float()
-    h = torch.zeros(Bb, Di, A.shape[1], dtype=torch.float32, device=x.device)
+    ct = G.compute_dtype(x)
+    xf, df = x.to(ct), delta.to(ct)
+    Af, bf, cf, Df = (t.to(ct) for t in (A, B_t, C_t, D))
+    h = torch.zeros(Bb, Di, A.shape[1], dtype=ct, device=x.device)
     ys = []
     for t in range(L):
-        a = torch.exp(d32[:, t, :, None] * A32)                    # (B, Di, N)
-        b = (d32[:, t] * x32[:, t])[:, :, None] * b32[:, t, None, :]
+        a = torch.exp(df[:, t, :, None] * Af)                      # (B, Di, N)
+        b = (df[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
         h = a * h + b
-        ys.append((h * c32[:, t, None, :]).sum(-1) + D32 * x32[:, t])
+        ys.append((h * cf[:, t, None, :]).sum(-1) + Df * xf[:, t])
     y = (torch.stack(ys, dim=1) if ys
-         else torch.zeros(Bb, 0, Di, device=x.device))
+         else torch.zeros(Bb, 0, Di, dtype=ct, device=x.device))
     return y.to(x.dtype), h
 
 
@@ -93,7 +101,6 @@ def mamba_scan_cuda(x, delta, A, B_t, C_t, D
     CUDA device; ``A`` and ``D`` are cast to f32 (they are f32 in the
     model).  ``N`` at most :data:`MAX_STATE`.  Raises on any other input and
     when the launch reports an error."""
-    global _LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"mamba_scan_cuda needs CUDA tensors, got x on "
                          f"{x.device}")
@@ -125,14 +132,38 @@ def mamba_scan_cuda(x, delta, A, B_t, C_t, D
         if t.dtype != x.dtype:
             raise ValueError(f"mamba_scan_cuda: {name} is {t.dtype}, x is "
                              f"{x.dtype}")
+    return _differentiable(_launch, x, delta, A, B_t, C_t, D)
+
+
+def _differentiable(launch, x, delta, A, B_t, C_t, D):
+    """``launch(x, delta, A, B_t, C_t, D)`` with :func:`mamba_scan_ref`'s
+    gradient when autograd records the call (:func:`.grad.through_kernel`)."""
+    return G.through_kernel(launch, mamba_scan_ref, (x, delta, A, B_t, C_t, D))
+
+
+def _launch(x, delta, A, B_t, C_t, D) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K4 on inputs :func:`mamba_scan_cuda` has checked."""
+    global _LAUNCHES
+    Bb, L, Di = x.shape
+    N = int(A.shape[1])
+    if Bb == 0 or Di == 0 or L == 0:
+        return (torch.empty_like(x, memory_format=torch.contiguous_format),
+                torch.zeros(Bb, Di, N, dtype=torch.float32, device=x.device))
     xc, dc = x.contiguous(), delta.contiguous()
     bc, cc = B_t.contiguous(), C_t.contiguous()
     Ac = A.float().contiguous()
     Dc = D.float().contiguous()
+    # the kernel copies rows of x and dt in pieces of 16, 8 or 4 bytes: an
+    # odd bf16 Di, which must be copied, is padded to a 16-byte row with
+    # zero channels (A and D zero there too), sliced off again below, and
+    # data that starts off 4 bytes is copied
+    pad = -Di % 8 if x.dtype == torch.bfloat16 and Di % 2 else 0
+    if pad:
+        xc, dc = F.pad(xc, (0, pad)), F.pad(dc, (0, pad))
+        Ac, Dc = F.pad(Ac, (0, 0, 0, pad)), F.pad(Dc, (0, pad))
+    xc, dc = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (xc, dc))
     y = torch.empty_like(xc)
-    if Bb == 0 or Di == 0 or L == 0:
-        return y, torch.zeros(Bb, Di, N, dtype=torch.float32, device=x.device)
-    h = torch.empty(Bb, Di, N, dtype=torch.float32, device=x.device)
+    h = torch.empty(Bb, Di + pad, N, dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -140,8 +171,10 @@ def mamba_scan_cuda(x, delta, A, B_t, C_t, D
         rc = lib.mamba_scan_launch(
             _DTYPE_CODE[x.dtype], xc.data_ptr(), dc.data_ptr(), Ac.data_ptr(),
             bc.data_ptr(), cc.data_ptr(), Dc.data_ptr(), y.data_ptr(),
-            h.data_ptr(), Bb, L, Di, N, stream)
+            h.data_ptr(), Bb, L, Di + pad, N, stream)
     if rc != 0:
         raise RuntimeError("mamba_scan_cuda: kernel launch failed: "
                            + lib.mamba_scan_error_string(rc).decode())
+    if pad:
+        return y[..., :Di].contiguous(), h[:, :Di].contiguous()
     return y, h

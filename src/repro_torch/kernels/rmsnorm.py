@@ -9,7 +9,10 @@ computed in float32 and returned in ``x``'s dtype.
 * :func:`rmsnorm_cuda` — the wrapper of kernel K5 (``csrc/rmsnorm.cu``), the
   Hopper port of the reference's Pallas ``rmsnorm``
   (``src/repro/kernels/rmsnorm/kernel.py``).  It takes CUDA tensors only: it
-  launches the kernel or raises, and never falls back.
+  launches the kernel or raises, and never falls back.  Its gradient is that
+  of :func:`rmsnorm_ref` at the same inputs (:mod:`.grad`), a stop-gap until
+  LM training gets a backward kernel; under ``torch.no_grad()`` it is one
+  launch and saves nothing.
 
 ``repro_torch.models.layers.rms_norm`` routes between the two by device:
 a CUDA tensor always goes to the kernel.  :func:`launches` counts the
@@ -21,6 +24,8 @@ import ctypes
 import functools
 
 import torch
+
+from . import grad as G
 
 __all__ = ["rmsnorm_ref", "rmsnorm_cuda", "launches", "reset_launches"]
 
@@ -40,10 +45,12 @@ def reset_launches() -> None:
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
                 ) -> torch.Tensor:
-    """Plain PyTorch RMSNorm over the last axis, in float32."""
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    """Plain PyTorch RMSNorm over the last axis, in float32 (float64 for
+    float64 inputs)."""
+    ct = G.compute_dtype(x)
+    xf = x.to(ct)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.to(ct)).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,7 +76,6 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     same device in the same dtype (every config keeps its norms in its
     compute dtype).  Raises on any other input and when the launch reports
     an error."""
-    global _LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_cuda needs CUDA tensors, got x on {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -81,6 +87,18 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     if w.device != x.device or w.dtype != x.dtype:
         raise ValueError(f"rmsnorm_cuda: w is {w.dtype} on {w.device}; x is "
                          f"{x.dtype} on {x.device}")
+    return _differentiable(_launch, x, w, eps)
+
+
+def _differentiable(launch, x, w, eps):
+    """``launch(x, w, eps=eps)`` with :func:`rmsnorm_ref`'s gradient when
+    autograd records the call (:func:`.grad.through_kernel`)."""
+    return G.through_kernel(launch, rmsnorm_ref, (x, w), eps=eps)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """One launch of K5 on inputs :func:`rmsnorm_cuda` has checked."""
+    global _LAUNCHES
     D = int(x.shape[-1])
     rows = x.numel() // D if D else 0
     xc = x.contiguous()

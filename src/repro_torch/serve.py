@@ -51,12 +51,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@torch.no_grad()
 def generate(params: Dict[str, Any], cfg, prompts: torch.Tensor,
              max_new: int) -> ServeResult:
     """Prefill ``prompts`` (B, S) as one batch, then ``max_new - 1`` greedy
     decode steps: ``max_new`` new tokens per request, as the reference's
-    serving example makes them.  Times are host seconds around work that
-    ends in a device synchronize."""
+    serving example makes them.  Runs under ``torch.no_grad()``, so each
+    kernel call is one launch that saves nothing, whatever the parameters'
+    ``requires_grad``.  Times are host seconds around work that ends in a
+    device synchronize."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     if cfg.frontend != "none":

@@ -8,8 +8,12 @@ at the reference's own tolerances (tests/test_kernels.py: 2e-5 in f32, 2e-2
 in bf16, 3e-5 for f32 attention), ragged shapes included: a row count that
 is no block multiple, a sequence that is no tile multiple, a length that is
 no chunk multiple.  K4's final state is held against the reference's
-``selective_scan_chunked``.  Tests marked ``cuda`` launch the kernels on the
-card; they skip elsewhere (run them there with
+``selective_scan_chunked``.  The kernels' gradient (``kernels/grad.py``:
+the kernel forward, the plain version's backward) is checked here with each
+plain version standing in for its launch: ``gradcheck`` in f64, equality
+with autograd of the plain version, and nothing saved under ``no_grad``.
+Tests marked ``cuda`` launch the kernels on the card; they skip elsewhere
+(run them there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_lm_kernels.py``).
 """
 import numpy as np
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as K3
+from repro_torch.kernels import grad as G
 from repro_torch.kernels import mamba_scan as K4
 from repro_torch.kernels import rmsnorm as K5
 from test_torch_harness import load_reference
@@ -279,6 +284,137 @@ def test_mamba_scan_plain_bf16_matches_pallas(ref):
     _close(y, want, TOL["bfloat16"])
 
 
+@pytest.mark.parametrize("B,L,Di,N", [(2, 48, 24, 16), (1, 37, 20, 5)],
+                         ids=["general-A-N16", "general-A-N5"])
+def test_mamba_scan_plain_matches_pallas_for_a_general_A(ref, B, L, Di, N):
+    """A = -exp(U(-1, 2)) per (d, n), as K4's general-A smoke form draws it
+    (no structure across n, unlike the model's -(n+1)), and N 5, which no
+    lane split of K4 divides; y and the final state against the Pallas
+    kernel in interpret mode and the reference's chunked scan."""
+    rng = _rng(N + L)
+    x, delta, _, B_t, C_t, D = _ssm_inputs(B, L, Di, N, N + L)
+    A = (-np.exp(rng.uniform(-1.0, 2.0, (Di, N)))).astype(np.float32)
+    arrs = (x, delta, A, B_t, C_t, D)
+    jnp = ref.jnp
+    want = ref.mamba_scan_kernel.mamba_scan(
+        *(jnp.asarray(a) for a in arrs), chunk=16, block_d=8, interpret=True)
+    _, h_want = ref.mamba.selective_scan_chunked(
+        *(jnp.asarray(a) for a in arrs), chunk=16)
+    y, h = K4.mamba_scan_ref(*(_t(a, "float32") for a in arrs))
+    _close(y, want, TOL["float32"])
+    _close(h, h_want, TOL["float32"])
+
+
+# --------------------------------------------------------------------------
+# the kernels' gradient: kernel forward, plain backward
+# --------------------------------------------------------------------------
+
+def _grad_case(name, dtype=torch.float64, seed=0):
+    """(module, plain version, inputs, kwargs) of one kernel at a tiny size,
+    every input requiring grad."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, dtype=dtype)
+
+    if name == "rmsnorm":
+        args, kw = (r(3, 5, 8), r(8) + 1), dict(eps=1e-6)
+        mod, plain = K5, K5.rmsnorm_ref
+    elif name.startswith("attention"):
+        args, kw = (r(1, 6, 4, 3), r(1, 6, 2, 3), r(1, 6, 2, 3)), dict(
+            causal=name.endswith("causal"))
+        mod, plain = K3, K3.attention_ref
+    else:
+        delta = torch.nn.functional.softplus(r(2, 5, 3))
+        A = -torch.exp(torch.rand(3, 5, generator=g, dtype=dtype) * 3 - 1)
+        args, kw = (r(2, 5, 3), delta, A, r(2, 5, 5), r(2, 5, 5), r(3)), {}
+        mod, plain = K4, K4.mamba_scan_ref
+    return mod, plain, tuple(a.requires_grad_() for a in args), kw
+
+
+def _through(mod, launch, args, kw):
+    """The module's kernel call with ``launch`` standing in for the launch."""
+    return mod._differentiable(launch, *args, *kw.values())
+
+
+GRAD_KERNELS = ["rmsnorm", "attention-causal", "attention-full", "mamba_scan"]
+
+
+@pytest.mark.parametrize("name", GRAD_KERNELS)
+def test_kernel_gradient_passes_gradcheck(name):
+    """Each kernel's autograd.Function, its plain version standing in for
+    the launch, in f64: analytic gradients against finite differences."""
+    mod, plain, args, kw = _grad_case(name)
+    assert torch.autograd.gradcheck(
+        lambda *a: _through(mod, plain, a, kw), args, eps=1e-6, atol=1e-6,
+        rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", GRAD_KERNELS)
+def test_kernel_gradient_equals_autograd_of_the_plain_version(name):
+    """Through the Function (forward: the launch; backward: the plain
+    version recomputed) the gradients are autograd's of the plain version,
+    in f32, bit for bit; outputs of a tuple (K4's y, h_final) each carry
+    theirs, and an output left out of the loss contributes nothing."""
+    mod, plain, args, kw = _grad_case(name, torch.float32, seed=1)
+    out = _through(mod, plain, args, kw)
+    want = plain(*args, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    wants = want if isinstance(want, tuple) else (want,)
+    g = torch.Generator().manual_seed(2)
+    ws = [torch.randn(o.shape, generator=g) for o in wants]
+    for used in range(1, len(outs) + 1):       # K4: y alone, then y and h
+        got_g = torch.autograd.grad(
+            sum((o * w).sum() for o, w in zip(outs[:used], ws)), args,
+            retain_graph=True)
+        want_g = torch.autograd.grad(
+            sum((o * w).sum() for o, w in zip(wants[:used], ws)), args,
+            retain_graph=True)
+        for a, b in zip(got_g, want_g):
+            assert torch.equal(a, b)
+    for o in outs:
+        assert type(o.grad_fn).__name__ == "PlainBackwardBackward"
+
+
+@pytest.mark.parametrize("name", GRAD_KERNELS)
+def test_kernel_gradient_saves_nothing_under_no_grad(name):
+    """Under ``torch.no_grad()`` (all of serving) a kernel call is one
+    launch and saves no tensor; with grad enabled the Function saves its
+    inputs and nothing else, and still launches once."""
+    mod, plain, args, kw = _grad_case(name, torch.float32)
+    calls, packed = [], []
+
+    def launch(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: packed.append(t) or t, lambda t: t):
+        with torch.no_grad():
+            out = _through(mod, launch, args, kw)
+        assert len(calls) == 1 and packed == []
+        outs = out if isinstance(out, tuple) else (out,)
+        assert all(o.grad_fn is None and not o.requires_grad for o in outs)
+        _through(mod, launch, args, kw)
+    assert len(calls) == 2 and len(packed) == len(args)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_that_require_grad():
+    """The gradient path starts after the wrapper's checks: a CPU tensor
+    that requires grad still raises, and no launch is counted."""
+    x = torch.zeros(4, 8, requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        K5.rmsnorm_cuda(x, torch.ones(8))
+    q = torch.zeros(1, 4, 2, 8, requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        K3.flash_attention_cuda(q, q, q)
+    s = torch.zeros(1, 4, 8, requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        K4.mamba_scan_cuda(s, s, torch.zeros(8, 4), torch.zeros(1, 4, 4),
+                           torch.zeros(1, 4, 4), torch.zeros(8))
+    assert K5.launches() == K3.launches() == K4.launches() == 0
+
+
 # --------------------------------------------------------------------------
 # the kernels' wrappers and build (CPU side)
 # --------------------------------------------------------------------------
@@ -410,3 +546,164 @@ def test_mamba_scan_kernel_matches_plain_on_card(cuda_device, case, dtype):
     y_p, h_p = K4.mamba_scan_ref(x, delta, A, B_t, C_t, D)
     _close(y, y_p, TOL[dtype])
     _close(h, h_p, TOL["float32"] if dtype == "float32" else 2e-2)
+
+
+#: K4's smoke forms beyond the model's (chip_smoke.py, lm_kernel_check):
+#: (B, L, Di, N, general A)
+MS_CARD_FORMS = {
+    "serving-general-A": (4, 1024, 8192, 16, True),
+    "B1-prefill": (1, 1024, 8192, 16, False),
+    "N5-odd-Di": (2, 1000, 4099, 5, True),
+    "L1": (4, 1, 8192, 16, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(MS_CARD_FORMS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_forms_of_its_design_on_card(cuda_device, form,
+                                                       dtype):
+    """K4 against its plain version at the smoke's tolerances (LM_TOL on y,
+    2e-4 on the f32 final state) on a general A, one request, N 5 at an
+    odd Di (the wrapper pads a bf16 one to a 16-byte row) and a single
+    step."""
+    B, L, Di, N, general_a = MS_CARD_FORMS[form]
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    dt = TORCH_DT[dtype]
+    x = torch.randn(B, L, Di, generator=g, device=cuda_device).to(dt)
+    delta = torch.nn.functional.softplus(torch.randn(
+        B, L, Di, generator=g, device=cuda_device) * 0.5 - 1.0).to(dt)
+    if general_a:
+        A = -torch.exp(torch.rand(Di, N, generator=g, device=cuda_device) * 3
+                       - 1)
+    else:
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device=cuda_device).expand(Di, N).contiguous()
+    B_t, C_t = (torch.randn(B, L, N, generator=g, device=cuda_device).to(dt)
+                for _ in range(2))
+    D = torch.randn(Di, generator=g, device=cuda_device)
+    before = K4.launches()
+    y, h = K4.mamba_scan_cuda(x, delta, A, B_t, C_t, D)
+    torch.cuda.synchronize()
+    assert K4.launches() == before + 1
+    y_p, h_p = K4.mamba_scan_ref(x, delta, A, B_t, C_t, D)
+    assert y.dtype == dt and h.dtype == torch.float32
+    _close(y, y_p, TOL[dtype])
+    _close(h, h_p, 2e-4)
+
+
+def _smoke():
+    """chip_smoke.py, loaded as a module (its helpers, not its run)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.cuda
+def test_reduced_jamba_prefill_gradients_on_card_match_the_plain_path(
+        cuda_device, monkeypatch):
+    """A backward pass through a reduced jamba's prefill on the card, whose
+    forward launches K5, K3 and K4, gives the plain path's gradients (1e-3
+    relative L2, chip_smoke.py's GRAD_REL_TOL) w.r.t. the input embeddings
+    and a Mamba, an attention and a norm parameter; none is dropped.  The
+    plain run replays the kernel run's MoE expert choices and launches no
+    kernel."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as PM
+
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+    p = PM.init_params(cfg, seed=0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, S = 2, 24
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device=cuda_device)
+    emb = PM._embed_in(p, {"tokens": toks}, cfg).detach()
+    kinds = [s.kind for s in cfg.pattern]
+    mi, ai = kinds.index("mamba"), kinds.index("attn")
+    leaves = [emb, p["blocks"][mi]["mamba"]["A_log"],
+              p["blocks"][ai]["attn"]["wq"], p["blocks"][ai]["norm1"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    w = torch.randn(B, cfg.vocab_size, generator=g, device=cuda_device)
+
+    def grads():
+        logits, _ = PM.prefill(p, {"embeds": emb}, cfg, S + 2)
+        return torch.autograd.grad((logits * w).sum(), leaves)
+
+    smoke = _smoke()
+    for mod in (K3, K4, K5):
+        mod.reset_launches()
+    with smoke._moe_routes() as routes:
+        got = grads()
+    counts = [mod.launches() for mod in (K3, K4, K5)]
+    assert all(n > 0 for n in counts), counts
+    # the plain run takes the kernel run's MoE expert choices: near-tied
+    # top-2 routings may flip at the kernels' rounding and then cascade
+    with monkeypatch.context() as m, smoke._moe_routes(replay=routes):
+        m.setattr(K5, "rmsnorm_cuda", K5.rmsnorm_ref)
+        m.setattr(K3, "flash_attention_cuda", K3.attention_ref)
+        m.setattr(K4, "mamba_scan_cuda", K4.mamba_scan_ref)
+        want = grads()
+    torch.cuda.synchronize()
+    assert [mod.launches() for mod in (K3, K4, K5)] == counts
+    for a, b in zip(got, want):
+        rel = float((a - b).double().norm() / b.double().norm())
+        assert rel <= 1e-3, rel
+        assert not ((b != 0) & (a == 0)).any()
+
+
+def test_smoke_sfu_time_counts_exponentials_at_sixteen_per_sm_clock():
+    """chip_smoke.py's K4 diagnostic: B*L*Di*N exponentials at 16 per SM
+    per clock; the serving shape's 537 M on 132 SMs at 1.98 GHz take
+    0.1284 ms."""
+    smoke = _smoke()
+    exps = 4 * 1024 * 8192 * 16
+    row = smoke.sfu_time(exps, 132, 1.98e9)
+    assert row["exponentials"] == 536_870_912
+    assert row["sfu_ms"] == pytest.approx(536_870_912 / (16 * 132 * 1.98e9)
+                                          * 1e3)
+    assert row["sfu_ms"] == pytest.approx(0.12838, abs=1e-5)
+
+
+def test_k4_sass_counts_the_innermost_loop_with_the_most_exponentials():
+    """tools/k4_sass.py on a hand-made dump: of two innermost loops inside
+    an outer one, the step loop is the one with more MUFU.EX2; predicated
+    opcodes count by name, NOPs not at all."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "k4_sass.py"
+    spec = importlib.util.spec_from_file_location("k4_sass", path)
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    lines = ["\t\tFunction : _Z11scan_kernelI13__nv_bfloat16Li2ELi16EEvv"]
+    body = ["LDC R1, c[0x0][0x28]",                  # 0x00
+            "MUFU.EX2 R2, R2",                       # 0x10 outer loop from here
+            "LDS.128 R4, [R3]",                      # 0x20 inner loop A
+            "MUFU.EX2 R5, R5",                       # 0x30
+            "FFMA R6, R5, R6, R7",                   # 0x40
+            "MUFU.EX2 R8, R8",                       # 0x50
+            "NOP",                                   # 0x60
+            "@!P0 BRA 0x20",                         # 0x70 end of A
+            "MUFU.EX2 R9, R9",                       # 0x80 inner loop B
+            "@P1 BRA 0x80",                          # 0x90 end of B
+            "@P2 BRA 0x10",                          # 0xa0 end of outer
+            "EXIT"]
+    for i, ins in enumerate(body):
+        lines.append(f"        /*{16 * i:04x}*/                   {ins} ;"
+                     f"    /* 0x0000000000000000 */")
+    funcs = sass.functions("\n".join(lines))
+    (name, code), = funcs.items()
+    assert "scan_kernel" in name and len(code) == len(body)
+    assert sass.opcode("@!P0 BRA 0x20") == "BRA"
+    loop = sass.step_loop(code)
+    assert loop["loop"] == ["0x20", "0x70"]
+    assert loop["ex2"] == 2 and loop["instructions"] == 5
+    assert loop["per_element"] == 2.5
+    assert loop["opcodes"] == {"MUFU.EX2": 2, "LDS.128": 1, "FFMA": 1,
+                               "BRA": 1}
