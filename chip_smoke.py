@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA card::
     python3 chip_smoke.py
 
 It builds the port's five CUDA kernels and its measurement probes
-(``csrc/probe.cu``: the L2 read bandwidth, the launch floor) from the
+(``csrc/probe.cu``: the L2 read bandwidth, the launch floor, the gather
+rate of a cluster's distributed shared memory) from the
 sources in this checkout (one ``nvcc`` each, all at once), holds each
 kernel against its plain PyTorch version at its main path's shapes, and
 drives every main path:
@@ -33,7 +34,11 @@ drives every main path:
 * slice 6: K4's forms beyond the model's (a general A, one request, N 5
   at an odd Di, one step), each with the time its exponentials take at
   the special-function units beside the bound; and the gradients of one
-  reduced-jamba prefill through K5, K3 and K4 against the plain path's.
+  reduced-jamba prefill through K5, K3 and K4 against the plain path's;
+* slice 7: K2 on a form whose x (4 MB) no thread-block cluster's shared
+  memory could hold, and the rate of 4-byte loads from a cluster's
+  distributed shared memory (random words, whole lines) at cluster sizes 1
+  to 16, the measurement behind K2 keeping x in L2.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -67,6 +72,12 @@ PROBE_LIB = "probe"
 L2_PROBE_BYTES = 16 << 20
 L2_PROBE_REPS = 16
 L2_PROBE_BLOCKS_PER_SM = 8
+#: the distributed-shared-memory load probe: cluster sizes, 2^14 words
+#: (64 KB) a block, 1024 threads a block, rounds of 8 loads a thread
+DSMEM_PROBE_CLUSTERS = (1, 2, 4, 8, 16)
+DSMEM_PROBE_LOG_WORDS = 14
+DSMEM_PROBE_THREADS = 1024
+DSMEM_PROBE_ROUNDS = 64
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 67e12, "float64": 34e12}
 #: the same for work on the tensor cores (K3's products).  f32-accurate
 #: products run there as 3xTF32 (each operand split into two TF32 parts,
@@ -99,6 +110,8 @@ CAYLEY_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the K2 path's rho_2 against the default K1 route's (same start vector;
 #: both kernels sum a row in table order)
 CAYLEY_VS_K1_RHO2_TOL = 1e-5
+#: lps(61,5)'s gathers a matvec: n k = 113,460 x 6
+LPS_GATHERS = 113_460 * 6
 
 #: the scale row's reference values: the JAX reference's row for
 #: xpander(65536,32,0,0) on the CPU, computed as the scale bench computes it
@@ -379,7 +392,10 @@ def _probe_library(build):
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.probe_l2_read.argtypes = [vp, ll, ci, vp, ci, vp]
     lib.probe_empty.argtypes = [ci, ci, vp]
+    lib.probe_dsmem_gather.argtypes = [ci, ci, ci, ci, ci, vp, vp,
+                                       ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.probe_l2_read.restype = lib.probe_empty.restype = ci
+    lib.probe_dsmem_gather.restype = ci
     lib.probe_error_string.argtypes = [ci]
     lib.probe_error_string.restype = ctypes.c_char_p
     return lib
@@ -413,6 +429,47 @@ def measure_l2_read_bw(torch, build) -> dict:
     return dict(l2_read_bytes_per_s=read / (ms * 1e-3), probe_ms=ms,
                 buffer_bytes=L2_PROBE_BYTES, reps=L2_PROBE_REPS,
                 blocks=blocks, threads=256, sms=sms)
+
+
+def measure_dsmem_gather(torch, build) -> dict:
+    """4-byte loads from a cluster's distributed shared memory
+    (``probe_dsmem_gather``): for each cluster size C, clusters of C blocks
+    of DSMEM_PROBE_THREADS threads, each block holding
+    2^DSMEM_PROBE_LOG_WORDS words, each thread DSMEM_PROBE_ROUNDS rounds of
+    8 loads over the C blocks' words (1/C of them its own block's): each at
+    a random word, as K2's gathers fall ("random"), or a warp's 32 lanes on
+    the 32 words of one random 128-byte line ("lines"); a CUDA graph of 8
+    launches, median of 5 replays.  A diagnostic beside K2's row, never
+    part of a bound: the rate, and what lps(61,5)'s n k = 680,760 gathers
+    would take at it."""
+    import ctypes
+
+    lib = _probe_library(build)
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rows = []
+    for pattern, lines in (("random", 0), ("lines", 1)):
+        for c in DSMEM_PROBE_CLUSTERS:
+            blocks, active = ctypes.c_int(0), ctypes.c_int(0)
+
+            def probe(o, c=c, lines=lines, blocks=blocks, active=active):
+                _probe_ok(lib, lib.probe_dsmem_gather(
+                    c, DSMEM_PROBE_LOG_WORDS, DSMEM_PROBE_THREADS,
+                    DSMEM_PROBE_ROUNDS, lines, o.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream,
+                    ctypes.byref(blocks), ctypes.byref(active)),
+                    f"probe_dsmem_gather C={c} {pattern}")
+
+            ms = _graph_ms(torch, probe, [(out,)], 8)
+            gathers = (blocks.value * DSMEM_PROBE_THREADS
+                       * DSMEM_PROBE_ROUNDS * 8)
+            rate = gathers / (ms * 1e-3)
+            rows.append(dict(pattern=pattern, cluster=c, blocks=blocks.value,
+                             active_clusters=active.value, gathers=gathers,
+                             ms=ms, gathers_per_s=rate,
+                             lps_gathers_ms=LPS_GATHERS / rate * 1e3))
+    return dict(log_words=DSMEM_PROBE_LOG_WORDS,
+                threads=DSMEM_PROBE_THREADS, rounds=DSMEM_PROBE_ROUNDS,
+                by_cluster=rows)
 
 
 def k1_floor(torch, np, KS, REG, build, dev) -> dict:
@@ -665,7 +722,9 @@ def k1_interleave_threshold(torch, np, KS, REG, dev) -> dict:
 def cayley_cases(torch, np, REG, dev) -> list:
     """K2's forms: lps(61,5) f32 with loops (the path's form), bf16, as
     (1, n) and (4, n) batches over one table; hypercube(16) without loops;
-    ragged n with a compiled radix (7) and a runtime one (12)."""
+    ragged n with a compiled radix (7) and a runtime one (12); n =
+    1,000,003, whose 4 MB x is beyond what 16 blocks' shared memory
+    holds."""
     rng = np.random.default_rng(2)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
@@ -694,6 +753,10 @@ def cayley_cases(torch, np, REG, dev) -> list:
             t(rng.standard_normal(n), f32),
             t(rng.integers(0, n, size=(n, k)), torch.int32),
             t(rng.integers(0, 3, size=n), f32))
+    n = 1_000_003
+    add("n=1000003 k=6 f32 loops", t(rng.standard_normal(n), f32),
+        t(rng.integers(0, n, size=(n, 6)), torch.int32),
+        t(rng.integers(0, 3, size=n), f32))
     return cases
 
 
@@ -1826,6 +1889,13 @@ def run(torch, dev) -> int:
           f"({L2_PROBE_BYTES >> 20} MiB read {L2_PROBE_REPS}x per launch; "
           f"{smi})", flush=True)
     emit(dict(phase="l2_read_bandwidth", nvidia_smi=smi, **l2))
+
+    # -- phase 1c: random gathers from a cluster's distributed shared memory
+    dsmem = measure_dsmem_gather(torch, build)
+    print("dsmem_probe (4-byte loads, G/s): " + ", ".join(
+        f"{r['pattern']} C={r['cluster']} {r['gathers_per_s'] / 1e9:.1f}"
+        for r in dsmem["by_cluster"]) + f" ({smi})", flush=True)
+    emit(dict(phase="dsmem_probe", nvidia_smi=smi, **dsmem))
 
     # -- phase 2: K1 against its plain version ---------------------------
     t0 = time.time()

@@ -20,9 +20,18 @@
 //     dependent loads).
 //   * The sum runs over j in table order from 0 and adds the loop term
 //     last, the order of the Pallas body.
-//   * x is NOT staged in shared memory: at lps(61,5) it is 454 KB, above the
-//     227 KB a block can have.  It stays in the 50 MB L2, which plays the
-//     role VMEM played on the TPU.
+//   * x stays in the 50 MB L2, which plays the role VMEM played on the TPU;
+//     each gather reads a 32-byte sector there.  Shared memory cannot take
+//     that role: lps(61,5)'s x is 454 KB, above the 227 KB one block can
+//     have, and a thread-block cluster that holds it whole in distributed
+//     shared memory serves the gathers more slowly.  Random 4-byte loads
+//     from the other blocks of a cluster run at 40-164 G/s over the card
+//     (chip_smoke.py's dsmem_probe, C 16 to 2) against ~220 G sectors/s
+//     from L2, and the copy of x into every cluster comes on top.
+//     tools/k2_cluster.py times such a kernel (tools/k2_cluster.cu) beside
+//     this one: slower or level on every single vector, slower on every
+//     LPS table, faster only on batches over random-lift and random tables,
+//     which no rule on the shapes tells apart from LPS tables (PERF.md).
 //   * A batch of B vectors over the one table is the grid's y axis.
 //
 // Bound: device-memory bytes.  Per row it reads k int32 indices, k + 1
