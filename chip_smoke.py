@@ -38,7 +38,18 @@ drives every main path:
 * slice 7: K2 on a form whose x (4 MB) no thread-block cluster's shared
   memory could hold, and the rate of 4-byte loads from a cluster's
   distributed shared memory (random words, whole lines) at cluster sizes 1
-  to 16, the measurement behind K2 keeping x in L2.
+  to 16, the measurement behind K2 keeping x in L2;
+* slice 8, the evaluation path: the scale row's Valiant, UGAL and KSP
+  loads (KSP's float64 walk DP through K1's signed batch form, timed
+  against its plain version) held to the reference's CPU figures; then,
+  after the LM phases, the reference's routing-scheme, collective-simulator
+  and fault-sweep benchmarks on their own families (every routing scheme
+  and the MCF ceiling; ring, tree, binomial and halving-doubling schedules
+  and uniform traffic, in simulated seconds of the modeled interconnect;
+  link-fault survival curves and the two attacks, one batched Laplacian
+  Lanczos solve a rate, and one sweep that executes a ring all-reduce on
+  every degraded sample), held to the committed baselines under
+  ``benchmarks/baselines`` and their correctness flags.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -99,6 +110,9 @@ TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 0.15}
 SPMV_SOURCE = "src/repro_torch/kernels/csrc/spmv.cu"
 #: K1's CUDA kernels, as the profiler names them (prefixes)
 K1_KERNEL_NAMES = ("spmv_rows_kernel", "spmv_batch_", "spmv_interleave_")
+#: kernel classes of a profiled phase's device time (name substrings)
+K1_CLASS = ("spmv_kernel_ms", K1_KERNEL_NAMES)
+GEMV_CLASS = ("reorth_gemv_ms", ("gemv", "gemm", "xmma", "cutlass"))
 SPMV_REPLACES = "src/repro/kernels/spmv.py:172"
 
 #: kernel K2 (Cayley matvec): source in the port, the TPU kernel it replaces
@@ -160,6 +174,74 @@ SCALE_BILU_LINIAL_TOL = 1e-3
 #: torus(32,2)'s antipodal pair: 4 * C(32, 16) minimal paths, above int32
 #: and not a float32 value (tests/test_scale.py)
 TORUS_ANTIPODAL_PATHS = 4 * math.comb(32, 16)
+
+#: slice 8, the evaluation path: the reference benchmarks' committed
+#: baselines the smoke holds the card to (benchmarks/baselines/)
+BASELINES = ROOT / "benchmarks" / "baselines"
+#: BENCH_routing_schemes.json's scheme_table rounds to 4 decimals: one unit
+#: of the last digit, plus the reference's float32 ECMP rounding
+SCHEMES_ROUNDED_TOL = 1e-4
+SCHEMES_REL_TOL = 1e-5
+#: conservation (load sum vs demand-weighted hops), float64 in the port
+CONSERVATION_TOL = 1e-9
+#: simulated times and throughputs against the reference's float32 engine
+SIM_REL_TOL = 1e-5
+#: fault sweeps: degraded rho2 (float32 Lanczos) against the baseline's
+FAULT_RHO2_TOL = 1e-3
+#: collective_sim families whose card rows are held to the same schedules
+#: run by the port's plain path on the host (device="cpu") over the graph
+#: the card built, not to the baseline: xpander(512,6) refines its lift
+#: signings by annealing (default budget), whose draws come from a
+#: torch.Generator in the port and from jax.random in the reference
+#: (core/synthesis.py), so its tower is not the reference's and no reference
+#: figure describes the card's graph (BENCH_simulate.json's row is also
+#: older than the reference's current synthesis)
+SIM_HOST_CHECKED = ("xpander(512,6)",)
+#: card vs host, both float64 in the port: summation order only
+SIM_HOST_REL_TOL = 1e-9
+#: the spectral attack ranks edges by their Fiedler energy (f_u - f_v)^2
+#: with no rounding, so on a symmetric family the energies tie and the host
+#: BLAS's last bits pick the cut: those rows are held to the float64 dense
+#: rho2 of the graph the card attacked, not to BENCH_faults.json (whose
+#: attack_spectral rows also predate the canonical Fiedler vector)
+FAULT_ORACLE_MODELS = ("attack_spectral",)
+#: one fault sweep with simulate=True: lps(13,5), link faults at 5 %, 8
+#: samples, seed 0, 160 iterations, a 64 MiB ring all-reduce on each
+#: degraded sample; the JAX reference's figures on the CPU (seconds of the
+#: modeled interconnect), recomputed by tests/test_torch_faults.py
+FAULT_SIM = dict(spec="lps(13,5)", rate=0.05, samples=8, seed=0, iters=160)
+FAULT_SIM_REF = dict(sim_allreduce_mean=0.04059053538367152,
+                     sim_allreduce_max=0.041987642645835876,
+                     sim_dropped_frac_mean=0.0)
+#: the scale row's other routing schemes (uniform traffic, the row's 64
+#: sampled sources, seed 0, ksp slack 1): the JAX reference's figures on
+#: the CPU, recomputed by tests/test_torch_synthesis.py::
+#: test_scale_tower_reference_winners_match_chip_smoke.  The bootstrap UCB
+#: applies to ``minimal`` only, as in the reference, so ugal's saturation
+#: throughput is 1 / max load on the same loads as minimal's.
+SCALE_SCHEMES_REF = {
+    "minimal": dict(max_link_load=33.663963317871094,
+                    saturation_throughput=0.00613270789514796,
+                    avg_hops=3.5994826237888202),
+    "valiant": dict(max_link_load=67.3271255493164,
+                    saturation_throughput=0.01485285450464554,
+                    avg_hops=7.198856142382696),
+    "ugal": dict(max_link_load=33.663963317871094,
+                 saturation_throughput=0.029705355562490553,
+                 avg_hops=3.5994826237888202),
+    "ksp": dict(max_link_load=33.418640574859175,
+                saturation_throughput=0.02992341946884277,
+                avg_hops=4.536979858262168),
+}
+#: avg_hops is float64 in both frameworks
+SCALE_HOPS_REL_TOL = 1e-9
+#: routing-scheme families whose MCF ceiling (a host HiGHS LP, the same
+#: code as the reference's) the schemes_bench phase does not solve, to keep
+#: the smoke inside its time limit: lps(13,5), the one family above n = 1000
+#: (its two LPs take about two minutes), and butterfly(3,4), whose
+#: adversarial LP alone takes two to three minutes; every scheme of theirs
+#: is still held to the baseline
+MCF_SKIP = ("lps(13,5)", "butterfly(3,4)")
 
 #: the LM kernels: source in the port, the TPU kernel it replaces
 LM_KERNELS = {
@@ -876,24 +958,14 @@ SCALE_K1_FORMS = {("float32 signed (24, n)", 16384),
 
 @contextlib.contextmanager
 def _scale_probes(S, KS):
-    """Tally K1 launches by form, keep the operands of the first launch of
-    each form in SCALE_K1_FORMS, and record each signed solve's winner, its
-    score and runner-up, and the winner's operands (for its exact
-    lambda_max) while the row runs."""
-    import collections
-
+    """Tally K1 launches by form and keep the operands of the first launch
+    of each form in SCALE_K1_FORMS (:func:`_k1_capture`), and record each
+    signed solve's winner, its score and runner-up, and the winner's
+    operands (for its exact lambda_max) while the row runs."""
     import numpy as np
 
-    forms, levels, operands = collections.Counter(), [], {}
-    orig_k1, orig_signed = KS.spmv_cuda, S.signed_extremes_batched
-
-    def k1(x, table, loops=None, signs=None):
-        form = _k1_form(x, table, loops, signs)
-        forms[form] += 1
-        key = (form, x.shape[-1])
-        if key in SCALE_K1_FORMS and key not in operands:
-            operands[key] = (tuple(x.shape), x.dtype, table, loops, signs)
-        return orig_k1(x, table, loops, signs)
+    levels = []
+    orig_signed = S.signed_extremes_batched
 
     def signed(table, slot_signs, *args, **kwargs):
         lmax, lmin = orig_signed(table, slot_signs, *args, **kwargs)
@@ -907,29 +979,12 @@ def _scale_probes(S, KS):
             operands=(np.array(table), np.array(slot_signs[win]))))
         return lmax, lmin
 
-    KS.spmv_cuda, S.signed_extremes_batched = k1, signed
+    S.signed_extremes_batched = signed
     try:
-        yield forms, levels, operands
+        with _k1_capture(KS, SCALE_K1_FORMS) as (forms, operands):
+            yield forms, levels, operands
     finally:
-        KS.spmv_cuda, S.signed_extremes_batched = orig_k1, orig_signed
-
-
-def scale_kernel_cases(torch, np, operands: dict, dev) -> list:
-    """K1 at the scale path's own shapes: the lift search's signed batches
-    (24 and 12 candidates' slot signs over one (n, 32) table, n = 16384 and
-    32768) and the sigma DP's / ECMP's float64 (64, n) and (16, n) batches
-    over the row's (65536, 32) table -- the operands of the path's first
-    launch of each form, with fresh standard-normal x."""
-    assert set(operands) == SCALE_K1_FORMS, sorted(operands)
-    rng = np.random.default_rng(11)
-    cases = []
-    for (form, n), (shape, dtype, table, loops, signs) in \
-            sorted(operands.items()):
-        x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
-                            device=dev)
-        cases.append(dict(name=f"scale path n={n} {form}", x=x, table=table,
-                          loops=loops, signs=signs))
-    return cases
+        S.signed_extremes_batched = orig_signed
 
 
 def _seed_lam2(np, table) -> float:
@@ -944,11 +999,11 @@ def scale_row(torch, dev) -> tuple:
     """survey([SCALE_SPEC], SCALE_COLUMNS, routing=...) on the card, with
     its stage split (obs spans), K1 launches by form, peak memory and the
     lift tower's levels; returns (the phase's record, the K1 operands kept
-    for :func:`scale_kernel_cases`)."""
+    for :func:`captured_kernel_cases`, the row's Analysis session)."""
     import numpy as np
 
     from repro_torch import obs
-    from repro_torch.api import survey
+    from repro_torch.api import Analysis, survey
     from repro_torch.core import spectral as S
     from repro_torch.kernels import spmv as KS
     from repro_torch.specs import (SCALE_COLUMNS, SCALE_NODES, SCALE_SOURCES,
@@ -959,7 +1014,8 @@ def scale_row(torch, dev) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     with _scale_probes(S, KS) as (forms, levels, operands), obs.tracing():
         t0 = time.time()
-        res = survey([SCALE_SPEC], SCALE_COLUMNS,
+        analysis = Analysis(SCALE_SPEC, device=dev)
+        res = survey([analysis], SCALE_COLUMNS,
                      routing=dict(pattern="uniform",
                                   sample_fraction=SCALE_SOURCES / SCALE_NODES,
                                   seed=0), device=dev)
@@ -997,7 +1053,7 @@ def scale_row(torch, dev) -> tuple:
                 exact_lmax_host_s=exact_s, bilu_linial_rho2=bilu_linial,
                 reference=SCALE_REF,
                 rho2_gap_to_reference=abs(row["rho2"] - SCALE_REF["rho2"])), \
-        operands
+        operands, analysis
 
 
 def check_scale_row(sc: dict) -> None:
@@ -1778,44 +1834,12 @@ def lm_grad_check(torch, dev) -> dict:
 def lanczos_split(torch, S, topo, dev, iters: int) -> dict:
     """Device time of one rho2_lanczos solve by kernel class, from
     torch.profiler's CUDA kernel events (``not measured`` if it shows none)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     S.rho2_lanczos(topo, iters=iters, seed=0, device=dev)   # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rho2 = S.rho2_lanczos(topo, iters=iters, seed=0, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    classes = {"spmv_kernel_ms": 0.0, "reorth_gemv_ms": 0.0, "other_ms": 0.0}
-    kernels = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        kernels += 1
-        name = e.name.lower()
-        if any(k in name for k in K1_KERNEL_NAMES):
-            classes["spmv_kernel_ms"] += us / 1e3
-        elif any(s in name for s in ("gemv", "gemm", "xmma", "cutlass")):
-            classes["reorth_gemv_ms"] += us / 1e3
-        else:
-            classes["other_ms"] += us / 1e3
-    busy = sum(classes.values())
+    rho2, row = _device_split(
+        torch, lambda: S.rho2_lanczos(topo, iters=iters, seed=0, device=dev),
+        (K1_CLASS, GEMV_CLASS))
     out = dict(spec=topo.name, iters=iters, rho2=rho2,
-               solve_wall_ms=wall * 1e3, device_kernels=kernels)
-    if busy > 0:
-        out.update({k: v for k, v in classes.items()},
-                   device_busy_ms=busy,
-                   device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)))
-    else:
-        out.update({k: "not measured" for k in classes},
-                   device_busy_ms="not measured",
-                   device_idle_share="not measured")
+               solve_wall_ms=row.pop("wall_ms"), **row)
     # CUDA-event time of the same solve, for a second opinion on the wall
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1825,6 +1849,422 @@ def lanczos_split(torch, S, topo, dev, iters: int) -> dict:
     torch.cuda.synchronize()
     out["solve_event_ms"] = start.elapsed_time(end)
     return out
+
+
+# --------------------------------------------------------------------------
+# slice 8: the evaluation path (routing schemes, simulator, fault sweeps)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _k1_capture(KS, wanted):
+    """Keep the operands of the first K1 launch of each ``(form, n)`` in
+    ``wanted`` (forms as :func:`_k1_form` names them) while a phase runs,
+    and tally its launches by form."""
+    import collections
+
+    forms, operands = collections.Counter(), {}
+    orig = KS.spmv_cuda
+
+    def k1(x, table, loops=None, signs=None):
+        form = _k1_form(x, table, loops, signs)
+        forms[form] += 1
+        key = (form, x.shape[-1])
+        if key in wanted and key not in operands:
+            operands[key] = (tuple(x.shape), x.dtype, table, loops, signs)
+        return orig(x, table, loops, signs)
+
+    KS.spmv_cuda = k1
+    try:
+        yield forms, operands
+    finally:
+        KS.spmv_cuda = orig
+
+
+def captured_kernel_cases(torch, np, operands: dict, where: str,
+                          dev) -> list:
+    """K1 cases from :func:`_k1_capture`'s operands (the first launch of
+    each form a path made), with fresh standard-normal x of each launch's
+    shape and dtype."""
+    rng = np.random.default_rng(11)
+    cases = []
+    for (form, n), (shape, dtype, table, loops, signs) in \
+            sorted(operands.items()):
+        x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=dev)
+        cases.append(dict(name=f"{where} n={n} {form}", x=x, table=table,
+                          loops=loops, signs=signs))
+    return cases
+
+
+def _device_split(torch, fn, classes) -> tuple:
+    """``fn()`` under torch.profiler: its result and a row of device ms by
+    kernel class (``classes``: (key, name substrings) pairs, first match
+    wins; the rest is ``other_ms``), busy time and idle share of the
+    host-clock wall (``not measured`` if it shows no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = dict.fromkeys([key for key, _ in classes] + ["other_ms"], 0.0)
+    kernels = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        kernels += 1
+        name = e.name.lower()
+        key = next((k for k, subs in classes
+                    if any(sub in name for sub in subs)), "other_ms")
+        ms[key] += us / 1e3
+    busy = sum(ms.values())
+    row = dict(wall_ms=wall * 1e3, device_kernels=kernels)
+    if busy > 0:
+        row.update(ms, device_busy_ms=busy,
+                   device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)))
+    else:
+        row.update({k: "not measured" for k in ms},
+                   device_busy_ms="not measured",
+                   device_idle_share="not measured")
+    return out, row
+
+
+#: the K1 forms the scale row's non-minimal schemes add: KSP's walk DP
+#: (float64, shared table, the 0/1 pad mask as shared signs)
+SCALE_SCHEME_K1_FORMS = {("float64 signed (12, n)", 65536)}
+
+
+def scale_schemes(torch, np, KS, analysis) -> tuple:
+    """Valiant, UGAL and KSP (slack 1) on the scale row's Analysis (its
+    cached 64-source routing, uniform traffic), under the profiler; each
+    held to the reference's CPU figures.  Returns (the phase's record, the
+    KSP launch's operands for the kernel check)."""
+    from repro_torch.specs import SCALE_NODES, SCALE_SOURCES
+
+    frac = SCALE_SOURCES / SCALE_NODES
+    KS.reset_launches()
+    t0 = time.time()
+    minimal = analysis.traffic("uniform", sample_fraction=frac, seed=0)
+
+    def run_schemes():
+        return {s: analysis.traffic("uniform", scheme=s, slack=1,
+                                    sample_fraction=frac, seed=0)
+                for s in ("valiant", "ugal", "ksp")}
+
+    with _k1_capture(KS, SCALE_SCHEME_K1_FORMS) as (forms, operands):
+        res, split = _device_split(torch, run_schemes, (K1_CLASS,))
+    seconds = time.time() - t0
+    res["minimal"] = minimal
+    rows = {}
+    for s, t in res.items():
+        want = SCALE_SCHEMES_REF[s]
+        rows[s] = dict(max_link_load=t.max_link_load,
+                       saturation_throughput=t.saturation_throughput,
+                       avg_hops=t.avg_hops, ucb=t.max_link_load_ucb,
+                       conservation_error=t.conservation_error,
+                       seconds=t.seconds, reference=want)
+        assert t.conservation_error <= CONSERVATION_TOL, (s, rows[s])
+        assert abs(t.max_link_load - want["max_link_load"]) <= \
+            SCALE_LOAD_REL_TOL * want["max_link_load"], (s, rows[s])
+        assert abs(t.avg_hops - want["avg_hops"]) <= \
+            SCALE_HOPS_REL_TOL * want["avg_hops"], (s, rows[s])
+        # minimal's is the bootstrap UCB (float64 here, float32 there): the
+        # row's 4-decimal figure; the others are 1 / max load
+        tol = SCALE_ROUNDED_TOL if s == "minimal" else \
+            SCALE_LOAD_REL_TOL * want["saturation_throughput"]
+        assert abs(t.saturation_throughput - want["saturation_throughput"]) \
+            <= tol, (s, rows[s])
+    assert np.array_equal(res["ugal"].link_loads, minimal.link_loads), \
+        "ugal diverted pairs under uniform traffic"
+    return dict(schemes=rows, seconds=seconds, spmv_launches=KS.launches(),
+                spmv_launches_by_form=dict(forms), device=split), operands
+
+
+def _baseline(name: str) -> dict:
+    return json.loads((BASELINES / name).read_text())
+
+
+def _close(got, want, rel: float, abs_: float = 0.0) -> bool:
+    return abs(got - want) <= rel * abs(want) + abs_
+
+
+#: the evaluation path's K1 forms the kernel check replays: ECMP's float64
+#: shared-table batch at lps(13,5) (512 sources a call) and the fault
+#: sweeps' float32 (32, n, 6) table stacks with per-sample loops
+EVAL_K1_FORMS = {("float64 (512, n)", 2184),
+                 ("float32 (32, n) table stack", 2184)}
+
+
+def schemes_bench(np, KS, dev, mcf_skip) -> dict:
+    """benchmarks/routing_schemes.py on the card: its nine families, both
+    patterns, all four schemes and the MCF ceiling (host LP), held to
+    BENCH_routing_schemes.json's scheme_table and correctness flags."""
+    from repro_torch.api import Analysis
+    from repro_torch.core.traffic import ROUTING_SCHEMES
+    from repro_torch.specs import (ROUTING_SCHEMES_DENSE_THRESHOLD,
+                                   ROUTING_SCHEMES_EXPANDERS,
+                                   ROUTING_SCHEMES_SPECS, MCF_TOL_ABS,
+                                   MCF_TOL_REL)
+
+    base = {r["spec"]: r
+            for r in _baseline("BENCH_routing_schemes.json")["scheme_table"]}
+    KS.reset_launches()
+    t_all = time.time()
+    rows, mcf_s, route_s = [], 0.0, 0.0
+    wins = leq_ub = True
+    for spec in ROUTING_SCHEMES_SPECS:
+        a = Analysis(spec, dense_threshold=ROUTING_SCHEMES_DENSE_THRESHOLD,
+                     device=dev)
+        row = dict(spec=spec, nodes=a.n)
+        for pattern in ("uniform", "adversarial"):
+            tag = "" if pattern == "uniform" else "_adv"
+            t0 = time.time()
+            meas = {}
+            for s in ROUTING_SCHEMES:
+                t = a.traffic(pattern, scheme=s)
+                assert t.conservation_error <= CONSERVATION_TOL, \
+                    (spec, pattern, s, t.conservation_error)
+                meas[s] = t.saturation_throughput
+                row[f"thpt_{s}{tag}"] = meas[s]
+            route_s += time.time() - t0
+            ub = None
+            if spec not in mcf_skip:
+                t0 = time.time()
+                ub = a.mcf_throughput_ub(pattern)
+                mcf_s += time.time() - t0
+                leq_ub &= all(v <= ub * (1 + MCF_TOL_REL) + MCF_TOL_ABS
+                              for v in meas.values())
+            row[f"thpt_mcf_ub{tag}"] = ub
+            if pattern == "adversarial" and spec in ROUTING_SCHEMES_EXPANDERS:
+                wins &= (meas["valiant"] >= meas["minimal"]
+                         and meas["ugal"] >= meas["minimal"])
+            want = base[spec]
+            for key in [f"thpt_{s}{tag}" for s in ROUTING_SCHEMES] \
+                    + ([f"thpt_mcf_ub{tag}"] if ub is not None else []):
+                assert _close(row[key], want[key], SCHEMES_REL_TOL,
+                              SCHEMES_ROUNDED_TOL), (spec, key, row[key],
+                                                     want[key])
+        rows.append(row)
+    assert wins, "non-minimal schemes lost to minimal on an expander"
+    assert leq_ub, "a scheme beat the MCF ceiling"
+    return dict(rows=rows, seconds=time.time() - t_all,
+                routing_seconds=route_s, mcf_host_seconds=mcf_s,
+                mcf_skipped=sorted(mcf_skip),
+                nonminimal_wins_adversarial_on_expanders=bool(wins),
+                all_schemes_leq_mcf_ub=bool(leq_ub),
+                spmv_launches=KS.launches(), device_busy_ms="not measured")
+
+
+def _sim_row(a, pay: float) -> dict:
+    """benchmarks/collective_sim.py's figures for one Analysis session:
+    simulated seconds (ring all-reduce, its NetworkModel bound, BFS-tree
+    and binomial broadcast, halving-doubling) and the executed and static
+    uniform throughputs, plus the ring's schedule for the flags."""
+    from repro_torch.specs import COLLECTIVE_SIM_EXTRA_ALGO_MAX_N
+
+    ring = a.simulate("all_reduce", "ring", payload=pay, telemetry=True)
+    val = a.network_model().validate(ring)
+    extra = a.n <= COLLECTIVE_SIM_EXTRA_ALGO_MAX_N
+    hd = extra and a.n & (a.n - 1) == 0
+
+    def t(*args):
+        return float(a.simulate(*args, payload=pay).time_seconds[0])
+
+    return dict(
+        ring_s=float(ring.time_seconds[0]),
+        model_s=val["rows"][0]["predicted_s"],
+        bfs_tree_s=t("broadcast", "bfs_tree"),
+        binomial_s=t("broadcast", "binomial") if extra else None,
+        hd_s=t("all_reduce", "halving_doubling") if hd else None,
+        thpt_uniform=a.simulate("traffic", pattern="uniform",
+                                payload=pay).saturation_throughput,
+        thpt_static=a.traffic("uniform").saturation_throughput,
+        ring_geq_model=val["all_measured_geq_predicted"],
+        ring_util_max=ring.utilization_max,
+        ring_hot_link=list(ring.telemetry.argmax_link()))
+
+
+def collective_sim(np, KS, dev) -> dict:
+    """benchmarks/collective_sim.py on the card: ring all-reduce (with
+    telemetry) against the NetworkModel bound, BFS-tree broadcast, uniform
+    traffic, binomial and halving-doubling where the bench runs them, held
+    to BENCH_simulate.json (its details' unrounded times; SIM_HOST_CHECKED
+    families to the port's host run on the card's graph) and its three
+    correctness flags.  Every time is simulated: seconds of the modeled
+    interconnect, not of the card."""
+    from repro_torch.api import Analysis
+    from repro_torch.specs import (COLLECTIVE_SIM_DENSE_THRESHOLD,
+                                   COLLECTIVE_SIM_PAYLOAD,
+                                   COLLECTIVE_SIM_SPECS,
+                                   COLLECTIVE_SIM_SPECTRAL_ORDER,
+                                   COLLECTIVE_SIM_THPT_TOL)
+
+    details = _baseline("BENCH_simulate.json")["details"]
+    pay = COLLECTIVE_SIM_PAYLOAD
+    KS.reset_launches()
+    t_all = time.time()
+    rows = []
+    for spec in COLLECTIVE_SIM_SPECS:
+        t0 = time.time()
+        a = Analysis(spec, dense_threshold=COLLECTIVE_SIM_DENSE_THRESHOLD,
+                     device=dev)
+        row = dict(spec=spec, nodes=a.n, rho2=a.rho2, **_sim_row(a, pay))
+        row["seconds"] = time.time() - t0
+        if spec in SIM_HOST_CHECKED:
+            host = _sim_row(Analysis(
+                a.topo, dense_threshold=COLLECTIVE_SIM_DENSE_THRESHOLD,
+                device="cpu"), pay)
+            want = dict(host, source="the port's host run, card's graph")
+            rel, abs_thpt = SIM_HOST_REL_TOL, 0.0
+        else:
+            d = details[spec]
+            want = dict(
+                ring_s=d["ring"]["time_seconds"][0],
+                model_s=d["validate"]["rows"][0]["predicted_s"],
+                bfs_tree_s=d["bfs_tree"]["time_seconds"][0],
+                binomial_s=None if d["binomial"] is None
+                else d["binomial"]["time_seconds"][0],
+                hd_s=None if d["halving_doubling"] is None
+                else d["halving_doubling"]["time_seconds"][0],
+                # the baseline rounds throughputs to 6 decimals
+                thpt_uniform=d["workload_uniform"]["saturation_throughput"],
+                source="BENCH_simulate.json")
+            rel, abs_thpt = SIM_REL_TOL, 5e-7
+        for key in ("ring_s", "model_s", "bfs_tree_s", "binomial_s", "hd_s"):
+            assert (row[key] is None) == (want[key] is None), (spec, key)
+            if want[key] is not None:
+                assert _close(row[key], want[key], rel), \
+                    (spec, key, row[key], want[key])
+        assert _close(row["thpt_uniform"], want["thpt_uniform"], rel,
+                      abs_thpt), (spec, row["thpt_uniform"], want)
+        row["reference"] = {k: want[k] for k in
+                            ("ring_s", "model_s", "bfs_tree_s", "binomial_s",
+                             "hd_s", "thpt_uniform", "source")}
+        rows.append(row)
+    ring_geq = all(r["ring_geq_model"] for r in rows)
+    matches = all(abs(r["thpt_uniform"] - r["thpt_static"])
+                  <= COLLECTIVE_SIM_THPT_TOL * r["thpt_static"] for r in rows)
+    thpt = {r["spec"]: r["thpt_uniform"] for r in rows}
+    rank_ok = all(thpt[x] > thpt[y] for x, y in
+                  zip(COLLECTIVE_SIM_SPECTRAL_ORDER,
+                      COLLECTIVE_SIM_SPECTRAL_ORDER[1:]))
+    assert ring_geq and matches and rank_ok, (ring_geq, matches, rank_ok)
+    return dict(rows=rows, seconds=time.time() - t_all, payload_bytes=pay,
+                times_are="simulated (modeled interconnect)",
+                ring_time_geq_model_lb=bool(ring_geq),
+                workload_matches_static_ecmp=bool(matches),
+                thpt_rank_matches_spectral=bool(rank_ok),
+                spmv_launches=KS.launches(), device_busy_ms="not measured")
+
+
+def _fault_row_check(got: dict, want: dict, what) -> None:
+    assert got["failed_links_mean"] == want["failed_links_mean"], what
+    assert got["connectivity_prob"] == want["connectivity_prob"], what
+    for key in ("rho2_mean", "rho2_min", "rho2_max"):
+        if key in want:
+            assert abs(got[key] - want[key]) <= FAULT_RHO2_TOL, \
+                (what, key, got[key], want[key])
+
+
+def _attack_oracle(np, a, model: str, rate: float) -> dict:
+    """The attacked graph's host figures: failed links, connectivity, the
+    float64 dense rho2, and how many edges tie (to 1e-9 relative) with the
+    cut's last Fiedler energy on each side of the cut."""
+    from repro_torch.core import faults as F
+    from repro_torch.core import spectral as S
+
+    f = a.fiedler
+    sc = F.make_scenario(a.topo, model, rate, fiedler=f, device="cpu")
+    d = F.apply_faults(a.topo, sc)
+    energy = (f[a.topo.edges[:, 0]] - f[a.topo.edges[:, 1]]) ** 2
+    cut = np.zeros(a.topo.m, dtype=bool)
+    cut[sc.failed_links] = True
+    last = energy[cut].min() if cut.any() else 0.0
+    tied = np.abs(energy - last) <= 1e-9 * max(last, 1e-300)
+    return dict(failed_links_mean=float(sc.n_failed_links),
+                connectivity_prob=float(
+                    F.connected_component_count(d.n, d.edges) == 1),
+                rho2_mean=max(float(S.laplacian_spectrum(d)[1]), 0.0),
+                ties_in_cut=int((tied & cut).sum()),
+                ties_outside_cut=int((tied & ~cut).sum()))
+
+
+def fault_sweep_phase(np, KS, dev) -> dict:
+    """benchmarks/fault_sweep.py on the card: link-fault survival curves
+    (four rates, 32 samples, one batched Laplacian Lanczos solve a rate)
+    and the two attacks at 10 % on its nine families, held to
+    BENCH_faults.json (FAULT_ORACLE_MODELS to the host's dense oracle on
+    the attacked graph) and its two flags; then one simulate=True sweep
+    (FAULT_SIM) against the reference's figures."""
+    from repro_torch.api import Analysis
+    from repro_torch.specs import (FAULT_SWEEP_ATTACK_RATE,
+                                   FAULT_SWEEP_ITERS, FAULT_SWEEP_RATES,
+                                   FAULT_SWEEP_SAMPLES, FAULT_SWEEP_SEED,
+                                   FAULT_SWEEP_SPECS)
+
+    base = _baseline("BENCH_faults.json")
+    KS.reset_launches()
+    t_all = time.time()
+    rows = []
+    interlacing = batched = True
+    for spec in FAULT_SWEEP_SPECS:
+        t0 = time.time()
+        a = Analysis(spec, device=dev)
+        sweep = a.fault_sweep(rates=FAULT_SWEEP_RATES, model="link",
+                              samples=FAULT_SWEEP_SAMPLES,
+                              seed=FAULT_SWEEP_SEED, iters=FAULT_SWEEP_ITERS)
+        interlacing &= all(r["rho2_max"] <= r["interlacing_rho2_ub"] + 1e-3
+                           for r in sweep.rows)
+        batched &= sweep.batched_solves == len(FAULT_SWEEP_RATES)
+        for got, want in zip(sweep.rows, base["curves"][spec]["rows"]):
+            _fault_row_check(got, want, (spec, got["rate"]))
+        attacks = {}
+        for m in ("attack_degree", "attack_spectral"):
+            r = a.fault_sweep(rates=(FAULT_SWEEP_ATTACK_RATE,), model=m,
+                              iters=FAULT_SWEEP_ITERS).rows[0]
+            baseline = base["adversarial"][spec][m]["rows"][0]
+            want = _attack_oracle(np, a, m, FAULT_SWEEP_ATTACK_RATE) \
+                if m in FAULT_ORACLE_MODELS else baseline
+            _fault_row_check(r, want, (spec, m))
+            attacks[m] = dict(rho2_mean=r["rho2_mean"],
+                              connectivity_prob=r["connectivity_prob"],
+                              failed_links_mean=r["failed_links_mean"],
+                              held_to="host dense oracle, same graph"
+                              if m in FAULT_ORACLE_MODELS
+                              else "BENCH_faults.json",
+                              oracle=want if m in FAULT_ORACLE_MODELS
+                              else None,
+                              baseline_rho2_mean=baseline["rho2_mean"])
+        rows.append(dict(spec=spec, nodes=a.n, rho2_healthy=sweep.rho2_healthy,
+                         curve=[dict(rate=r["rate"], rho2_mean=r["rho2_mean"],
+                                     connectivity_prob=r["connectivity_prob"])
+                                for r in sweep.rows],
+                         attacks=attacks, seconds=time.time() - t0))
+    assert interlacing and batched, (interlacing, batched)
+    curves_s = time.time() - t_all
+    t0 = time.time()
+    a = Analysis(FAULT_SIM["spec"], device=dev)
+    sim = a.fault_sweep(rates=(FAULT_SIM["rate"],),
+                        samples=FAULT_SIM["samples"], seed=FAULT_SIM["seed"],
+                        iters=FAULT_SIM["iters"], simulate=True).rows[0]
+    got = {k: sim[k] for k in FAULT_SIM_REF}
+    for k, want in FAULT_SIM_REF.items():
+        assert _close(got[k], want, SIM_REL_TOL, 1e-12), (k, got, want)
+    return dict(rows=rows, curves_seconds=curves_s,
+                simulate=dict(FAULT_SIM, **got, reference=FAULT_SIM_REF,
+                              times_are="simulated (modeled interconnect)",
+                              seconds=time.time() - t0),
+                all_interlacing_hold=bool(interlacing),
+                one_batched_solve_per_rate=bool(batched),
+                seconds=time.time() - t_all, spmv_launches=KS.launches(),
+                device_busy_ms="not measured")
 
 
 # --------------------------------------------------------------------------
@@ -2047,21 +2487,39 @@ def run(torch, dev) -> int:
               **lanczos_split(torch, S, topo, dev, iters)))
 
     # -- phase 7b: the datacenter-scale survey row (xpander, routing) ----
-    scale, scale_operands = scale_row(torch, dev)
+    scale, scale_operands, scale_analysis = scale_row(torch, dev)
     emit(dict(phase="scale_row", **scale))
     check_scale_row(scale)
     k1_path_launches += scale["spmv_launches"]
 
+    # -- phase 7b2: the scale row's Valiant, UGAL and KSP (slice 8) ------
+    schemes, ksp_operands = scale_schemes(torch, np, KS, scale_analysis)
+    del scale_analysis
+    emit(dict(phase="scale_schemes", nvidia_smi=smi, **schemes))
+    k1_path_launches += schemes["spmv_launches"]
+
     # -- phase 7b': K1 against its plain version at the scale path's shapes
     t0 = time.time()
+    assert set(scale_operands) == SCALE_K1_FORMS, sorted(scale_operands)
     scale_k1 = [check_kernel_case(torch, KS, CS, c, l2_bw)
-                for c in scale_kernel_cases(torch, np, scale_operands, dev)]
+                for c in captured_kernel_cases(torch, np, scale_operands,
+                                               "scale path", dev)]
     del scale_operands
     for r in scale_k1:
         emit(dict(phase="kernel_check", kernel="spmv_padded", **r))
     emit(dict(phase="scale_kernel_check_done", cases=len(scale_k1),
               seconds=time.time() - t0))
     results += scale_k1
+
+    # -- phase 7b3: K1 at KSP's form (f64, shared table, shared 0/1 signs)
+    ksp_k1 = [check_kernel_case(torch, KS, CS, c, l2_bw)
+              for c in captured_kernel_cases(torch, np, ksp_operands,
+                                             "scale ksp", dev)]
+    assert len(ksp_k1) == len(SCALE_SCHEME_K1_FORMS), ksp_k1
+    del ksp_operands
+    for r in ksp_k1:
+        emit(dict(phase="kernel_check", kernel="spmv_padded", **r))
+    results += ksp_k1
 
     # -- phase 7c: torus(32,2)'s antipodal count, exact in float64 -------
     sig = sigma_exact(REGISTRY, R, KS, dev)
@@ -2104,6 +2562,28 @@ def run(torch, dev) -> int:
 
     # -- phase 10b: gradients through K5, K3, K4 against the plain path --
     emit(dict(phase="lm_grad_check", **lm_grad_check(torch, dev)))
+
+    # -- phase 11: slice 8, the evaluation path's reference benchmarks --
+    t0 = time.time()
+    bench = schemes_bench(np, KS, dev, MCF_SKIP)
+    emit(dict(phase="schemes_bench", nvidia_smi=smi, **bench))
+    k1_path_launches += bench["spmv_launches"]
+    with _k1_capture(KS, EVAL_K1_FORMS) as (eval_forms, eval_operands):
+        sim = collective_sim(np, KS, dev)
+        emit(dict(phase="collective_sim", nvidia_smi=smi, **sim))
+        faults = fault_sweep_phase(np, KS, dev)
+        emit(dict(phase="fault_sweep", nvidia_smi=smi, **faults))
+    k1_path_launches += sim["spmv_launches"] + faults["spmv_launches"]
+    eval_k1 = [check_kernel_case(torch, KS, CS, c, l2_bw)
+               for c in captured_kernel_cases(torch, np, eval_operands,
+                                              "evaluation path", dev)]
+    assert len(eval_k1) == len(EVAL_K1_FORMS), sorted(eval_operands)
+    del eval_operands
+    for r in eval_k1:
+        emit(dict(phase="kernel_check", kernel="spmv_padded", **r))
+    results += eval_k1
+    emit(dict(phase="evaluation_path_done", seconds=time.time() - t0,
+              spmv_launches_by_form=dict(eval_forms)))
     emit(dict(phase="total", seconds=time.time() - t_start))
 
     # -- the kernels line, then the last line ----------------------------

@@ -13,7 +13,7 @@ __all__ = [
     "Family", "REGISTRY", "SpecError", "TopologyRegistry", "build",
     "closed_forms", "families", "get", "parse_spec", "register",
     "Analysis", "survey", "SurveyResult", "DEFAULT_COLUMNS", "TABLE1_COLUMNS",
-    "RAMANUJAN_COLUMNS", "ROUTING_COLUMNS",
+    "RAMANUJAN_COLUMNS", "ROUTING_COLUMNS", "SIM_COLUMNS", "FAULT_COLUMNS",
 ]
 
 _LAZY = {
@@ -25,6 +25,8 @@ _LAZY = {
     "TABLE1_COLUMNS": ("repro_torch.api.survey", "TABLE1_COLUMNS"),
     "RAMANUJAN_COLUMNS": ("repro_torch.api.survey", "RAMANUJAN_COLUMNS"),
     "ROUTING_COLUMNS": ("repro_torch.api.survey", "ROUTING_COLUMNS"),
+    "SIM_COLUMNS": ("repro_torch.api.survey", "SIM_COLUMNS"),
+    "FAULT_COLUMNS": ("repro_torch.api.survey", "FAULT_COLUMNS"),
 }
 
 

@@ -15,12 +15,16 @@ Ramanujan/LPS comparison.  The backend auto-selects by ``n``:
 construction unless the caller asks for ``device="cpu"``.  A spec string of
 a designed family (``xpander``, ``rewired``) is synthesized on ``device``.
 
-The main-path quantities and the measured path structure (:meth:`routing`,
-:meth:`traffic` under minimal ECMP routing) are ported; the reference's
-MCF-ceiling, collective-model, simulation and fault-sweep methods are not
-yet.  Nothing is computed in ``__init__``; every property memoizes on first
-access, so ``survey()`` can pre-populate (e.g. batched rho2 solves) without
-waste.
+Besides the main-path quantities, the session measures path structure
+(:meth:`routing`), link loads under every routing scheme (:meth:`traffic`)
+and their MCF ceiling (:meth:`mcf_throughput_ub`), the analytic collective
+model (:meth:`network_model`), executed schedules (:meth:`simulate`) and
+fault sweeps (:meth:`fault_sweep`), on ``device``.  The reference's
+training-workload runs (``simulate(workload=...)``,
+``fault_sweep(workload=...)``) are not ported yet and raise
+``NotImplementedError``.  Nothing is computed in ``__init__``; every
+property memoizes on first access, so ``survey()`` can pre-populate (e.g.
+batched rho2 solves) without waste.
 """
 from __future__ import annotations
 
@@ -31,8 +35,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import bounds as B
+from repro_torch.core import collectives as C
+from repro_torch.core import faults as F
 from repro_torch.core import properties as P
 from repro_torch.core import routing as R
+from repro_torch.core import simulate as SM
 from repro_torch.core import spectral as S
 from repro_torch.core import traffic as TR
 from repro_torch.core.graphs import Topology
@@ -286,35 +293,199 @@ class Analysis:
 
     def traffic(self, pattern: str = "uniform", *,
                 scheme: str = "minimal",
+                slack: int = 1,
                 sample_fraction: Optional[float] = None,
                 seed: Optional[int] = None) -> "TR.TrafficResult":
         """Link-load accounting of one synthetic pattern (lazy, cached).
 
         Routes the named demand pattern (see
-        :data:`repro_torch.core.traffic.TRAFFIC_PATTERNS`) under minimal
-        ECMP routing (the only ``scheme`` ported; the others raise
-        ``NotImplementedError``), reusing this session's cached
-        :meth:`routing` matrices and (for ``adversarial``) canonical Fiedler
-        vector.  With ``sample_fraction``, only the sampled source rows are
-        routed and the loads carry the n/S unbiasedness correction; cache
-        entries key on ``(pattern, scheme, sample_fraction, seed)`` (the
-        reference's key also holds the ``ksp`` scheme's ``slack``, which
-        comes back with that scheme, ROADMAP Queue 1 item 8).
+        :data:`repro_torch.core.traffic.TRAFFIC_PATTERNS`) under the chosen
+        ``scheme`` (:data:`repro_torch.core.traffic.ROUTING_SCHEMES`:
+        minimal ECMP, Valiant, UGAL, or k-shortest-path with ``slack`` extra
+        hops), reusing this session's cached :meth:`routing` matrices and
+        (for ``adversarial``) canonical Fiedler vector.  With
+        ``sample_fraction``, only the sampled source rows are routed and the
+        loads carry the n/S unbiasedness correction (see
+        :func:`repro_torch.core.traffic.evaluate_traffic`); cache entries
+        key on ``(pattern, scheme, slack, sample_fraction, seed)``.
 
         Returns:
             :class:`repro_torch.core.traffic.TrafficResult` — per-directed-
             link loads in injection units, max load, saturation throughput.
         """
         cache = self.__dict__.setdefault("_traffic", {})
-        key = (pattern, scheme) + self._routing_key(sample_fraction, seed)
+        key = (pattern, scheme, int(slack)) + \
+            self._routing_key(sample_fraction, seed)
         if key not in cache:
             fiedler = self.fiedler if pattern == "adversarial" else None
             cache[key] = TR.evaluate_traffic(
-                self.topo, pattern, scheme=scheme,
+                self.topo, pattern, scheme=scheme, slack=slack,
                 routing=self.routing(sample_fraction=sample_fraction,
                                      seed=seed),
                 fiedler=fiedler, device=self.device)
         return cache[key]
+
+    def mcf_throughput_ub(self, pattern: str = "uniform", *,
+                          groups: Optional[int] = None) -> float:
+        """Multi-commodity-flow LP throughput ceiling (lazy, cached; host).
+
+        The grouped-commodity LP upper bound of
+        :func:`repro_torch.core.traffic.mcf_throughput_ub` for this topology
+        and pattern — the optimality ceiling every measured scheme's
+        ``saturation_throughput`` is compared against (``thpt_gap_to_opt``
+        in the survey).  Raises ``RuntimeError`` when scipy is unavailable.
+        """
+        cache = self.__dict__.setdefault("_mcf", {})
+        key = (pattern, groups)
+        if key not in cache:
+            fiedler = self.fiedler if pattern == "adversarial" else None
+            cache[key] = TR.mcf_throughput_ub(
+                self.topo, pattern, fiedler=fiedler, groups=groups)
+        return cache[key]
+
+    # -- executed schedules (link-level simulation) ------------------------
+    def network_model(self) -> "C.NetworkModel":
+        """The analytic (alpha, beta) collective model of this topology
+        (lazy, cached), built from this session's measured rho2 and routing
+        analysis — so its ``validate`` hook ratios the *same* spectral
+        figures :meth:`simulate` executes against.
+
+        Returns:
+            :class:`repro_torch.core.collectives.NetworkModel` with the
+            guaranteed Fiedler bisection, measured diameter, and measured
+            avg hops.
+        """
+        if "_network" not in self.__dict__:
+            self.__dict__["_network"] = C.network_from_topology(
+                self.topo, rho2=self.rho2, routing=self.routing(),
+                device=self.device)
+        return self.__dict__["_network"]
+
+    def simulate(self, collective: str = "all_reduce",
+                 algorithm: Optional[str] = None, *,
+                 payload: Union[float, Sequence[float]] = float(1 << 26),
+                 pattern: Optional[str] = None,
+                 workload: Optional[Any] = None,
+                 placement: str = "linear",
+                 link_bw: float = C.LINK_BW,
+                 hop_latency: float = C.PER_HOP_LATENCY,
+                 root: int = 0,
+                 scheme: str = "minimal",
+                 slack: int = 1,
+                 telemetry: bool = False) -> "SM.SimulationResult":
+        """Execute a collective algorithm or traffic workload on the modeled
+        links (lazy, cached per configuration).
+
+        Lowers the named schedule (:data:`repro_torch.core.simulate.
+        SIM_ALGORITHMS`) onto this topology's gather-table slots — reusing
+        this session's cached :meth:`routing` matrices for the lowering —
+        and runs the round engine on this session's device over all
+        requested payload sizes at once.  The times are those of the
+        modeled interconnect (``link_bw``, ``hop_latency``): simulated, not
+        measured on the device.
+
+        Args:
+            collective: ``all_reduce`` / ``reduce_scatter`` / ``all_gather``
+                / ``broadcast``, or ``"traffic"`` to execute a demand-matrix
+                workload instead.
+            algorithm: schedule algorithm (default: the collective's first
+                :data:`~repro_torch.core.simulate.SIM_ALGORITHMS` entry).
+            payload: bytes per node — scalar or sequence.
+            pattern: traffic pattern for ``collective="traffic"`` (default
+                ``uniform``; ``adversarial`` reuses the cached Fiedler
+                vector).
+            workload, placement: the reference's training-job plans; not
+                ported yet — ``workload=`` raises ``NotImplementedError``.
+            link_bw / hop_latency: engine constants (defaults match
+                :class:`~repro_torch.core.collectives.NetworkModel`, so
+                ``network_model().validate(...)`` is apples-to-apples).
+            root: broadcast root vertex.
+            scheme: routing scheme for the link lowering — ``minimal``
+                (ECMP, default), ``valiant``, ``ugal`` or ``ksp``.  Applies
+                to traffic workloads and demand-lowered collectives.
+            slack: extra hops beyond shortest for ``scheme="ksp"``.
+            telemetry: attach per-round engine telemetry
+                (:class:`repro_torch.core.simulate.RoundTelemetry`) as
+                ``result.telemetry``.
+
+        Returns:
+            :class:`repro_torch.core.simulate.SimulationResult` — simulated
+            times (seconds), per-link utilization, congestion accounting.
+        """
+        if workload is not None:
+            raise NotImplementedError(
+                "Analysis.simulate(workload=...) needs core/workloads, which "
+                "is not ported to repro_torch yet (ROADMAP Queue 1 item 2, "
+                "core/workloads)")
+        cache = self.__dict__.setdefault("_simulate", {})
+        pay = tuple(np.atleast_1d(np.asarray(payload, dtype=np.float64)))
+        # resolve defaults BEFORE keying so simulate("all_reduce") and
+        # simulate("all_reduce", "ring") share one cache entry
+        if collective == "traffic":
+            if algorithm not in (None, "ecmp"):
+                raise ValueError("traffic workloads always route via ECMP; "
+                                 f"algorithm={algorithm!r} does not apply")
+            pattern = pattern or "uniform"
+            algorithm = "ecmp"
+        else:
+            if pattern is not None:
+                raise ValueError("pattern= only applies to "
+                                 "collective='traffic'")
+            if collective not in SM.SIM_ALGORITHMS:
+                raise ValueError(f"unknown collective {collective!r} (known: "
+                                 f"{sorted(SM.SIM_ALGORITHMS)} + 'traffic')")
+            algorithm = algorithm or SM.SIM_ALGORITHMS[collective][0]
+        key = (collective, algorithm, pay, pattern, link_bw, hop_latency,
+               root, scheme, int(slack), bool(telemetry))
+        if key not in cache:
+            if collective == "traffic":
+                fiedler = self.fiedler if pattern == "adversarial" else None
+                cache[key] = SM.simulate_traffic(
+                    self.topo, pattern, payloads=pay, link_bw=link_bw,
+                    hop_latency=hop_latency, routing=self.routing(),
+                    fiedler=fiedler, scheme=scheme, slack=slack,
+                    telemetry=telemetry, device=self.device)
+            else:
+                cache[key] = SM.simulate_collective(
+                    self.topo, collective, algorithm, payloads=pay,
+                    link_bw=link_bw, hop_latency=hop_latency,
+                    routing=self.routing(), root=root, scheme=scheme,
+                    slack=slack, telemetry=telemetry, device=self.device)
+        return cache[key]
+
+    # -- degraded operation (fault tolerance, §3) --------------------------
+    def fault_sweep(self, rates: Sequence[float] = (0.02, 0.05, 0.1, 0.2),
+                    model: str = "link", samples: int = 32,
+                    seed: Optional[int] = None,
+                    iters: Optional[int] = None,
+                    routing: bool = False,
+                    simulate: bool = False,
+                    sim_payload: float = float(1 << 26),
+                    workload: Optional[Any] = None,
+                    workload_samples: int = 2) -> "F.FaultSweepResult":
+        """Survival curves under fault injection (rho2, bisection floor,
+        connectivity vs fault rate) on this session's device.  Monte-Carlo
+        models batch all ``samples`` degraded instances per rate into ONE
+        batched Laplacian Lanczos solve; the adversarial models
+        (``attack_degree``, ``attack_spectral``) are deterministic.  Reuses
+        this session's cached healthy rho2 and (for the spectral attack)
+        Fiedler vector.  ``routing=True`` additionally runs batched BFS over
+        each rate's stacked degraded tables, appending measured degraded
+        diameter / path-length / reachability per rate.  ``simulate=True``
+        executes a ring all-reduce of ``sim_payload`` bytes on every
+        degraded sample (one engine pass per rate), appending simulated
+        degraded collective times (``sim_allreduce_mean/max``,
+        ``sim_dropped_frac_mean``).  ``workload=`` is not ported yet and
+        raises ``NotImplementedError``."""
+        fiedler = self.fiedler if model == "attack_spectral" else None
+        return F.fault_sweep(
+            self.topo, rates=rates, model=model, samples=samples,
+            seed=self.seed if seed is None else int(seed),
+            iters=min(iters or self.lanczos_iters, max(self.n - 1, 8)),
+            rho2_healthy=self.rho2, fiedler=fiedler, routing=routing,
+            simulate=simulate, sim_payload=sim_payload,
+            workload=workload, workload_samples=workload_samples,
+            device=self.device)
 
     # -- presentation ------------------------------------------------------
     def report(self) -> str:

@@ -4,12 +4,13 @@ LPS certification.
 ``survey(specs, columns=...)`` builds every requested topology through the
 registry, wraps each in a lazy :class:`~repro_torch.api.analysis.Analysis`,
 batches same-shape Lanczos solves into a single batched call, and emits
-rows / CSV / JSON.  The main-path column sets are ported
-(:data:`DEFAULT_COLUMNS`, :data:`TABLE1_COLUMNS`, :data:`RAMANUJAN_COLUMNS`),
-and so is the ``routing=`` keyword with :data:`ROUTING_COLUMNS` under
-minimal ECMP routing (``routing=dict(schemes=True)`` raises until the
-reference's other schemes are ported); the ``faults=``, ``simulate=`` and
-``workload=`` keywords and their column sets are not yet.
+rows / CSV / JSON.  The main-path column sets (:data:`DEFAULT_COLUMNS`,
+:data:`TABLE1_COLUMNS`, :data:`RAMANUJAN_COLUMNS`) and the evaluation
+keywords are ported: ``routing=`` (:data:`ROUTING_COLUMNS`, every routing
+scheme and the MCF ceiling), ``simulate=`` (:data:`SIM_COLUMNS`) and
+``faults=`` (:data:`FAULT_COLUMNS`).  The reference's ``workload=`` keyword
+(training-step plans) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from .analysis import Analysis
 from .registry import REGISTRY
 
 __all__ = ["survey", "SurveyResult", "COLUMNS", "DEFAULT_COLUMNS",
-           "TABLE1_COLUMNS", "RAMANUJAN_COLUMNS", "ROUTING_COLUMNS"]
+           "TABLE1_COLUMNS", "RAMANUJAN_COLUMNS", "FAULT_COLUMNS",
+           "ROUTING_COLUMNS", "SIM_COLUMNS"]
 
 
 def _round(x: float, nd: int = 6) -> float:
@@ -100,6 +102,12 @@ RAMANUJAN_COLUMNS = [
 ]
 
 
+#: resilience columns appended automatically when ``survey(faults=...)``
+FAULT_COLUMNS = [
+    "fault_model", "fault_rate", "rho2_degraded", "rho2_retention",
+    "connectivity_prob", "bw_fiedler_lb_degraded",
+]
+
 #: measured path-structure columns appended when ``survey(routing=...)``:
 #: exact BFS diameter (hops) + agreement with the registered closed form,
 #: the certified diameter lower bound (= diameter when exact; the sampled
@@ -107,15 +115,31 @@ RAMANUJAN_COLUMNS = [
 #: its 95% bootstrap CI (degenerate when exact), mean minimal-path count per
 #: pair, max directed link load (injection units) and saturation throughput
 #: under the configured traffic pattern, and the spectral throughput
-#: prediction.  The routing-scheme comparison columns (``thpt_valiant``,
-#: ``thpt_ugal``, ``thpt_ksp``, ``thpt_mcf_ub``, ``thpt_gap_to_opt``) stay
-#: None: ``routing={"schemes": True}``, which fills them in the reference,
-#: raises until those schemes are ported.
+#: prediction.  ``routing={"schemes": True}`` additionally fills the
+#: routing-scheme comparison: saturation throughput under Valiant load
+#: balancing (``thpt_valiant``), UGAL-style adaptive selection
+#: (``thpt_ugal``) and k-shortest-path non-minimal ECMP (``thpt_ksp``),
+#: the multi-commodity-flow optimal-routing ceiling (``thpt_mcf_ub``, None
+#: when scipy is unavailable), and ``thpt_gap_to_opt`` — the best measured
+#: scheme as a fraction of that ceiling.
 ROUTING_COLUMNS = [
     "diameter_bfs", "diameter_lb", "diameter_ok", "avg_hops", "avg_hops_ci",
     "path_diversity", "traffic_pattern", "max_link_load",
     "saturation_throughput", "throughput_spectral", "thpt_valiant",
     "thpt_ugal", "thpt_ksp", "thpt_mcf_ub", "thpt_gap_to_opt",
+]
+
+#: executed-schedule columns appended when ``survey(simulate=...)``: the
+#: simulated collective/algorithm and round count, simulated completion time
+#: vs the NetworkModel analytic lower bound (ms of the modeled interconnect;
+#: ``sim_model_ratio`` = simulated/predicted, ``sim_geq_model`` asserts the
+#: bound held), peak link utilization (busy fraction), and the *executed*
+#: uniform-workload saturation throughput (injection units — comparable to
+#: the static ``saturation_throughput`` of :data:`ROUTING_COLUMNS`).
+SIM_COLUMNS = [
+    "sim_collective", "sim_algorithm", "sim_rounds", "sim_time_ms",
+    "model_time_ms", "sim_model_ratio", "sim_geq_model", "sim_util_max",
+    "sim_thpt_uniform",
 ]
 
 
@@ -235,18 +259,80 @@ def _batch_lanczos_rho2(analyses: Sequence[Analysis]) -> Dict[int, float]:
     return shares
 
 
+def _fault_config(faults: Union[float, Dict[str, Any]]) -> Dict[str, Any]:
+    cfg = dict(rate=float(faults)) if isinstance(faults, (int, float)) \
+        else dict(faults)
+    cfg.setdefault("rate", 0.05)
+    cfg.setdefault("model", "link")
+    cfg.setdefault("samples", 16)
+    return cfg
+
+
+def _fault_values(a: Analysis, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """One-rate fault sweep for a survey row → the FAULT_COLUMNS values."""
+    sweep = a.fault_sweep(rates=[cfg["rate"]], model=cfg["model"],
+                          samples=cfg["samples"], seed=cfg.get("seed"))
+    r = sweep.rows[0]
+    return dict(
+        fault_model=cfg["model"],
+        fault_rate=cfg["rate"],
+        rho2_degraded=_round(r["rho2_mean"]),
+        rho2_retention=None if r["rho2_retention"] is None
+            else _round(r["rho2_retention"], 4),
+        connectivity_prob=r["connectivity_prob"],
+        bw_fiedler_lb_degraded=_round(r["bw_fiedler_lb_mean"], 2),
+    )
+
+
 def _routing_config(routing: Union[bool, Dict[str, Any]]) -> Dict[str, Any]:
     cfg = {} if routing is True else dict(routing)
     cfg.setdefault("pattern", "uniform")
     cfg.setdefault("sample_fraction", None)   # None = exact all-sources BFS
     cfg.setdefault("seed", None)              # None = the session's seed
     cfg.setdefault("schemes", False)          # fill the thpt_* comparison
-    if cfg["schemes"]:
-        raise NotImplementedError(
-            "survey(routing=dict(schemes=True)) needs the Valiant, UGAL and "
-            "KSP schemes and the MCF ceiling, which are not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 8)")
+    cfg.setdefault("slack", 1)                # ksp detour budget
+    cfg.setdefault("groups", None)            # MCF commodity grouping
     return cfg
+
+
+def _sim_config(simulate: Union[bool, Dict[str, Any]]) -> Dict[str, Any]:
+    cfg = {} if simulate is True else dict(simulate)
+    cfg.setdefault("collective", "all_reduce")
+    cfg.setdefault("algorithm", None)
+    cfg.setdefault("payload", float(1 << 26))
+    cfg.setdefault("pattern", "uniform")   # None skips the workload column
+    if cfg["collective"] == "traffic":
+        # the simulated-vs-model columns need a collective the analytic
+        # model predicts; the executed workload already has its own column
+        raise ValueError(
+            "survey(simulate=...): collective='traffic' has no analytic "
+            "prediction to validate against — pick a collective (e.g. "
+            "'all_reduce') and choose the workload via pattern=")
+    return cfg
+
+
+def _sim_values(a: Analysis, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Executed-schedule quantities for one survey row (SIM_COLUMNS)."""
+    sim = a.simulate(cfg["collective"], cfg["algorithm"],
+                     payload=cfg["payload"])
+    val = a.network_model().validate(sim)
+    thpt = None
+    if cfg["pattern"]:
+        thpt = a.simulate("traffic", pattern=cfg["pattern"],
+                          payload=cfg["payload"]).saturation_throughput
+    # the largest payload: the same one sim_util_max is accounted at
+    row = val["rows"][int(np.argmax(sim.payload_bytes))]
+    return dict(
+        sim_collective=cfg["collective"],
+        sim_algorithm=sim.algorithm,
+        sim_rounds=sim.rounds,
+        sim_time_ms=_round(row["measured_s"] * 1e3),
+        model_time_ms=_round(row["predicted_s"] * 1e3),
+        sim_model_ratio=_round(row["ratio"], 4),
+        sim_geq_model=val["all_measured_geq_predicted"],
+        sim_util_max=_round(sim.utilization_max, 4),
+        sim_thpt_uniform=None if thpt is None else _round(thpt, 4),
+    )
 
 
 def _routing_values(a: Analysis, cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -262,6 +348,27 @@ def _routing_values(a: Analysis, cfg: Dict[str, Any]) -> Dict[str, Any]:
     diameter_ok = None if not cf or "diameter" not in cf \
         else bool(r.diameter == int(cf["diameter"])) if r.exact \
         else bool(r.diameter_lb <= int(cf["diameter"]))
+    schemes: Dict[str, Optional[float]] = dict(
+        thpt_valiant=None, thpt_ugal=None, thpt_ksp=None, thpt_mcf_ub=None,
+        thpt_gap_to_opt=None)
+    if cfg["schemes"]:
+        measured = {"minimal": t.saturation_throughput}
+        for scheme in ("valiant", "ugal", "ksp"):
+            measured[scheme] = a.traffic(
+                cfg["pattern"], scheme=scheme, slack=cfg["slack"],
+                sample_fraction=cfg["sample_fraction"],
+                seed=cfg["seed"]).saturation_throughput
+        schemes.update(thpt_valiant=_round(measured["valiant"], 4),
+                       thpt_ugal=_round(measured["ugal"], 4),
+                       thpt_ksp=_round(measured["ksp"], 4))
+        try:
+            ub = a.mcf_throughput_ub(cfg["pattern"], groups=cfg["groups"])
+        except RuntimeError:     # scipy not installed: no ceiling, no gap
+            ub = None
+        if ub is not None and np.isfinite(ub) and ub > 0:
+            best = max(v for v in measured.values() if np.isfinite(v))
+            schemes.update(thpt_mcf_ub=_round(ub, 4),
+                           thpt_gap_to_opt=_round(best / ub, 4))
     return dict(
         diameter_bfs=r.diameter,
         diameter_lb=r.diameter_lb,
@@ -274,8 +381,7 @@ def _routing_values(a: Analysis, cfg: Dict[str, Any]) -> Dict[str, Any]:
         saturation_throughput=_round(t.saturation_throughput, 4),
         throughput_spectral=_round(
             spectral_throughput_estimate(a.n, a.rho2), 4),
-        thpt_valiant=None, thpt_ugal=None, thpt_ksp=None, thpt_mcf_ub=None,
-        thpt_gap_to_opt=None,
+        **schemes,
     )
 
 
@@ -284,7 +390,10 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
            dense_threshold: int = S.DENSE_THRESHOLD,
            lanczos_iters: int = 200, seed: int = 0,
            batch_lanczos: bool = True,
+           faults: Optional[Union[float, Dict[str, Any]]] = None,
            routing: Optional[Union[bool, Dict[str, Any]]] = None,
+           simulate: Optional[Union[bool, Dict[str, Any]]] = None,
+           workload: Optional[Any] = None,
            trace: Union[bool, str, pathlib.Path, None] = None,
            device: Union[str, torch.device, None] = DEFAULT_DEVICE
            ) -> SurveyResult:
@@ -298,6 +407,11 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
     ``"cuda"``; raises without a card unless ``device="cpu"``); same-shape
     groups share one batched solve.
 
+    ``faults``: a fault rate (``faults=0.05``) or config dict
+    (``faults=dict(rate=0.1, model="attack_spectral", samples=32)``) runs a
+    per-instance fault sweep at that rate on ``device`` and appends the
+    resilience columns of :data:`FAULT_COLUMNS` to every row.
+
     ``routing``: ``True`` or a config dict (``routing=dict(pattern=
     "adversarial")``) runs the measured path-level analysis on ``device`` —
     batched all-sources BFS + minimal-path ECMP link loads under one
@@ -308,22 +422,47 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
     then the certified lower bound ``diameter_lb``, ``avg_hops_ci`` its
     bootstrap CI, and traffic loads carry the n/S correction — the
     datacenter-scale path (``sample_fraction=1.0`` reproduces exact).
-    ``routing=dict(schemes=True)`` raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 8).
+    ``routing=dict(schemes=True)`` additionally evaluates the non-minimal /
+    adaptive routing schemes and the MCF optimal-routing ceiling, filling
+    ``thpt_valiant`` / ``thpt_ugal`` / ``thpt_ksp`` / ``thpt_mcf_ub`` /
+    ``thpt_gap_to_opt`` (config keys ``slack`` and ``groups`` tune the ksp
+    detour budget and MCF commodity grouping).
+
+    ``simulate``: ``True`` or a config dict (``simulate=dict(collective=
+    "all_reduce", algorithm="ring", payload=1 << 26, pattern="uniform")``)
+    *executes* the collective schedule and the uniform workload on every
+    instance's modeled links, appending :data:`SIM_COLUMNS` — simulated
+    completion time next to the NetworkModel lower bound, peak link
+    utilization, and the executed saturation throughput.
+
+    ``workload``: the reference's training-job plans; not ported yet —
+    raises ``NotImplementedError``.
 
     ``trace``: ``True`` records :mod:`repro_torch.obs` spans for the whole
     survey (build / batched-solve / per-row), readable afterwards via
     ``obs.trace_events()`` / ``obs.metrics_report()``; a path writes the
     Chrome-trace-event ``trace.json`` there on exit (perfetto-loadable).
     """
+    if workload is not None:
+        raise NotImplementedError(
+            "survey(workload=...) needs core/workloads, which is not ported "
+            "to repro_torch yet (ROADMAP Queue 1 item 2, core/workloads)")
     dev = resolve_device(device)
     cols = list(columns if columns is not None else DEFAULT_COLUMNS)
-    routing_cfg = None
+    fault_cfg = routing_cfg = sim_cfg = None
     extra = {"seconds"}
+    if faults is not None:
+        fault_cfg = _fault_config(faults)
+        cols += [c for c in FAULT_COLUMNS if c not in cols]
+        extra |= set(FAULT_COLUMNS)    # only meaningful with faults=...
     if routing not in (None, False):   # {} is a valid all-defaults config
         routing_cfg = _routing_config(routing)
         cols += [c for c in ROUTING_COLUMNS if c not in cols]
         extra |= set(ROUTING_COLUMNS)  # only meaningful with routing=...
+    if simulate not in (None, False):  # {} is a valid all-defaults config
+        sim_cfg = _sim_config(simulate)
+        cols += [c for c in SIM_COLUMNS if c not in cols]
+        extra |= set(SIM_COLUMNS)      # only meaningful with simulate=...
     unknown = [c for c in cols if c not in extra and c not in COLUMNS]
     if unknown:
         raise KeyError(f"unknown survey column(s) {unknown}; available: "
@@ -351,8 +490,12 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
                           family=a.family or a.name):
                 row = {c: COLUMNS[c](a) for c in cols
                        if c != "seconds" and c in COLUMNS}
+                if fault_cfg is not None:
+                    row.update(_fault_values(a, fault_cfg))
                 if routing_cfg is not None:
                     row.update(_routing_values(a, routing_cfg))
+                if sim_cfg is not None:
+                    row.update(_sim_values(a, sim_cfg))
             if "seconds" in cols:
                 # construction + (amortized) batched solve + lazy evaluation
                 row["seconds"] = round(

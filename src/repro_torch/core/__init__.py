@@ -1,13 +1,15 @@
 """repro_torch.core — topologies, their bounds and spectra, lifts and the
-Reduction Lemma, topology synthesis, and path-level routing / minimal-ECMP
-traffic (PyTorch port).
+Reduction Lemma, topology synthesis, path-level routing and traffic under
+every routing scheme, the collective cost model, the link-level simulator,
+fault sweeps and placement guarantees (PyTorch port).
 
-Not ported yet: the reference's faults, collectives, placement, simulate and
-workloads modules, and the non-minimal routing schemes of traffic.
+Not ported yet: the reference's workloads module.
 """
-from . import (bounds, graphs, lifts, properties, ramanujan, reduction,
-               routing, spectral, topologies, traffic)
+from . import (bounds, collectives, faults, graphs, lifts, placement,
+               properties, ramanujan, reduction, routing, simulate, spectral,
+               topologies, traffic)
 from .graphs import Topology
 
-__all__ = ["Topology", "bounds", "graphs", "lifts", "properties", "ramanujan",
-           "reduction", "routing", "spectral", "topologies", "traffic"]
+__all__ = ["Topology", "bounds", "collectives", "faults", "graphs", "lifts",
+           "placement", "properties", "ramanujan", "reduction", "routing",
+           "simulate", "spectral", "topologies", "traffic"]

@@ -48,3 +48,41 @@ SCALE_COLUMNS = [
     "path_diversity", "traffic_pattern", "max_link_load",
     "saturation_throughput", "throughput_spectral", "seconds",
 ]
+
+#: benchmarks/routing_schemes.py SPECS, EXPANDERS, DENSE_THRESHOLD and the
+#: MCF tolerances — the routing-scheme comparison (its SCHEMES are
+#: ``core.traffic.ROUTING_SCHEMES``)
+ROUTING_SCHEMES_SPECS = [
+    "lps(13,5)", "slimfly(13)", "xpander(256,6,0,0)", "torus(16,2)",
+    "hypercube(8)", "ccc(6)", "butterfly(3,4)", "petersen_torus(5,4)",
+    "dragonfly",
+]
+ROUTING_SCHEMES_EXPANDERS = ("lps(13,5)", "slimfly(13)", "xpander(256,6,0,0)")
+ROUTING_SCHEMES_DENSE_THRESHOLD = 1024
+MCF_TOL_REL = 1e-6
+MCF_TOL_ABS = 1e-9
+
+#: benchmarks/collective_sim.py SPECS, SPECTRAL_ORDER, PAYLOAD, THPT_TOL,
+#: EXTRA_ALGO_MAX_N and DENSE_THRESHOLD — the executed-collective bench
+COLLECTIVE_SIM_SPECS = [
+    "lps(13,5)", "slimfly(13)", "torus(16,2)", "hypercube(8)", "ccc(6)",
+    "butterfly(3,4)", "petersen_torus(5,4)", "dragonfly", "xpander(512,6)",
+]
+COLLECTIVE_SIM_SPECTRAL_ORDER = ["slimfly(13)", "hypercube(8)", "lps(13,5)",
+                                 "torus(16,2)", "ccc(6)"]
+COLLECTIVE_SIM_PAYLOAD = float(1 << 26)
+COLLECTIVE_SIM_THPT_TOL = 1e-3
+COLLECTIVE_SIM_EXTRA_ALGO_MAX_N = 512
+COLLECTIVE_SIM_DENSE_THRESHOLD = 1024
+
+#: benchmarks/fault_sweep.py SPECS, RATES, SAMPLES, ATTACK_RATE, SEED, ITERS
+FAULT_SWEEP_SPECS = [
+    "lps(13,5)", "slimfly(13)", "torus(16,2)", "hypercube(8)", "ccc(6)",
+    "butterfly(3,4)", "petersen_torus(5,4)", "dragonfly",
+    "random_regular(256,6,0)",
+]
+FAULT_SWEEP_RATES = (0.02, 0.05, 0.1, 0.2)
+FAULT_SWEEP_SAMPLES = 32
+FAULT_SWEEP_ATTACK_RATE = 0.1
+FAULT_SWEEP_SEED = 0
+FAULT_SWEEP_ITERS = 160

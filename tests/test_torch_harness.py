@@ -38,7 +38,9 @@ def load_reference() -> types.SimpleNamespace:
                  "repro.api.analysis", "repro.api.survey", "repro.core.graphs",
                  "repro.core.topologies", "repro.core.ramanujan",
                  "repro.core.properties", "repro.core.spectral",
-                 "repro.core.faults", "repro.core.synthesis",
+                 "repro.core.faults", "repro.core.collectives",
+                 "repro.core.simulate", "repro.core.placement",
+                 "repro.core.synthesis",
                  "repro.core.lifts", "repro.core.reduction",
                  "repro.core.routing", "repro.core.traffic",
                  "repro.kernels.spmv", "repro.configs", "repro.models.layers",
@@ -53,6 +55,26 @@ def load_reference() -> types.SimpleNamespace:
             mods[f"{kern}_{part}"] = importlib.import_module(
                 f"repro.kernels.{kern}.{part}")
     return types.SimpleNamespace(jax=jax, jnp=jax.numpy, **mods)
+
+
+def ref_topology(ref: types.SimpleNamespace, g):
+    """The reference's Topology over a port topology's own edge list, loops
+    and meta (so both frameworks see the same graph)."""
+    return ref.graphs.Topology(
+        g.name, g.n, g.edges.copy(),
+        loops=None if g.loops is None else g.loops.copy(), meta=dict(g.meta))
+
+
+def load_chip_smoke() -> types.ModuleType:
+    """``chip_smoke.py`` loaded as a module (its helpers and constants, not
+    its run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 @pytest.fixture(scope="module")
@@ -151,11 +173,15 @@ def test_reference_loader_runs_the_reference(ref):
 def test_port_spec_lists_equal_the_benchmarks(ref):
     """The port keeps its own copies of the benchmarks' spec lists (the
     benchmarks import the reference); they must not drift."""
+    import benchmarks.collective_sim as CSB
+    import benchmarks.fault_sweep as FS
     import benchmarks.lps_bench as LB
     import benchmarks.routing_eval as RE
+    import benchmarks.routing_schemes as RS
     import benchmarks.scale_bench as SB
     import benchmarks.table1 as T1
     from repro_torch import specs
+    from repro_torch.core import traffic
 
     assert specs.TABLE1_SPECS == T1.SPECS
     assert specs.LPS_SPECS == LB.SPECS
@@ -167,6 +193,23 @@ def test_port_spec_lists_equal_the_benchmarks(ref):
     assert specs.SCALE_SOURCES == SB.SCALE_SOURCES
     assert specs.DIAMETER_LB_FLOOR == SB.DIAMETER_LB_FLOOR
     assert specs.SCALE_COLUMNS == SB.COLUMNS
+    assert specs.ROUTING_SCHEMES_SPECS == RS.SPECS
+    assert specs.ROUTING_SCHEMES_EXPANDERS == RS.EXPANDERS
+    assert specs.ROUTING_SCHEMES_DENSE_THRESHOLD == RS.DENSE_THRESHOLD
+    assert traffic.ROUTING_SCHEMES == RS.SCHEMES
+    assert (specs.MCF_TOL_REL, specs.MCF_TOL_ABS) == (RS.MCF_TOL_REL,
+                                                      RS.MCF_TOL_ABS)
+    assert specs.COLLECTIVE_SIM_SPECS == CSB.SPECS
+    assert specs.COLLECTIVE_SIM_SPECTRAL_ORDER == CSB.SPECTRAL_ORDER
+    assert specs.COLLECTIVE_SIM_PAYLOAD == CSB.PAYLOAD
+    assert specs.COLLECTIVE_SIM_THPT_TOL == CSB.THPT_TOL
+    assert specs.COLLECTIVE_SIM_EXTRA_ALGO_MAX_N == CSB.EXTRA_ALGO_MAX_N
+    assert specs.COLLECTIVE_SIM_DENSE_THRESHOLD == CSB.DENSE_THRESHOLD
+    assert specs.FAULT_SWEEP_SPECS == FS.SPECS
+    assert (specs.FAULT_SWEEP_RATES, specs.FAULT_SWEEP_SAMPLES,
+            specs.FAULT_SWEEP_ATTACK_RATE, specs.FAULT_SWEEP_SEED,
+            specs.FAULT_SWEEP_ITERS) == (FS.RATES, FS.SAMPLES, FS.ATTACK_RATE,
+                                         FS.SEED, FS.ITERS)
 
 
 def test_obs_copy_keeps_the_reference_api(ref):

@@ -272,16 +272,22 @@ def test_analysis_caches_routing_and_traffic(ref):
 
 
 def test_schemes_not_ported_raise():
+    """The routing schemes and the MCF ceiling are ported now (their parity
+    is held in tests/test_torch_traffic_schemes.py): each runs here; what
+    still raises is an unknown scheme or column, and the training-workload
+    entry points, which name the ROADMAP item that ports them."""
     topo = PR.build("torus(6,2)")
     for scheme in ("valiant", "ugal", "ksp"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TR.evaluate_traffic(topo, scheme=scheme, device=CPU)
+        res = TR.evaluate_traffic(topo, scheme=scheme, device=CPU)
+        assert res.scheme == scheme and res.saturation_throughput > 0
     with pytest.raises(ValueError, match="unknown routing scheme"):
         TR.evaluate_traffic(topo, scheme="adaptive", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TR.mcf_throughput_ub(topo)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        survey(["torus(6,2)"], routing=dict(schemes=True), device=CPU)
+    assert np.isfinite(TR.mcf_throughput_ub(topo))
+    row = survey(["torus(6,2)"], routing=dict(schemes=True),
+                 device=CPU).rows[0]
+    assert row["thpt_mcf_ub"] is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
+        survey(["torus(6,2)"], workload="lm100m@dp=2", device=CPU)
     with pytest.raises(KeyError, match="unknown survey column"):
         survey(["torus(6,2)"], ["avg_hops"], device=CPU)
 

@@ -29,7 +29,7 @@ from repro_torch.core import spectral as PS
 from repro_torch.core import synthesis as SY
 from repro_torch.core import topologies as PT
 from repro_torch.kernels import spmv as KS
-from test_torch_harness import load_reference
+from test_torch_harness import load_chip_smoke, load_reference
 
 
 @pytest.fixture(scope="module")
@@ -307,22 +307,11 @@ def test_xpander_default_instance_ties_at_level_0(ref, monkeypatch):
         <= 1e-6
 
 
-def _load_chip_smoke():
-    import importlib.util
-
-    from test_torch_harness import ROOT
-
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
-
-
 def test_scale_tower_reference_winners_match_chip_smoke(ref, monkeypatch):
     """chip_smoke.py holds the scale row, xpander(65536,32,0,0), to the
     reference's: each lift level's winner, score and exact lambda_max, the
-    seed's lambda_2, and the row's rho2, routing and traffic figures.  This
+    seed's lambda_2, the row's rho2, routing and traffic figures, and its
+    Valiant, UGAL and KSP figures on the same sampled routing.  This
     recomputes all of them with the JAX reference on the CPU, the way the
     scale bench does (benchmarks/scale_bench.py)."""
     import scipy.sparse as sp
@@ -331,7 +320,7 @@ def test_scale_tower_reference_winners_match_chip_smoke(ref, monkeypatch):
     from repro_torch.specs import (SCALE_COLUMNS, SCALE_NODES, SCALE_SOURCES,
                                    SCALE_SPEC)
 
-    smoke = _load_chip_smoke()
+    smoke = load_chip_smoke()
     levels = []
     orig = ref.spectral.signed_extremes_batched
 
@@ -343,10 +332,11 @@ def test_scale_tower_reference_winners_match_chip_smoke(ref, monkeypatch):
         return lmax, lmin
 
     monkeypatch.setattr(ref.spectral, "signed_extremes_batched", probe)
+    frac = SCALE_SOURCES / SCALE_NODES
+    analysis = ref.analysis.Analysis(SCALE_SPEC)
     row = ref.survey.survey(
-        [SCALE_SPEC], SCALE_COLUMNS,
-        routing=dict(pattern="uniform",
-                     sample_fraction=SCALE_SOURCES / SCALE_NODES,
+        [analysis], SCALE_COLUMNS,
+        routing=dict(pattern="uniform", sample_fraction=frac,
                      seed=0)).rows[0]
     assert [lv[0] for lv in levels] == smoke.SCALE_REF_WINNERS
     np.testing.assert_allclose([lv[1] for lv in levels],
@@ -372,6 +362,13 @@ def test_scale_tower_reference_winners_match_chip_smoke(ref, monkeypatch):
     # the Bilu-Linial identity the smoke holds the card's row to
     assert abs(row["rho2"] - (32 - max(lam2[-2], *exact))) \
         <= smoke.SCALE_BILU_LINIAL_TOL
+    # the row's other routing schemes (the smoke's scale_schemes phase)
+    for scheme, want in smoke.SCALE_SCHEMES_REF.items():
+        t = analysis.traffic("uniform", scheme=scheme, slack=1,
+                             sample_fraction=frac, seed=0)
+        for key in ("max_link_load", "saturation_throughput", "avg_hops"):
+            assert getattr(t, key) == pytest.approx(want[key], rel=1e-12), \
+                (scheme, key)
 
 
 @pytest.mark.parametrize("seed,shape", [(0, (7,)), (1, (24, 4096)),
