@@ -14,6 +14,7 @@ __all__ = [
     "closed_forms", "families", "get", "parse_spec", "register",
     "Analysis", "survey", "SurveyResult", "DEFAULT_COLUMNS", "TABLE1_COLUMNS",
     "RAMANUJAN_COLUMNS", "ROUTING_COLUMNS", "SIM_COLUMNS", "FAULT_COLUMNS",
+    "WORKLOAD_COLUMNS",
 ]
 
 _LAZY = {
@@ -27,6 +28,7 @@ _LAZY = {
     "ROUTING_COLUMNS": ("repro_torch.api.survey", "ROUTING_COLUMNS"),
     "SIM_COLUMNS": ("repro_torch.api.survey", "SIM_COLUMNS"),
     "FAULT_COLUMNS": ("repro_torch.api.survey", "FAULT_COLUMNS"),
+    "WORKLOAD_COLUMNS": ("repro_torch.api.survey", "WORKLOAD_COLUMNS"),
 }
 
 

@@ -18,11 +18,9 @@ a designed family (``xpander``, ``rewired``) is synthesized on ``device``.
 Besides the main-path quantities, the session measures path structure
 (:meth:`routing`), link loads under every routing scheme (:meth:`traffic`)
 and their MCF ceiling (:meth:`mcf_throughput_ub`), the analytic collective
-model (:meth:`network_model`), executed schedules (:meth:`simulate`) and
-fault sweeps (:meth:`fault_sweep`), on ``device``.  The reference's
-training-workload runs (``simulate(workload=...)``,
-``fault_sweep(workload=...)``) are not ported yet and raise
-``NotImplementedError``.  Nothing is computed in ``__init__``; every
+model (:meth:`network_model`), executed schedules and training steps
+(:meth:`simulate`, ``workload=``) and fault sweeps (:meth:`fault_sweep`),
+on ``device``.  Nothing is computed in ``__init__``; every
 property memoizes on first access, so ``survey()`` can pre-populate (e.g.
 batched rho2 solves) without waste.
 """
@@ -42,6 +40,7 @@ from repro_torch.core import routing as R
 from repro_torch.core import simulate as SM
 from repro_torch.core import spectral as S
 from repro_torch.core import traffic as TR
+from repro_torch.core import workloads as W
 from repro_torch.core.graphs import Topology
 from repro_torch.core.ramanujan import ramanujan_bound
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -372,9 +371,10 @@ class Analysis:
                  root: int = 0,
                  scheme: str = "minimal",
                  slack: int = 1,
-                 telemetry: bool = False) -> "SM.SimulationResult":
-        """Execute a collective algorithm or traffic workload on the modeled
-        links (lazy, cached per configuration).
+                 telemetry: bool = False
+                 ) -> Union["SM.SimulationResult", "W.WorkloadResult"]:
+        """Execute a collective algorithm, traffic workload or training step
+        on the modeled links (lazy, cached per configuration).
 
         Lowers the named schedule (:data:`repro_torch.core.simulate.
         SIM_ALGORITHMS`) onto this topology's gather-table slots — reusing
@@ -394,30 +394,44 @@ class Analysis:
             pattern: traffic pattern for ``collective="traffic"`` (default
                 ``uniform``; ``adversarial`` reuses the cached Fiedler
                 vector).
-            workload, placement: the reference's training-job plans; not
-                ported yet — ``workload=`` raises ``NotImplementedError``.
+            workload: a training-job spec string
+                (``"kimi_k2_1t@dp=64,tp=8,ep=16"``), :class:`~repro_torch.
+                core.workloads.WorkloadSpec` or prebuilt ``CommPlan``:
+                execute its per-step communication plan instead
+                (:func:`repro_torch.core.workloads.simulate_workload`).
+            placement: logical-rank -> node strategy for ``workload=``
+                (``linear`` / ``round_robin`` / ``random``).
             link_bw / hop_latency: engine constants (defaults match
                 :class:`~repro_torch.core.collectives.NetworkModel`, so
                 ``network_model().validate(...)`` is apples-to-apples).
             root: broadcast root vertex.
             scheme: routing scheme for the link lowering — ``minimal``
                 (ECMP, default), ``valiant``, ``ugal`` or ``ksp``.  Applies
-                to traffic workloads and demand-lowered collectives.
+                to traffic workloads and demand-lowered collectives;
+                ``workload=`` runs always use minimal ECMP.
             slack: extra hops beyond shortest for ``scheme="ksp"``.
             telemetry: attach per-round engine telemetry
                 (:class:`repro_torch.core.simulate.RoundTelemetry`) as
-                ``result.telemetry``.
+                ``result.telemetry``.  Does not apply to ``workload=`` runs.
 
         Returns:
             :class:`repro_torch.core.simulate.SimulationResult` — simulated
-            times (seconds), per-link utilization, congestion accounting.
+            times (seconds), per-link utilization, congestion accounting —
+            or a :class:`repro_torch.core.workloads.WorkloadResult` when
+            ``workload=`` is given.
         """
-        if workload is not None:
-            raise NotImplementedError(
-                "Analysis.simulate(workload=...) needs core/workloads, which "
-                "is not ported to repro_torch yet (ROADMAP Queue 1 item 2, "
-                "core/workloads)")
         cache = self.__dict__.setdefault("_simulate", {})
+        if workload is not None:
+            plan = workload if isinstance(workload, W.CommPlan) else \
+                W.plan_workload(workload)
+            key = ("workload", plan.spec.spec, placement, link_bw,
+                   hop_latency)
+            if key not in cache:
+                cache[key] = W.simulate_workload(
+                    self.topo, plan, placement=placement,
+                    routing=self.routing(), link_bw=link_bw,
+                    hop_latency=hop_latency, device=self.device)
+            return cache[key]
         pay = tuple(np.atleast_1d(np.asarray(payload, dtype=np.float64)))
         # resolve defaults BEFORE keying so simulate("all_reduce") and
         # simulate("all_reduce", "ring") share one cache entry
@@ -475,8 +489,10 @@ class Analysis:
         executes a ring all-reduce of ``sim_payload`` bytes on every
         degraded sample (one engine pass per rate), appending simulated
         degraded collective times (``sim_allreduce_mean/max``,
-        ``sim_dropped_frac_mean``).  ``workload=`` is not ported yet and
-        raises ``NotImplementedError``."""
+        ``sim_dropped_frac_mean``).  ``workload=`` executes that training
+        step's communication plan on the first ``workload_samples`` degraded
+        samples of each rate (``workload_step_mean/max``,
+        ``workload_dropped_frac_mean``)."""
         fiedler = self.fiedler if model == "attack_spectral" else None
         return F.fault_sweep(
             self.topo, rates=rates, model=model, samples=samples,

@@ -7,10 +7,9 @@ batches same-shape Lanczos solves into a single batched call, and emits
 rows / CSV / JSON.  The main-path column sets (:data:`DEFAULT_COLUMNS`,
 :data:`TABLE1_COLUMNS`, :data:`RAMANUJAN_COLUMNS`) and the evaluation
 keywords are ported: ``routing=`` (:data:`ROUTING_COLUMNS`, every routing
-scheme and the MCF ceiling), ``simulate=`` (:data:`SIM_COLUMNS`) and
-``faults=`` (:data:`FAULT_COLUMNS`).  The reference's ``workload=`` keyword
-(training-step plans) is not ported yet and raises
-``NotImplementedError``.
+scheme and the MCF ceiling), ``simulate=`` (:data:`SIM_COLUMNS`),
+``faults=`` (:data:`FAULT_COLUMNS`) and ``workload=`` (training-step plans,
+:data:`WORKLOAD_COLUMNS`).
 """
 from __future__ import annotations
 
@@ -34,7 +33,7 @@ from .registry import REGISTRY
 
 __all__ = ["survey", "SurveyResult", "COLUMNS", "DEFAULT_COLUMNS",
            "TABLE1_COLUMNS", "RAMANUJAN_COLUMNS", "FAULT_COLUMNS",
-           "ROUTING_COLUMNS", "SIM_COLUMNS"]
+           "ROUTING_COLUMNS", "SIM_COLUMNS", "WORKLOAD_COLUMNS"]
 
 
 def _round(x: float, nd: int = 6) -> float:
@@ -140,6 +139,24 @@ SIM_COLUMNS = [
     "sim_collective", "sim_algorithm", "sim_rounds", "sim_time_ms",
     "model_time_ms", "sim_model_ratio", "sim_geq_model", "sim_util_max",
     "sim_thpt_uniform",
+]
+
+
+#: executed-training-step columns appended when ``survey(workload=...)``:
+#: the canonical workload spec, total simulated step time and its compute
+#: term (ms of the modeled cluster), per-phase-family link time
+#: (``comm_dp_ms`` gradient all-reduce, ``comm_tp_ms`` tensor-parallel
+#: all-gather/reduce-scatter, ``comm_moe_ms`` expert all-to-all,
+#: ``comm_total_ms`` their sum), the exposed-communication fraction of the
+#: step ((step - compute)/step, after DP/backward overlap), and the fraction
+#: of plan demand dropped between disconnected node pairs.  ``rho2`` rides
+#: along so one row pairs the spectral prediction with the executed step
+#: time (rank-correlate across rows with
+#: :func:`repro_torch.core.workloads.spectral_rank_correlation`).
+WORKLOAD_COLUMNS = [
+    "workload", "rho2", "step_time_ms", "compute_ms", "comm_dp_ms",
+    "comm_tp_ms", "comm_moe_ms", "comm_total_ms", "comm_exposed_frac",
+    "workload_dropped_frac",
 ]
 
 
@@ -385,6 +402,34 @@ def _routing_values(a: Analysis, cfg: Dict[str, Any]) -> Dict[str, Any]:
     )
 
 
+def _workload_config(workload: Any) -> Dict[str, Any]:
+    cfg = dict(workload) if isinstance(workload, dict) else \
+        dict(spec=workload)
+    if "spec" not in cfg:
+        raise KeyError("survey(workload=...) config dict needs a 'spec' key")
+    cfg.setdefault("placement", "linear")
+    cfg.setdefault("seed", 0)
+    return cfg
+
+
+def _workload_values(a: Analysis, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Executed training-step quantities for one survey row
+    (WORKLOAD_COLUMNS; ``rho2`` is filled by the generic column).  As in the
+    reference, the config's ``seed`` does not reach the placement."""
+    res = a.simulate(workload=cfg["spec"], placement=cfg["placement"])
+    return dict(
+        workload=res.plan.spec.spec,
+        step_time_ms=_round(res.step_seconds * 1e3),
+        compute_ms=_round(res.compute_seconds * 1e3),
+        comm_dp_ms=_round(res.dp_seconds * 1e3),
+        comm_tp_ms=_round(res.tp_seconds * 1e3),
+        comm_moe_ms=_round(res.moe_seconds * 1e3),
+        comm_total_ms=_round(res.comm_seconds * 1e3),
+        comm_exposed_frac=_round(res.exposed_comm_fraction, 4),
+        workload_dropped_frac=_round(res.dropped_frac, 4),
+    )
+
+
 def survey(specs: Sequence[Union[str, Topology, Analysis]],
            columns: Optional[Sequence[str]] = None, *,
            dense_threshold: int = S.DENSE_THRESHOLD,
@@ -435,21 +480,24 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
     completion time next to the NetworkModel lower bound, peak link
     utilization, and the executed saturation throughput.
 
-    ``workload``: the reference's training-job plans; not ported yet —
-    raises ``NotImplementedError``.
+    ``workload``: a training-job spec string
+    (``workload="kimi_k2_1t@dp=64,tp=8,ep=16"``, see
+    :func:`repro_torch.core.workloads.parse_workload`) or a config dict
+    (``workload=dict(spec="qwen2_7b@dp=32,tp=2", placement="random")``)
+    compiles the full per-step communication plan onto every instance and
+    *executes* it on ``device``, appending :data:`WORKLOAD_COLUMNS` —
+    simulated step time and its compute / per-phase-family communication
+    breakdown (ms of the modeled cluster) next to the rho2 the paper says
+    should predict it.
 
     ``trace``: ``True`` records :mod:`repro_torch.obs` spans for the whole
     survey (build / batched-solve / per-row), readable afterwards via
     ``obs.trace_events()`` / ``obs.metrics_report()``; a path writes the
     Chrome-trace-event ``trace.json`` there on exit (perfetto-loadable).
     """
-    if workload is not None:
-        raise NotImplementedError(
-            "survey(workload=...) needs core/workloads, which is not ported "
-            "to repro_torch yet (ROADMAP Queue 1 item 2, core/workloads)")
     dev = resolve_device(device)
     cols = list(columns if columns is not None else DEFAULT_COLUMNS)
-    fault_cfg = routing_cfg = sim_cfg = None
+    fault_cfg = routing_cfg = sim_cfg = workload_cfg = None
     extra = {"seconds"}
     if faults is not None:
         fault_cfg = _fault_config(faults)
@@ -463,6 +511,10 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
         sim_cfg = _sim_config(simulate)
         cols += [c for c in SIM_COLUMNS if c not in cols]
         extra |= set(SIM_COLUMNS)      # only meaningful with simulate=...
+    if workload is not None:
+        workload_cfg = _workload_config(workload)
+        cols += [c for c in WORKLOAD_COLUMNS if c not in cols]
+        extra |= set(WORKLOAD_COLUMNS) - set(COLUMNS)  # rho2 stays generic
     unknown = [c for c in cols if c not in extra and c not in COLUMNS]
     if unknown:
         raise KeyError(f"unknown survey column(s) {unknown}; available: "
@@ -496,6 +548,8 @@ def survey(specs: Sequence[Union[str, Topology, Analysis]],
                     row.update(_routing_values(a, routing_cfg))
                 if sim_cfg is not None:
                     row.update(_sim_values(a, sim_cfg))
+                if workload_cfg is not None:
+                    row.update(_workload_values(a, workload_cfg))
             if "seconds" in cols:
                 # construction + (amortized) batched solve + lazy evaluation
                 row["seconds"] = round(

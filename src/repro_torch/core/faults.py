@@ -359,17 +359,19 @@ def fault_sweep(topo: Topology, rates: Sequence[float] = (0.02, 0.05, 0.1, 0.2),
     between disconnected pairs is dropped) and ``sim_dropped_frac_mean``
     (fraction of the ring demand dropped — the disconnection signal).
 
-    ``workload=`` (the reference's training-step plans) is not ported yet
-    and raises ``NotImplementedError``; ``workload_samples`` is accepted for
-    the reference's signature.
+    ``workload=`` (a spec string, :class:`~repro_torch.core.workloads.
+    WorkloadSpec` or prebuilt :class:`~repro_torch.core.workloads.CommPlan`)
+    *executes* the full per-step training communication plan on the first
+    ``workload_samples`` degraded samples of each rate
+    (:func:`repro_torch.core.workloads.simulate_workload` with its default
+    linear placement; each sample needs its own all-sources BFS, hence the
+    small default), appending simulated degraded step times per row:
+    ``workload_step_mean/max`` (seconds of the modeled cluster),
+    ``workload_dropped_frac_mean`` (fraction of the plan's demand between
+    disconnected node pairs).
     """
     if model not in FAULT_MODELS:
         raise ValueError(f"unknown fault model {model!r} (known: {FAULT_MODELS})")
-    if workload is not None:
-        raise NotImplementedError(
-            "fault_sweep(workload=...) needs core/workloads, which is not "
-            "ported to repro_torch yet (ROADMAP Queue 1 item 2, "
-            "core/workloads)")
     dev = resolve_device(device)
     t0 = time.time()
     if rho2_healthy is None:
@@ -377,6 +379,11 @@ def fault_sweep(topo: Topology, rates: Sequence[float] = (0.02, 0.05, 0.1, 0.2),
     if model == "attack_spectral" and fiedler is None:
         fiedler = _fiedler(topo, dev)
     B_samples = 1 if model in DETERMINISTIC_MODELS else samples
+    plan = None
+    if workload is not None:
+        from .workloads import CommPlan, plan_workload
+        plan = workload if isinstance(workload, CommPlan) else \
+            plan_workload(workload)
     # impose the healthy table width so link-model rates stack identically
     healthy_width = max(int(np.bincount(topo.edges.reshape(-1),
                                         minlength=topo.n).max()), 1)
@@ -452,6 +459,16 @@ def fault_sweep(topo: Topology, rates: Sequence[float] = (0.02, 0.05, 0.1, 0.2),
             row["sim_allreduce_mean"] = float(sim["time_seconds"].mean())
             row["sim_allreduce_max"] = float(sim["time_seconds"].max())
             row["sim_dropped_frac_mean"] = float(sim["dropped_frac"].mean())
+        if plan is not None:
+            from .workloads import simulate_workload
+            wl = [simulate_workload(d, plan, device=dev)
+                  for d in degraded[:max(1, workload_samples)]]
+            row["workload_step_mean"] = float(
+                np.mean([w.step_seconds for w in wl]))
+            row["workload_step_max"] = float(
+                np.max([w.step_seconds for w in wl]))
+            row["workload_dropped_frac_mean"] = float(
+                np.mean([w.dropped_frac for w in wl]))
         rows.append(row)
     return FaultSweepResult(
         name=topo.name, model=model, n=topo.n, m=topo.m, samples=B_samples,

@@ -29,10 +29,10 @@ def place_ranks(n: int, world: int, strategy: str = "linear",
                 seed: int = 0) -> np.ndarray:
     """Map ``world`` logical job ranks onto ``n`` physical nodes.
 
-    The reference's workload compiler (``core/workloads``) uses this to pin a
-    training job's rank grid to a topology; traffic between ranks that land
-    on the same node is free.  Ranks are spread as evenly as possible: node
-    loads differ by at most one for every strategy.
+    The workload compiler (:mod:`repro_torch.core.workloads`) uses this to
+    pin a training job's rank grid to a topology; traffic between ranks that
+    land on the same node is free.  Ranks are spread as evenly as possible:
+    node loads differ by at most one for every strategy.
 
     Strategies:
       * ``"linear"`` — rank ``r`` -> node ``r * n // world``: consecutive

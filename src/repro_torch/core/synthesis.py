@@ -32,18 +32,18 @@ topologies like surveyed ones.  Every entry point takes ``device=``
 
 Randomness.  Numpy draws are the reference's own (``default_rng(seed)``:
 the candidate signings, the swap proposals), so they are bit-identical.  The
-reference's annealing draws come from ``jax.random``, which torch cannot
-reproduce; the private :func:`_anneal_signings` therefore takes its draws
-as tensors — start vectors (B, n), flip indices (steps, B), uniforms
-(steps, B) — and the public :func:`best_signing_batched` draws them from a
-``torch.Generator`` seeded with ``seed``.  A test hands both sides jax's
-exact draws and holds the refined signings equal.  The exact scores are
-90-step float32 Lanczos estimates, whose error (up to ~1e-2 at n = 32768)
-exceeds some levels' gaps between candidates, so the winner depends on the
-start vectors; those are the reference's own draws on every device
-(:func:`repro_torch.core.spectral._start_vectors`), and a level's winner
-differs from the reference's only where two scores lie within float32
-rounding of each other.
+reference's annealing draws come from ``jax.random``; the private
+:func:`_anneal_signings` takes its draws as tensors — start vectors (B, n),
+flip indices (steps, B), uniforms (steps, B) — and :func:`_anneal_draws`
+makes the reference's own draws without JAX (:mod:`.threefry`: the same
+``split`` chain, ``randint`` and ``uniform`` bit for bit, the start
+vectors to a few float32 ulps), on the host, for every device.  The exact
+scores are 90-step float32 Lanczos estimates, whose error (up to ~1e-2 at
+n = 32768) exceeds some levels' gaps between candidates, so the winner
+depends on the start vectors; those are the reference's own draws on every
+device (:func:`repro_torch.core.spectral._start_vectors`), and a level's
+winner differs from the reference's only where two scores lie within
+float32 rounding of each other.
 """
 from __future__ import annotations
 
@@ -61,6 +61,7 @@ from ..api.registry import register
 from ..kernels import spmv as KS
 from . import bounds as B
 from . import spectral as S
+from . import threefry as TF
 from .graphs import Topology
 from .lifts import two_lift
 
@@ -202,16 +203,24 @@ def _anneal_signings(table: torch.Tensor, edge_slot: torch.Tensor,
 def _anneal_draws(seed: int, batch: int, n: int, m: int, steps: int,
                   dev: torch.device
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The annealing's draws from a ``torch.Generator`` on ``dev`` seeded
-    with ``seed``: start vectors (batch, n) float32, flip indices
-    (steps, batch) in [0, m), uniforms (steps, batch) float32."""
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    v0s = torch.randn((batch, n), generator=gen, dtype=torch.float32,
-                      device=dev)
-    flips = torch.randint(0, m, (steps, batch), generator=gen, device=dev)
-    uniforms = torch.rand((steps, batch), generator=gen, dtype=torch.float32,
-                          device=dev)
-    return v0s, flips, uniforms
+    """The reference annealer's own ``jax.random`` draws for ``seed``, in
+    its order (:mod:`.threefry`): ``key, k0 = split(PRNGKey(seed))``, start
+    vectors ``normal(k0, (batch, n))``, then per step ``key, k1, k2 =
+    split(key, 3)``, flip indices ``randint(k1, (batch,), 0, m)`` and
+    uniforms ``uniform(k2, (batch,))``.  Drawn on the host and moved to
+    ``dev`` once, so every device anneals from the same numbers: start
+    vectors (batch, n) float32, flips (steps, batch) int64, uniforms
+    (steps, batch) float32."""
+    key, k0 = TF.split(TF.prng_key(seed))
+    v0s = TF.normal(k0, (batch, n), torch.device("cpu"))
+    flips = np.empty((steps, batch), dtype=np.int64)
+    uniforms = np.empty((steps, batch), dtype=np.float32)
+    for t in range(steps):
+        key, k1, k2 = TF.split(key, 3)
+        flips[t] = TF.randint(k1, (batch,), 0, m)
+        uniforms[t] = TF.uniform(k2, (batch,))
+    return (v0s.to(dev), torch.from_numpy(flips).to(dev),
+            torch.from_numpy(uniforms).to(dev))
 
 
 def best_signing_batched(topo: Topology, batch: int = DEFAULT_BATCH,
@@ -223,7 +232,8 @@ def best_signing_batched(topo: Topology, batch: int = DEFAULT_BATCH,
     """Best of ``batch`` random signings after SA flip refinement.
 
     The candidates are numpy draws (``default_rng(seed)``, as the
-    reference's); the annealing draws come from :func:`_anneal_draws`.  Refined ∪ initial candidates are
+    reference's); the annealing draws are the reference's jax.random
+    draws (:func:`_anneal_draws`).  Refined ∪ initial candidates are
     scored together by one :func:`repro_torch.core.spectral.
     signed_extremes_batched` call, so refinement can only help.  Returns
     (signing (m,) float ±1, lambda_max(A_s), signed spectral radius) of the

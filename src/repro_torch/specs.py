@@ -1,9 +1,8 @@
 """The port's own copies of the reference benchmarks' spec lists.
 
 The port may not import the reference's ``benchmarks`` package (it imports
-the JAX stack), so the lists its checks run over live here; a test holds them
-equal to ``benchmarks/table1.py``, ``benchmarks/lps_bench.py``,
-``benchmarks/routing_eval.py`` and ``benchmarks/scale_bench.py``.
+the JAX stack), so the lists its checks run over live here; tests hold them
+equal to the benchmark modules named beside each list.
 """
 
 #: benchmarks/table1.py SPECS — the paper's Table 1 instances
@@ -86,3 +85,13 @@ FAULT_SWEEP_SAMPLES = 32
 FAULT_SWEEP_ATTACK_RATE = 0.1
 FAULT_SWEEP_SEED = 0
 FAULT_SWEEP_ITERS = 160
+
+#: benchmarks/workload_sim.py WORKLOADS and PLACEMENT — the executed
+#: training-step bench (its families are ``COLLECTIVE_SIM_SPECS``): three
+#: model configs at world = 64 ranks under uniform-random placement
+WORKLOAD_SIM_WORKLOADS = [
+    "kimi_k2_1t@dp=16,tp=4,ep=8",
+    "qwen2_7b@dp=16,tp=4",
+    "grok_1_314b@dp=16,tp=4,ep=8",
+]
+WORKLOAD_SIM_PLACEMENT = "random"

@@ -284,10 +284,16 @@ def test_fault_sweep_single_batched_solve_per_rate():
 
 
 def test_fault_sweep_rejects_unknown_model_and_workload():
+    """An unknown fault model or workload spec raises (``workload=`` itself
+    is ported: tests/test_torch_workloads.py holds its rows)."""
     with pytest.raises(ValueError, match="unknown fault model"):
         F.fault_sweep(T.petersen(), model="meteor", device=CPU)
-    with pytest.raises(NotImplementedError, match="core/workloads"):
-        F.fault_sweep(T.petersen(), workload="lm100m@dp=2", device=CPU)
+    with pytest.raises(ValueError, match="unknown model"):
+        F.fault_sweep(T.petersen(), workload="lm9000@dp=2", device=CPU)
+    row = F.fault_sweep(T.petersen(), rates=(0.1,), samples=2,
+                        workload="lm100m@dp=2", workload_samples=1,
+                        device=CPU).rows[0]
+    assert row["workload_step_max"] >= row["workload_step_mean"] > 0
 
 
 # --------------------------------------------------------------------------

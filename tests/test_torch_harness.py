@@ -115,6 +115,8 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import repro_torch.api.survey, repro_torch.api.analysis\n"
+        "import repro_torch.core.workloads, repro_torch.parallel.sharding\n"
+        "import repro_torch.launch.hlo_analysis, repro_torch.topology_report\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'networkx')]\n"
         "assert not bad, bad\n"

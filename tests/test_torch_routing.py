@@ -272,10 +272,11 @@ def test_analysis_caches_routing_and_traffic(ref):
 
 
 def test_schemes_not_ported_raise():
-    """The routing schemes and the MCF ceiling are ported now (their parity
-    is held in tests/test_torch_traffic_schemes.py): each runs here; what
-    still raises is an unknown scheme or column, and the training-workload
-    entry points, which name the ROADMAP item that ports them."""
+    """The routing schemes, the MCF ceiling and the training-workload
+    columns are ported now (their parity is held in
+    tests/test_torch_traffic_schemes.py and tests/test_torch_workloads.py):
+    each runs here; what still raises is an unknown scheme, column or
+    workload spec."""
     topo = PR.build("torus(6,2)")
     for scheme in ("valiant", "ugal", "ksp"):
         res = TR.evaluate_traffic(topo, scheme=scheme, device=CPU)
@@ -286,8 +287,12 @@ def test_schemes_not_ported_raise():
     row = survey(["torus(6,2)"], routing=dict(schemes=True),
                  device=CPU).rows[0]
     assert row["thpt_mcf_ub"] is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        survey(["torus(6,2)"], workload="lm100m@dp=2", device=CPU)
+    row = survey(["torus(6,2)"], workload="lm100m@dp=2", device=CPU).rows[0]
+    assert row["workload"] == "lm100m@dp=2,tp=1,ep=1"
+    assert row["step_time_ms"] >= row["compute_ms"] > 0
+    assert row["comm_dp_ms"] > 0
+    with pytest.raises(ValueError, match="unknown model"):
+        survey(["torus(6,2)"], workload="lm9000@dp=2", device=CPU)
     with pytest.raises(KeyError, match="unknown survey column"):
         survey(["torus(6,2)"], ["avg_hops"], device=CPU)
 

@@ -311,11 +311,18 @@ def test_traffic_sim_rejects_pattern_on_collectives():
 
 
 def test_simulate_workload_not_ported():
+    """``workload=`` was the one simulate branch left unported; it runs now
+    (its parity is held in tests/test_torch_workloads.py), through
+    Analysis.simulate and the survey alike, and a bad spec raises."""
     a = Analysis("cycle(6)", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        a.simulate(workload="lm100m@dp=2")
-    with pytest.raises(NotImplementedError, match="core/workloads"):
-        survey(["petersen"], workload="lm100m@dp=2", device=CPU)
+    res = a.simulate(workload="lm100m@dp=2")
+    assert res.plan.spec.spec == "lm100m@dp=2,tp=1,ep=1" and res.n == 6
+    row = survey(["cycle(6)"], ["spec"], workload="lm100m@dp=2",
+                 device=CPU).rows[0]
+    assert row["step_time_ms"] == pytest.approx(res.step_seconds * 1e3,
+                                                abs=1e-6)
+    with pytest.raises(ValueError, match="unknown model"):
+        a.simulate(workload="lm9000@dp=2")
 
 
 # --------------------------------------------------------------------------

@@ -227,10 +227,14 @@ def _dense_signed_lmax(table, signs):
 @pytest.mark.parametrize("spec,draws", [("xpander(256,6,0,0)", "numpy"),
                                         ("rewired(40,4,0,80)", "numpy"),
                                         ("xpander(64,4,1,160)", "jax"),
-                                        ("xpander(128,6,0,240)", "jax")])
+                                        ("xpander(128,6,0,240)", "jax"),
+                                        ("xpander(64,4,1,160)", "threefry"),
+                                        ("xpander(128,6,0,240)", "threefry")])
 def test_synthesized_family_matches_reference(ref, monkeypatch, spec, draws):
     """The whole design path: budget 0 and rewiring share every draw; the
-    annealed towers get the reference's jax draws.  Each lift level picks
+    annealed towers get the reference's jax draws, handed over by
+    :func:`jax_draws` ("jax") or made by the port itself ("threefry", no
+    monkeypatch: :func:`synthesis._anneal_draws`).  Each lift level picks
     the reference's candidate unless two candidates tie exactly (equal
     lambda_max in dense float64), where float32 rounding decides.  Without
     such a tie the towers are equal edge for edge, and rho2 (the dense
