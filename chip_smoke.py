@@ -49,7 +49,15 @@ drives every main path:
   link-fault survival curves and the two attacks, one batched Laplacian
   Lanczos solve a rate, and one sweep that executes a ring all-reduce on
   every degraded sample), held to the committed baselines under
-  ``benchmarks/baselines`` and their correctness flags.
+  ``benchmarks/baselines`` and their correctness flags;
+* slice 10, LM training: qwen2-7b at its published widths, 12 of its 28
+  layers, one 4096-token sequence, bf16 with f32 AdamW state and remat,
+  6 steps through ``repro_torch.runtime.trainer.Trainer`` (K5 and K3
+  forward, their plain versions' backward; exact launch counts), with
+  step 1's loss and every gradient held against the plain path, the step
+  time, MFU, peak memory and a profiled step's split; then the reduced
+  jamba and qwen2 trained on the card against the CPU, a restart from a
+  checkpoint against the straight run, and int8 gradient compression.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -326,6 +334,40 @@ QWEN_REQUESTS, QWEN_PROMPT, QWEN_NEW = 4, 1024, 8
 #: MoE routing is replayed)
 QWEN_LAYERS = 28
 QWEN_LOGITS_REL_TOL = SERVE_MIXER_REL_TOL * math.sqrt(QWEN_LAYERS)
+
+#: the training phase (slice 10): qwen2-7b at its published widths, 12 of
+#: its 28 layers, one sequence of the reference's train_4k length (4096),
+#: bf16 parameters and compute, f32 AdamW state, remat, loss_chunk 512;
+#: 6 steps through Trainer.run without checkpoints
+TRAIN_ARCH = "qwen2-7b"
+TRAIN_LAYERS = 12
+TRAIN_BATCH = 1
+TRAIN_STEPS = 6
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=6)
+#: step 1's loss through the kernels against the same step through the
+#: plain versions, relative
+TRAIN_LOSS_REL_TOL = 1e-3
+#: each parameter leaf's gradient through the kernels against the plain
+#: path's, relative L2 (bf16).  A leaf's gradient runs back through every
+#: kernel output downstream of it: 2L + 1 K5 and L K3 outputs in the
+#: forward, and as many again from the remat recompute the backward is
+#: evaluated at.  Each output is within SERVE_MIXER_REL_TOL (1e-2; two
+#: bf16 roundings) of its plain version, independently between call sites,
+#: so the bound is 1e-2 * sqrt(2 (3L + 1)) = 0.086 at L = 12, rounded up to
+#: 0.1; the phase reports beside it what one bf16 ulp on every input
+#: embedding does to the same gradients (the scale of bf16 rounding in this
+#: random-weight model).  A dropped gradient reads 1.0.
+TRAIN_GRAD_REL_TOL = 0.1
+#: train_reduced: the reduced configs (f32) trained 4 steps on the card and
+#: on the CPU from one initial state: each loss within 1e-3 and each grad
+#: norm within 1e-3 relative (the card's kernels are within 3e-5 of their
+#: plain versions, and Adam turns near-zero gradient entries' rounding into
+#: steps of up to lr = 1e-3, which move the next losses by ~1e-4 at most);
+#: the restart check holds the reference's own 1e-4
+TRAIN_REDUCED_TOL = 1e-3
+RESTART_TOL = 1e-4
+#: profiler ranges the port's train step and kernel backward run in
+RANGE_PREFIX = "repro_torch/"
 
 #: enough copies of a case's operands that one timed launch finds the
 #: previous copies' bytes evicted from the 50 MB L2, as a Lanczos step does
@@ -1221,8 +1263,10 @@ def _lm_case(torch, name, form, kernel, plain, args, tol, nbytes, flops,
 
 
 def lm_kernel_checks(torch, dev) -> list:
-    """K5, K3 and K4 at the serving path's shapes (bf16 and f32) plus ragged
-    cases; the first row of each kernel is its serving-path case."""
+    """K5, K3 and K4 at the serving path's shapes (bf16 and f32), the
+    training phases' shapes (qwen2-7b's S 4096 attention; the reduced
+    configs' f32 forms) and ragged cases; the first row of each kernel is
+    its serving-path case."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as K3
@@ -1247,7 +1291,8 @@ def lm_kernel_checks(torch, dev) -> list:
                              ("qwen decode (4, 3584) bf16", (4, 3584), bf),
                              ("prefill (4096, 4096) f32", (4096, 4096), f32),
                              ("ragged rows (1001, 1024) bf16", (1001, 1024), bf),
-                             ("ragged width (37, 4095) f32", (37, 4095), f32)):
+                             ("ragged width (37, 4095) f32", (37, 4095), f32),
+                             ("reduced train (128, 64) f32", (128, 64), f32)):
         x, w = randn(R, D, dtype=dt), (randn(D) + 1).to(dt)
         es = x.element_size()
         rows.append(_lm_case(
@@ -1287,7 +1332,9 @@ def lm_kernel_checks(torch, dev) -> list:
              f32),
             ("qwen prefill causal bf16", (4, 1024, 28, 4, 128), True, bf),
             ("gemma-2b prefill causal bf16", (4, 1024, 8, 1, 256), True, bf),
-            ("hd 64 non-causal bf16", (4, 1024, 16, 2, 64), False, bf)):
+            ("hd 64 non-causal bf16", (4, 1024, 16, 2, 64), False, bf),
+            ("qwen train causal bf16", (1, 4096, 28, 4, 128), True, bf),
+            ("reduced train causal f32", (4, 32, 4, 2, 16), True, f32)):
         q, k, v = randn(B, S, H, hd, dtype=dt), randn(B, S, Kv, hd, dtype=dt), \
             randn(B, S, Kv, hd, dtype=dt)
         es = q.element_size()
@@ -1333,7 +1380,8 @@ def lm_kernel_checks(torch, dev) -> list:
             ("prefill general A bf16", (4, 1024, 8192, 16), bf, True),
             ("B 1 prefill bf16", (1, 1024, 8192, 16), bf, False),
             ("N 5 ragged L=1000 Di=4099 bf16", (2, 1000, 4099, 5), bf, True),
-            ("L 1 bf16", (4, 1, 8192, 16), bf, False)):
+            ("L 1 bf16", (4, 1, 8192, 16), bf, False),
+            ("reduced jamba train f32", (4, 32, 128, 8), f32, False)):
         x = randn(B, L, Di, dtype=dt)
         delta = F.softplus(randn(B, L, Di) * 0.5 - 1.0).to(dt)
         if general_a:      # -exp(U(-1, 2)) per (d, n): no structure in n
@@ -1629,8 +1677,8 @@ def _profiled(torch, fn):
                              "mamba_scan_ms", "matmul_ms", "other_ms"), 0.0)
     kernels = 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+        if e.device_type != DeviceType.CUDA or e.name.startswith(RANGE_PREFIX):
+            continue             # (the port's profiler ranges are no kernels)
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = e.cuda_time_total
@@ -1844,6 +1892,383 @@ def lm_grad_check(torch, dev) -> dict:
         t.requires_grad_(False)
     return dict(config=cfg.name, dtype=cfg.compute_dtype, batch=B, seq=S,
                 launches=launches, rel_tol=GRAD_REL_TOL, grads=rows)
+
+
+# --------------------------------------------------------------------------
+# phase 10c-d: LM training (slice 10)
+# --------------------------------------------------------------------------
+
+def train_launches_per_step(cfg) -> dict:
+    """K5, K3 and K4 launches of one train step, derived from the config:
+    K5 for every norm1 / norm2 and the final norm, K3 for every attention
+    layer without a window, K4 for every Mamba layer; with ``cfg.remat``
+    the backward's recompute launches each block's kernels again (the final
+    norm is outside the checkpointed repeats)."""
+    from repro_torch.models import model as M
+
+    R = cfg.n_repeats
+    blocks = M.param_shapes(cfg)["blocks"]
+    norms = R * sum(("norm1" in b) + ("norm2" in b) for b in blocks)
+    attn = R * sum(s.kind == "attn" and s.window is None for s in cfg.pattern)
+    mamba = R * sum(s.kind == "mamba" for s in cfg.pattern)
+    again = 2 if cfg.remat else 1
+    return {"rmsnorm": norms * again + 1, "flash_attention": attn * again,
+            "mamba_scan": mamba * again}
+
+
+def train_model_flops(cfg, B: int, S: int) -> float:
+    """Model FLOPs of one train step of a dense attention config (remat's
+    recompute not counted): 6 * tokens * the matrix-product parameters
+    (projections, MLP, head; the embedding is a gather), plus causal
+    attention's 4 * B * H * hd * S (S + 1) / 2 a layer forward, times 3 for
+    forward and backward."""
+    assert all(s.kind == "attn" and not s.moe for s in cfg.pattern), cfg.name
+    D, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    per_layer = D * (H + 2 * Kv) * hd + H * hd * D + 3 * D * cfg.d_ff
+    mm = cfg.n_layers * per_layer + D * cfg.vocab_size
+    pairs = S * (S + 1) // 2 if cfg.causal else S * S
+    return 6.0 * B * S * mm + 3 * 4.0 * B * H * hd * pairs * cfg.n_layers
+
+
+def _leaf_paths(tree, prefix=""):
+    """Leaf paths in ``repro_torch.tree`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix.lstrip("/")
+
+
+def _rel32(a, b) -> float:
+    """Relative L2 of ``a`` to ``b``, in f32 (full-width leaves are too
+    large to double)."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _range_classes(e, out: dict) -> None:
+    """Add the device ms of every kernel launched under profiler event
+    ``e`` (its CPU descendants), by kernel class, to ``out``."""
+    for k in getattr(e, "kernels", ()):
+        key = _classify_kernel(k.name)
+        out[key] = out.get(key, 0.0) + k.duration / 1e3
+    for c in e.cpu_children:
+        _range_classes(c, out)
+
+
+def _train_split(torch, fn) -> tuple:
+    """``fn()`` (one train step) under torch.profiler: device ms by kernel
+    class, the step's forward / backward / optimizer device ms (the port's
+    ``repro_torch/train_step/*`` ranges; the backward runs on autograd's
+    device thread, so it is the busy time the other two leave), the
+    stop-gap backward's device ms per kernel (``repro_torch/plain_backward/
+    *`` ranges) with its own class split, and the idle share of the
+    host-clock wall.  ``not measured`` where the trace shows no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes = dict.fromkeys(("rmsnorm_ms", "flash_attention_ms",
+                             "mamba_scan_ms", "matmul_ms", "other_ms"), 0.0)
+    ranges, inside, kernels = {}, {}, 0
+    for e in prof.events():
+        if e.name.startswith(RANGE_PREFIX):
+            if e.device_type == DeviceType.CPU:
+                key = e.name[len(RANGE_PREFIX):]
+                ranges[key] = ranges.get(key, 0.0) + e.device_time_total / 1e3
+                if key.startswith("plain_backward/"):
+                    _range_classes(e, inside.setdefault(key, {}))
+            continue             # the ranges' own device-side annotations
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kernels += 1
+        classes[_classify_kernel(e.name)] += e.device_time_total / 1e3
+    busy = sum(classes.values())
+    row = dict(wall_ms=wall * 1e3, device_kernels=kernels)
+    if busy <= 0:
+        row.update({k: "not measured" for k in classes},
+                   device_busy_ms="not measured",
+                   device_idle_share="not measured")
+        return out, row
+    fwd = ranges.get("train_step/forward")
+    opt = ranges.get("train_step/optimizer")
+    row.update(classes, device_busy_ms=busy,
+               device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
+               shares={k[:-3]: v / busy for k, v in classes.items()},
+               forward_ms=fwd if fwd else "not measured",
+               optimizer_ms=opt if opt else "not measured",
+               backward_ms=(busy - fwd - opt) if fwd and opt
+               else "not measured",
+               plain_backward_ms={k.split("/", 1)[1]: v
+                                  for k, v in ranges.items()
+                                  if k.startswith("plain_backward/")},
+               plain_backward_classes={k.split("/", 1)[1]: v
+                                       for k, v in inside.items()})
+    pb = sum(row["plain_backward_ms"].values())
+    row["plain_backward_share"] = pb / busy
+    return out, row
+
+
+def train_phase(torch, dev) -> dict:
+    """qwen2-7b at its published widths, TRAIN_LAYERS of its 28 layers, one
+    4096-token sequence, bf16 with f32 AdamW state and remat, trained
+    TRAIN_STEPS steps through ``Trainer.run``.  Before it, step 1's loss and
+    every leaf's gradient through the kernels are held against the same
+    step through the plain versions (and one bf16 ulp on the input
+    embeddings is measured beside them); the run's K5 / K3 launches must
+    equal the config's count; then one profiled step."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.serve import serving_config
+
+    cfg = serving_config(TRAIN_ARCH, layers=TRAIN_LAYERS)
+    S = SHAPES["train_4k"].seq_len
+    assert (cfg.remat, cfg.loss_chunk, cfg.param_dtype, cfg.compute_dtype) \
+        == (True, 512, "bfloat16", "bfloat16"), cfg
+    per_step = train_launches_per_step(cfg)
+    data = DataConfig(global_batch=TRAIN_BATCH, seq_len=S,
+                      vocab_size=cfg.vocab_size, seed=0)
+    counters = _lm_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- step 1 through the kernels against the plain versions ----------
+    t0 = time.time()
+    params = M.init_params(cfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in TR.leaves(params))
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in synthetic_batch(data, 0).items()}
+    flat, names = TR.leaves(params), list(_leaf_paths(params))
+
+    def grads(b):
+        for p in flat:
+            p.requires_grad_(True)
+        try:
+            total, m = M.loss_fn(params, b, cfg)
+            g = torch.autograd.grad(total, flat, allow_unused=True)
+        finally:
+            for p in flat:
+                p.requires_grad_(False)
+        return float(m["loss"].detach()), g
+
+    for mod in counters.values():
+        mod.reset_launches()
+    loss_k, g_k = grads(batch)
+    check_launches = {n: mod.launches() for n, mod in counters.items()}
+    assert check_launches == per_step, (check_launches, per_step)
+    with _plain_kernels():
+        loss_p, g_p = grads(batch)
+    leaves = {}
+    for name, a, b in zip(names, g_k, g_p):
+        assert a is not None and torch.isfinite(a).all(), name
+        leaves[name] = dict(rel_l2=_rel32(a, b),
+                            plain_norm=float(b.float().norm()))
+    del g_k
+    x = M._embed_in(params, batch, cfg).detach()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    sign = torch.randint(0, 2, x.shape, generator=gen, device=dev) * 2 - 1
+    x_ulp = (x.float() * (1 + sign * 2.0 ** -8)).to(x.dtype)
+    del x, sign
+    with _plain_kernels():
+        loss_u, g_u = grads({"embeds": x_ulp, "labels": batch["labels"]})
+    for name, a, b in zip(names, g_u, g_p):
+        leaves[name]["one_ulp_input_rel_l2"] = (None if a is None
+                                                else _rel32(a, b))
+    del g_u, g_p, x_ulp, flat, params
+    torch.cuda.synchronize()
+    check_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    check_s = time.time() - t0
+    loss_rel = abs(loss_k / loss_p - 1)
+    worst = max(leaves, key=lambda n: leaves[n]["rel_l2"])
+    ulps = [v["one_ulp_input_rel_l2"] for v in leaves.values()
+            if v["one_ulp_input_rel_l2"] is not None]
+    assert loss_rel <= TRAIN_LOSS_REL_TOL, (loss_k, loss_p)
+    for name, v in leaves.items():
+        assert v["plain_norm"] > 0, (name, "plain gradient is zero")
+        assert v["rel_l2"] <= TRAIN_GRAD_REL_TOL, (name, v)
+
+    # -- the trainer: TRAIN_STEPS steps through Trainer.run -------------
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, AdamWConfig(**TRAIN_OPT), data,
+                 TrainerConfig(total_steps=TRAIN_STEPS, ckpt_dir=None,
+                               seed=0), device=dev)
+    t0 = time.time()
+    tr.init_or_restore()
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    for mod in counters.values():
+        mod.reset_launches()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        tr.run(steps=1)             # float() of each metric waits for the card
+        step_s.append(time.perf_counter() - t)
+    launches = {n: mod.launches() for n, mod in counters.items()}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    assert launches == want, (launches, want)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = list(tr.history)
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    assert all(math.isfinite(v) for v in losses + gnorms), hist
+    assert abs(losses[0] - math.log(cfg.vocab_size)) < 2.0, losses
+    assert losses[-1] < losses[0] + 1.0, losses
+    steady = sorted(step_s[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    flops = train_model_flops(cfg, TRAIN_BATCH, S)
+    _, split = _train_split(torch, lambda: tr.run(steps=1))
+    del tr
+    torch.cuda.empty_cache()
+    return dict(
+        arch=TRAIN_ARCH, config=cfg.name, n_layers=cfg.n_layers,
+        reduced=[f"layers {cfg.n_layers} of {QWEN_LAYERS}",
+                 f"global batch {SHAPES['train_4k'].global_batch} -> "
+                 f"{TRAIN_BATCH} sequence"],
+        params=n_params, dtype=cfg.compute_dtype, seq=S, batch=TRAIN_BATCH,
+        remat=cfg.remat, loss_chunk=cfg.loss_chunk, opt=TRAIN_OPT,
+        seed=0, check_seconds=check_s, check_peak_memory_gb=check_peak_gb,
+        step1_loss_kernels=loss_k, step1_loss_plain=loss_p,
+        step1_loss_rel=loss_rel, loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        one_ulp_input_loss=loss_u,
+        grad_rel_tol=TRAIN_GRAD_REL_TOL, worst_leaf=worst,
+        worst_grad_rel_l2=leaves[worst]["rel_l2"],
+        one_ulp_input_grad_rel_l2_max=max(ulps),
+        one_ulp_input_grad_rel_l2_median=sorted(ulps)[len(ulps) // 2],
+        leaves=leaves, init_seconds=init_s,
+        losses=losses, grad_norms=gnorms, lrs=[h["lr"] for h in hist],
+        trainer_step1_vs_check=losses[0] - loss_k,
+        step_seconds=step_s, step_ms=step_ms,
+        step_ms_note=f"median of steps 2-{TRAIN_STEPS}",
+        tokens_per_s=TRAIN_BATCH * S / (step_ms / 1e3),
+        model_flops=flops, mfu=flops / (step_ms / 1e3)
+        / TENSOR_FLOPS["bfloat16"],
+        mfu_peak="989 TFLOP/s bf16 (H100 SXM data sheet)",
+        peak_memory_gb=peak_gb, launches=launches,
+        launches_expected=want, launches_per_step=per_step,
+        profiled_step=split)
+
+
+def train_reduced_phase(torch, dev) -> dict:
+    """Small training runs in f32: the reduced jamba-v0.1-52b (attention,
+    Mamba and MoE: K5, K3, K4) and the reduced qwen2-7b, 4 steps each with
+    ``Trainer`` on the card and on the CPU from one initial state (the CPU
+    trainer's, carried by a step-0 checkpoint); one profiled card step of
+    the jamba (K4's plain backward); the restart check of the reference's
+    tests/test_runtime.py on the card; and 6 steps with int8 gradient
+    compression.  Counts the card runs' kernel launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.serve import serving_config
+
+    counters = _lm_counters()
+    total = dict.fromkeys(counters, 0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def trainer(cfg, sub, device, ckpt_every=100, **kw):
+        return Trainer(cfg, opt, DataConfig(4, 32, cfg.vocab_size),
+                       TrainerConfig(ckpt_every=ckpt_every,
+                                     ckpt_dir=os.path.join(tmp, sub), **kw),
+                       device=device)
+
+    def counted(tr, steps):
+        for mod in counters.values():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        hist = [dict(h) for h in tr.run(steps=steps)[-steps:]]
+        secs = time.perf_counter() - t0
+        got = {n: mod.launches() for n, mod in counters.items()}
+        for n, v in got.items():
+            total[n] += v
+        return hist, got, secs
+
+    out = {}
+    try:
+        for arch in ("jamba-v0.1-52b", "qwen2-7b"):
+            cfg = serving_config(arch, use_reduced=True)
+            cpu = trainer(cfg, arch, "cpu")
+            cpu.init_or_restore()
+            cpu.save()                          # the shared step-0 state
+            card = trainer(cfg, arch, dev)
+            assert card.init_or_restore() == 0
+            h_card, got, card_s = counted(card, 4)
+            want = {k: 4 * v for k, v in train_launches_per_step(cfg).items()}
+            assert got == want, (arch, got, want)
+            t0 = time.perf_counter()
+            h_cpu = cpu.run(steps=4)
+            cpu_s = time.perf_counter() - t0
+            loss_gap = max(abs(a["loss"] - b["loss"])
+                           for a, b in zip(h_card, h_cpu))
+            gn_gap = max(abs(a["grad_norm"] / b["grad_norm"] - 1)
+                         for a, b in zip(h_card, h_cpu))
+            assert all(math.isfinite(h["loss"]) for h in h_card), h_card
+            assert loss_gap <= TRAIN_REDUCED_TOL, (arch, h_card, h_cpu)
+            assert gn_gap <= TRAIN_REDUCED_TOL, (arch, h_card, h_cpu)
+            row = dict(config=cfg.name, launches=got, card_seconds=card_s,
+                       cpu_seconds=cpu_s, loss_max_abs_gap=loss_gap,
+                       grad_norm_max_rel_gap=gn_gap, tol=TRAIN_REDUCED_TOL,
+                       card_losses=[h["loss"] for h in h_card],
+                       cpu_losses=[h["loss"] for h in h_cpu])
+            if arch == "jamba-v0.1-52b":
+                for mod in counters.values():
+                    mod.reset_launches()
+                _, row["profiled_step"] = _train_split(
+                    torch, lambda: card.run(steps=1))
+                for n, mod in counters.items():
+                    total[n] += mod.launches()
+            out[arch] = row
+
+        tiny = reduced(get_config("qwen2-7b"), repeats=1)
+        straight = trainer(tiny, "straight", dev, ckpt_every=4)
+        straight.init_or_restore()
+        h1, _, _ = counted(straight, 8)
+        first = trainer(tiny, "restart", dev, ckpt_every=4)
+        first.init_or_restore()
+        counted(first, 4)
+        again = trainer(tiny, "restart", dev, ckpt_every=4)
+        resumed = again.init_or_restore()
+        assert resumed == 4, resumed
+        h3, _, _ = counted(again, 4)
+        gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(h3, h1[4:]))
+        assert gap <= RESTART_TOL, (h1, h3)
+        out["restart"] = dict(config=tiny.name, resumed_at=resumed,
+                              loss_max_abs_gap=gap, tol=RESTART_TOL,
+                              straight_losses=[h["loss"] for h in h1],
+                              resumed_losses=[h["loss"] for h in h3])
+
+        comp = trainer(tiny, "compress", dev, grad_compression=True)
+        comp.init_or_restore()
+        hc, _, _ = counted(comp, 6)
+        losses = [h["loss"] for h in hc]
+        assert all(math.isfinite(v) for v in losses), losses
+        assert losses[-1] < losses[0] + 1.0, losses
+        out["compress_grads"] = dict(config=tiny.name, losses=losses,
+                                     grad_norms=[h["grad_norm"] for h in hc])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = total
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2785,6 +3210,23 @@ def run(torch, dev) -> int:
     # -- phase 10b: gradients through K5, K3, K4 against the plain path --
     emit(dict(phase="lm_grad_check", **lm_grad_check(torch, dev)))
 
+    # -- phase 10c: LM training at full width, qwen2-7b (K5, K3) --------
+    t0 = time.time()
+    train = train_phase(torch, dev)
+    train["seconds"] = time.time() - t0
+    emit(dict(phase="train", nvidia_smi=smi, **train))
+    print(f"train: qwen2-7b {train['n_layers']} layers, S {train['seq']}: "
+          f"{train['step_ms']:.1f} ms a step, "
+          f"{train['tokens_per_s']:.0f} tokens/s, MFU {train['mfu']:.4f} "
+          f"of 989 TFLOP/s, peak {train['peak_memory_gb']:.2f} GB ({smi})",
+          flush=True)
+
+    # -- phase 10d: reduced training card vs CPU, restart, compression --
+    t0 = time.time()
+    train_small = train_reduced_phase(torch, dev)
+    train_small["seconds"] = time.time() - t0
+    emit(dict(phase="train_reduced", nvidia_smi=smi, **train_small))
+
     # -- phase 11: slice 8, the evaluation path's reference benchmarks --
     # (the routing-scheme bench's MCF LPs run in worker processes on the
     # host while phases 11 and 12 use the card)
@@ -2875,7 +3317,9 @@ def run(torch, dev) -> int:
         mine = [r for r in lm_rows if r["kernel"] == name]
         first = mine[0]               # the serving path's case
         assert lm_launches[name] > 0, (name, lm_launches)
-        path_launches = lm_launches[name] + qwen["launches"][name]
+        path_launches = (lm_launches[name] + qwen["launches"][name]
+                         + train["launches"][name]
+                         + train_small["launches"][name])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path_launches, max_abs_err=first["max_abs_err"],

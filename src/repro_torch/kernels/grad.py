@@ -17,7 +17,10 @@ wherever no input requires grad.
 A stop-gap until LM training gets backward kernels: the backward costs the
 plain version's forward and backward, for K3 the O(S^2) plain attention with
 its (B, H, S, S) scores, for K4 an L-step Python loop that keeps every
-step's (B, Di, N) state.
+step's (B, Di, N) state.  Each backward runs inside a profiler range named
+``repro_torch/plain_backward/<plain version>``, so that a trace gives the
+stop-gap's device time per kernel (``chip_smoke.py``'s training phases
+read it); outside a profiler the range costs a few microseconds a call.
 """
 from __future__ import annotations
 
@@ -51,19 +54,21 @@ class PlainBackward(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, *grads):
         need = ctx.needs_input_grad[3:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            out = ctx.plain(*inputs, **ctx.kwargs)
-        outs = out if isinstance(out, tuple) else (out,)
-        pairs = [(o, g) for o, g in zip(outs, grads)
-                 if g is not None and o.requires_grad]
-        wrt = [t for t, n in zip(inputs, need) if n]
-        got = iter(torch.autograd.grad(
-            [o for o, _ in pairs], wrt, [g for _, g in pairs],
-            allow_unused=True) if pairs else [None] * len(wrt))
-        return (None, None, None,
-                *(next(got) if n else None for n in need))
+        with torch.profiler.record_function(
+                f"repro_torch/plain_backward/{ctx.plain.__name__}"):
+            with torch.enable_grad():
+                inputs = [t.detach().requires_grad_(n)
+                          for t, n in zip(ctx.saved_tensors, need)]
+                out = ctx.plain(*inputs, **ctx.kwargs)
+            outs = out if isinstance(out, tuple) else (out,)
+            pairs = [(o, g) for o, g in zip(outs, grads)
+                     if g is not None and o.requires_grad]
+            wrt = [t for t, n in zip(inputs, need) if n]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                allow_unused=True) if pairs else [None] * len(wrt))
+            return (None, None, None,
+                    *(next(got) if n else None for n in need))
 
 
 def through_kernel(launch: Callable, plain: Callable, tensors: tuple,

@@ -1,17 +1,23 @@
-"""LM model wrapper: params init, forward, prefill/decode.
+"""LM model wrapper: params init, forward, chunked loss, prefill/decode.
 
-The port of the reference's ``models/model.py`` serving half
-(``loss_fn`` and training are not ported yet).  Parameters are a plain
+The port of the reference's ``models/model.py``.  Parameters are a plain
 dict of tensors with the reference's tree and names:
 ``{"embed", "blocks": [per-pattern-position dict with a leading (R,) axis],
 "final_norm", "head"}``, so weights carry over path by path
 (``repro_torch.interop.params_from_reference``).
+
+:func:`loss_fn` is the reference's sequence-chunked cross-entropy: it never
+materializes (B, S, V), and with ``cfg.remat`` under autograd each chunk's
+logits are recomputed in the backward (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` around its chunk body does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -20,8 +26,8 @@ from .layers import init_linear, mrope_positions, rms_norm, rope_angles
 from .transformer import (block_param_shapes, blocks_decode, blocks_forward,
                           blocks_prefill, init_block_cache)
 
-__all__ = ["param_shapes", "init_params", "forward_hidden", "prefill",
-           "decode_step", "init_cache", "make_rope", "dtype_of"]
+__all__ = ["param_shapes", "init_params", "forward_hidden", "loss_fn",
+           "prefill", "decode_step", "init_cache", "make_rope", "dtype_of"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -145,6 +151,54 @@ def _head_weight(params, cfg):
 def _logits(params, h, cfg):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return (h @ _head_weight(params, cfg).to(h.dtype)).float()
+
+
+def _chunk_nll(hs, ls, hw):
+    """One loss chunk: (sum of the valid positions' -log p(label) in f32,
+    count of valid positions).  hs (B, c, D); ls (B, c), -1 = no label."""
+    logits = (hs @ hw.to(hs.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, ls.clamp(min=0).long()[..., None])[..., 0]
+    valid = ls >= 0
+    nll = torch.where(valid, lse - tgt, torch.zeros_like(lse))
+    return nll.sum(), valid.sum(dtype=torch.int32)
+
+
+def loss_fn(params, batch, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sequence-chunked softmax cross-entropy (never materializes (B, S, V)).
+
+    ``batch``: ``tokens`` (B, S) or stub-frontend ``embeds`` (B, S, D), and
+    ``labels`` (B, S) with -1 for no label.  S is padded to a multiple of
+    ``min(cfg.loss_chunk, S)`` with -1 labels; each chunk's logits are
+    ``(h @ head).float()``; the per-position loss is ``logsumexp`` minus the
+    target logit; the sum runs chunk by chunk in f32 and is divided by
+    ``max(count, 1)``.  Returns ``(loss + router_aux_coef * aux,
+    dict(loss=, aux=, tokens=))``."""
+    h, aux = forward_hidden(params, batch, cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    labels = batch["labels"]
+    B, S, D = h.shape
+    c = min(cfg.loss_chunk, S)
+    pad = (-S) % c
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    hw = _head_weight(params, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    for c0 in range(0, S + pad, c):
+        args = (h[:, c0:c0 + c], labels[:, c0:c0 + c], hw)
+        if remat:
+            s, n = checkpoint(_chunk_nll, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            s, n = _chunk_nll(*args)
+        tot = tot + s
+        cnt = cnt + n
+    loss = tot / torch.clamp(cnt, min=1)
+    total = loss + cfg.router_aux_coef * aux
+    return total, dict(loss=loss, aux=aux, tokens=cnt)
 
 
 # --------------------------------------------------------------------------

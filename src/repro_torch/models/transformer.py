@@ -5,7 +5,12 @@ The port of the reference's ``models/transformer.py``.  A model is
 ``pattern`` applied ``n_repeats`` times; parameters for pattern position p
 are stacked with a leading (R,) axis, and the reference's ``lax.scan`` over
 repeats is a Python loop over that axis here (so is the decode caches'
-leading axis).  There is no remat and no sharding on one card.
+leading axis).  There is no sharding on one card.  With ``cfg.remat``,
+when autograd records, each repeat of the pattern in :func:`blocks_forward`
+runs under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, as the reference's ``jax.checkpoint`` around
+its scan body recomputes them.  The recompute launches the repeat's kernels
+again, so a training step with remat launches K5 and K3 twice per layer.
 
 Routing to the hand-written kernels, on a CUDA tensor: every ``norm1`` /
 ``norm2`` goes to K5 (through ``layers.rms_norm``); prefill attention of a
@@ -22,6 +27,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as K3
 
@@ -151,15 +157,40 @@ def _stack(trees: List[Dict]) -> Dict:
     return torch.stack(trees)
 
 
+def _unstack(tree, R: int) -> List:
+    """The R per-repeat dicts of a stacked parameter dict, by ``unbind``
+    (whose backward stacks the R gradients once, where indexing each repeat
+    would write a zero-filled (R, ...) gradient per repeat)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, R) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(R)]
+    return list(torch.unbind(tree, 0))
+
+
+def _repeat_body(pattern, cfg, rope, h, aux, *per_position):
+    """One repeat of the pattern: (hidden, aux) in, (hidden, aux) out."""
+    for spec, p in zip(pattern, per_position):
+        h, a, _ = _one_block(spec, p, h, cfg, rope)
+        aux = aux + a
+    return h, aux
+
+
 def blocks_forward(block_params: List[Dict], x: torch.Tensor, cfg, rope
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Loop over repeats; returns (hidden, total_aux_loss)."""
+    """Loop over repeats; returns (hidden, total_aux_loss).  With
+    ``cfg.remat`` under autograd, each repeat is checkpointed."""
     h = x
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(cfg.n_repeats):
-        for spec, p in zip(cfg.pattern, block_params):
-            h, a, _ = _one_block(spec, _repeat(p, r), h, cfg, rope)
-            aux = aux + a
+    R = cfg.n_repeats
+    per_repeat = list(zip(*(_unstack(p, R) for p in block_params)))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for params_r in per_repeat:
+        if remat:
+            h, aux = checkpoint(_repeat_body, cfg.pattern, cfg, rope, h, aux,
+                                *params_r, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            h, aux = _repeat_body(cfg.pattern, cfg, rope, h, aux, *params_r)
     return h, aux
 
 

@@ -1,0 +1,153 @@
+"""AdamW + cosine schedule with warmup + global-norm clipping.
+
+The port of the reference's ``optim/adamw.py``, with its numerics:
+
+* the schedule and the bias corrections are 0-d float32 tensors, computed
+  as jnp computes them (``step`` cast to f32, ``b1 ** step``, ``cos`` in
+  f32);
+* the global norm sums the leaves' f32 squares in ``jax.tree.leaves``
+  order (:mod:`repro_torch.tree`);
+* clipping scales each gradient in f32 and casts it back to its dtype, so
+  a bf16 gradient is rounded after scaling, as the reference rounds it;
+* weight decay applies to every leaf with ``ndim >= 2``: stacked block
+  leaves carry the leading (R,) axis, so stacked norms and biases ((R, D))
+  are decayed and ``final_norm`` ((D,)) is not, as in the reference;
+* m and v are kept in ``state_dtype`` (float32 or bfloat16), ``step`` is a
+  0-d int32.
+
+:func:`adamw_update` works in place under ``torch.no_grad()``: it writes
+the new parameters, m and v into the given tensors, elementwise in slices
+of ``_CHUNK`` elements, so that a full-width step needs no second copy of
+the parameters or the state and only slice-sized float32 temporaries.  It
+returns the trees all the same, as the reference's pure update does.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch import tree as T
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
+           "global_norm", "clip_by_global_norm"]
+
+_STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: elements of one leaf updated at once (256 MB of f32 per temporary)
+_CHUNK = 1 << 26
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    state_dtype: str = "float32"
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``step`` (a 0-d float32 tensor), in float32."""
+    step = step.to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(_f32(math.pi, step) * prog))
+    return _f32(cfg.lr, step) * warm * cos
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's f32 squares, summed in leaf order."""
+    total = None
+    for x in T.leaves(tree):
+        s = torch.sum(torch.square(x.to(torch.float32)))
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _clip_scale(g: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """(the tree scaled to global norm <= ``max_norm``, in f32 and cast back
+    to each leaf's dtype; the global norm before clipping)."""
+    g = global_norm(tree)
+    scale = _clip_scale(g, max_norm)
+    return T.tree_map(lambda x: (x.to(torch.float32) * scale).to(x.dtype),
+                      tree), g
+
+
+def adamw_init(params, cfg: AdamWConfig):
+    """Zero m and v in ``cfg.state_dtype`` beside each parameter, and a 0-d
+    int32 step, on the parameters' device."""
+    dt = _STATE_DTYPES[cfg.state_dtype]
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    first = T.leaves(params)[0]
+    return dict(m=T.tree_map(zeros, params), v=T.tree_map(zeros, params),
+                step=torch.zeros((), dtype=torch.int32, device=first.device))
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """A flat view of a tensor the update writes into."""
+    if not t.is_contiguous():
+        raise ValueError("adamw_update: parameters and state must be "
+                         "contiguous (it updates them in place)")
+    return t.view(-1)
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, cfg: AdamWConfig
+                 ) -> Tuple[Any, Dict, Dict[str, torch.Tensor]]:
+    """One AdamW step: ``(params, state, dict(lr=, grad_norm=))``, the
+    parameters, m, v and step updated in place (see the module's note)."""
+    step = state["step"] + 1
+    stepf = step.to(torch.float32)
+    lr = cosine_schedule(cfg, stepf)
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.clip_norm)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - torch.pow(_f32(b1, stepf), stepf)
+    bc2 = 1 - torch.pow(_f32(b2, stepf), stepf)
+
+    def upd(p, g, m, v, decay: bool):
+        g32 = (g.to(torch.float32) * scale).to(g.dtype).to(torch.float32)
+        m32 = m.to(torch.float32) * b1 + (1 - b1) * g32
+        v32 = v.to(torch.float32) * b2 + (1 - b2) * g32 * g32
+        mhat = m32 / bc1
+        vhat = v32 / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        if decay:          # decoupled weight decay on matrices only
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr * delta), m32, v32
+
+    flat_p, tdef = T.flatten(params)
+    flat_g = T.leaves(grads)
+    flat_m = T.leaves(state["m"])
+    flat_v = T.leaves(state["v"])
+    if not (len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v)):
+        raise ValueError("adamw_update: params, grads, m and v differ in "
+                         "their number of leaves")
+    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        pf, mf, vf, gf = _flat(p), _flat(m), _flat(v), g.reshape(-1)
+        for lo in range(0, pf.numel(), _CHUNK):
+            s = slice(lo, lo + _CHUNK)
+            # slice assignment casts to the stored dtype, as .astype does
+            pf[s], mf[s], vf[s] = upd(pf[s], gf[s], mf[s], vf[s],
+                                      p.dim() >= 2)
+    state["step"].copy_(step)
+    return (T.unflatten(tdef, flat_p),
+            dict(m=state["m"], v=state["v"], step=state["step"]),
+            dict(lr=lr, grad_norm=gnorm))

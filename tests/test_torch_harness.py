@@ -46,7 +46,10 @@ def load_reference() -> types.SimpleNamespace:
                  "repro.kernels.spmv", "repro.configs", "repro.models.layers",
                  "repro.models.attention", "repro.models.mamba",
                  "repro.models.moe", "repro.models.transformer",
-                 "repro.models.model"):
+                 "repro.models.model", "repro.data.pipeline",
+                 "repro.optim.adamw", "repro.optim.compression",
+                 "repro.train.steps", "repro.runtime.checkpoint",
+                 "repro.runtime.fault_tolerance", "repro.runtime.trainer"):
         mods[name.rsplit(".", 1)[-1]] = importlib.import_module(name)
     mods["config_base"] = importlib.import_module("repro.configs.base")
     # the kernels' Pallas bodies and oracles, e.g. ``rmsnorm_kernel``

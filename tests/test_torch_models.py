@@ -528,11 +528,15 @@ def _to(tree, dev):
 
 
 def test_lm_entry_points_default_to_the_card():
-    """The serving path's entry points run on the card unless asked for the
-    CPU, and raise without one."""
+    """The serving and training paths' entry points run on the card unless
+    asked for the CPU, and raise without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
-    from repro_torch import serve
+    from repro_torch import elastic_demo, serve, train_lm
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.train.steps import init_train_state
 
     cfg = reduced(get_config("jamba-v0.1-52b"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -541,5 +545,15 @@ def test_lm_entry_points_default_to_the_card():
         serve.main(["--reduced", "--max-new", "2"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_reference({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, AdamWConfig(), DataConfig(2, 8, cfg.vocab_size),
+                TrainerConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(cfg, AdamWConfig(), seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_lm.main(["--arch", "qwen2-7b", "--reduced", "--steps", "1",
+                       "--ckpt-dir", ""])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        elastic_demo.main([])
     with pytest.raises(ValueError, match="multiple"):
         serve.serving_config("jamba-v0.1-52b", layers=12)
