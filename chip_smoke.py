@@ -57,7 +57,16 @@ drives every main path:
   step 1's loss and every gradient held against the plain path, the step
   time, MFU, peak memory and a profiled step's split; then the reduced
   jamba and qwen2 trained on the card against the CPU, a restart from a
-  checkpoint against the straight run, and int8 gradient compression.
+  checkpoint against the straight run, and int8 gradient compression;
+* slice 11, sharded execution on DTensor, 4 ranks on the one card (gloo;
+  DTensor's collectives staged through the host): the explicit
+  expert-parallel MoE at kimi-k2-1t-a32b's expert widths (data 1 x model
+  4; two all-to-alls a forward) against the single-device MoE, and
+  qwen2-7b at published widths, 2 layers, trained 2 steps on a data 2 x
+  model 2 mesh against the single-device step (K5, K3 per shard); the
+  scale row's start-vector normals by torch ops on the card, bit for bit
+  against the host's numpy draw; and ``python -m repro_torch.quickstart``
+  on the card against the host run.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -71,6 +80,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import multiprocessing
@@ -368,6 +378,74 @@ TRAIN_REDUCED_TOL = 1e-3
 RESTART_TOL = 1e-4
 #: profiler ranges the port's train step and kernel backward run in
 RANGE_PREFIX = "repro_torch/"
+
+#: slice 11, sharded execution: 4 ranks on the one card (NCCL refuses two
+#: ranks on one device, so the group is gloo, which carries the card's
+#: tensors through the host)
+SHARDED_RANKS = 4
+#: ep_moe: one MoE layer at kimi-k2-1t-a32b's published expert widths (E
+#: 384, k 8, D 7168, F 2048, cf 1.25, bf16) on a data 1 x model 4 mesh, 4
+#: groups of 1,024 tokens (C = ceil(1024 * 8 / 384 * 1.25) = 27), seed 0
+EP_ARCH = "kimi-k2-1t-a32b"
+EP_MESH = (1, 4)
+EP_GROUPS, EP_TOKENS, EP_SEED = 4, 1024, 0
+#: its output against the single-device moe_forward, relative L2 (bf16).
+#: Both run the same products on the same bf16 operands; only their f32
+#: accumulation order (cuBLAS tiling of different matrix shapes) differs,
+#: ~1e-6 relative before each rounding to bf16, so a rounding flips in a
+#: few elements, each by one bf16 ulp (2^-8 relative).  Four rounded
+#: results can flip on the way (gate, up and down products, and the bf16
+#: combine of k gated outputs): 4 * 2^-8 = 1.6e-2.  The dispatch table
+#: (which assignments take which slot, which are dropped) must be equal.
+EP_REL_TOL = 4 * 2.0 ** -8
+#: sharded_train: qwen2-7b at published widths, 2 of its 28 layers
+#: (1.56 B parameters), bf16 with f32 AdamW state, B 4, S 1024, on a data
+#: 2 x model 2 mesh, 2 steps, against the single-device step from the same
+#: initial parameters
+SHARDED_ARCH = "qwen2-7b"
+SHARDED_LAYERS = 2
+SHARDED_MESH = (2, 2)
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 4, 1024, 2
+SHARDED_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=10)
+#: step 1's loss, relative.  The mesh splits contractions: FSDP over
+#: 'data' (d_model) and TP over 'model' (heads, d_ff, vocab); each split
+#: product is a sum of bf16-rounded partials, one more rounding (2^-8
+#: relative at most) than the single-device product.  About 2L * 4 + 2 =
+#: 10 split products lie on a token's path; their roundings are
+#: independent, so a token's loss moves by ~2^-8 * sqrt(10) relative at
+#: most, and the mean over B * S = 4096 tokens by that over sqrt(4096):
+#: ~1.9e-4.  Bound: 1e-3.
+SHARDED_LOSS_REL_TOL = 1e-3
+#: step 1's global gradient norm, relative: every gradient element carries
+#: per-element perturbations of the same order (2^-8 * sqrt(20) with the
+#: backward's split products, ~1.7e-2 at most), which the norm over 1.56 B
+#: elements averages down; bound the reference's own sharded-execution
+#: tolerance, 2e-2
+SHARDED_GNORM_REL_TOL = 2e-2
+# step 2's loss and grad norm are held at the same bounds: the ranks'
+# AdamW writes each local shard from its gradient (elementwise, exact
+# shard by shard), so the parameters entering step 2 part from the
+# single-device ones only where step 1's gradients did, and most where a
+# gradient element near zero flips the sign of its unit-size AdamW step:
+# an element whose first-order effect on the loss is ~0
+#: step 1's gradient of each leaf of at most SHARDED_LEAF_ELEMENTS elements
+#: (the norms and the q / k / v biases, which the global norm cannot see
+#: beside 1.56 B elements), relative L2, gathered whole on rank 0.  Each
+#: element is a sum over the B * S tokens of terms that carry the
+#: backward's perturbations (2^-8 * sqrt(20) at most, as for the grad
+#: norm) plus one more bf16 rounding where the data shards' partial sums
+#: meet: 2^-8 * sqrt(21) = 1.8e-2 at most for the leaf's RMS.  Bound 2e-2;
+#: a leaf that loses a shard's share (a missing partial-sum reduction) is
+#: off by ~0.7
+SHARDED_LEAF_ELEMENTS = 1 << 20
+SHARDED_LEAF_REL_TOL = 2e-2
+#: a rank's device memory budget: its allocator's reserved peak, 15.37 GB
+#: (12.59 GB of it allocated by the ep_moe forward), plus its CUDA context
+#: and cuBLAS workspace, ~0.6 GB, and slack; the card must have this free
+#: for each of the SHARDED_RANKS ranks before they start
+SHARDED_RANK_BUDGET_BYTES = 16_500_000_000
+#: the threefry phase: the scale row's start-vector draw, (24, 65536)
+THREEFRY_SHAPE = (24, 65536)
 
 #: enough copies of a case's operands that one timed launch finds the
 #: previous copies' bytes evicted from the 50 MB L2, as a Lanczos step does
@@ -1262,11 +1340,27 @@ def _lm_case(torch, name, form, kernel, plain, args, tol, nbytes, flops,
     return row
 
 
+def sharded_kernel_shapes() -> tuple:
+    """The shapes a ``sharded_train`` rank gives K5 and K3: its data shard
+    of the batch (SHARDED_BATCH / data rows of SHARDED_SEQ tokens), whole
+    d_model at the norms, and its model shard of the heads at attention
+    (``per_shard`` runs the kernels on batch- and head-sharded operands).
+    Returns ((rows, d_model), (B, S, H, Kv, head_dim))."""
+    from repro_torch.serve import serving_config
+
+    cfg = serving_config(SHARDED_ARCH, layers=SHARDED_LAYERS)
+    data, model = SHARDED_MESH
+    B = SHARDED_BATCH // data
+    return ((B * SHARDED_SEQ, cfg.d_model),
+            (B, SHARDED_SEQ, cfg.n_heads // model, cfg.n_kv_heads // model,
+             cfg.head_dim))
+
+
 def lm_kernel_checks(torch, dev) -> list:
     """K5, K3 and K4 at the serving path's shapes (bf16 and f32), the
     training phases' shapes (qwen2-7b's S 4096 attention; the reduced
-    configs' f32 forms) and ragged cases; the first row of each kernel is
-    its serving-path case."""
+    configs' f32 forms; a sharded_train rank's shards) and ragged cases;
+    the first row of each kernel is its serving-path case."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as K3
@@ -1281,9 +1375,10 @@ def lm_kernel_checks(torch, dev) -> list:
 
     rows = []
     bf, f32 = torch.bfloat16, torch.float32
+    shard_rows, shard_attn = sharded_kernel_shapes()
 
     # K5: prefill rows (B*S, D), decode rows (jamba, then qwen2-7b's width),
-    # f32, ragged rows and widths
+    # f32, ragged rows and widths, the sharded_train ranks' rows
     for form, (R, D), dt in (("prefill (4096, 4096) bf16", (4096, 4096), bf),
                              ("decode (4, 4096) bf16", (4, 4096), bf),
                              ("qwen prefill (4096, 3584) bf16", (4096, 3584),
@@ -1292,7 +1387,9 @@ def lm_kernel_checks(torch, dev) -> list:
                              ("prefill (4096, 4096) f32", (4096, 4096), f32),
                              ("ragged rows (1001, 1024) bf16", (1001, 1024), bf),
                              ("ragged width (37, 4095) f32", (37, 4095), f32),
-                             ("reduced train (128, 64) f32", (128, 64), f32)):
+                             ("reduced train (128, 64) f32", (128, 64), f32),
+                             (f"sharded train {shard_rows} bf16", shard_rows,
+                              bf)):
         x, w = randn(R, D, dtype=dt), (randn(D) + 1).to(dt)
         es = x.element_size()
         rows.append(_lm_case(
@@ -1303,8 +1400,8 @@ def lm_kernel_checks(torch, dev) -> list:
             lib_args=lambda a: a))
 
     # K3: the serving prefill (B 4, S 1024, H 32, Kv 8, hd 128), then the
-    # qwen2-7b phase's prefill (G = 7), gemma-2b's MQA hd 256 and an hd 64
-    # form: each of these holds more work tiles than the card has SMs, so
+    # qwen2-7b phase's prefill (G = 7), gemma-2b's MQA hd 256, an hd 64
+    # form, the training phases' forms and a sharded_train rank's: each of these holds more work tiles than the card has SMs, so
     # the persistent bf16 blocks take several tiles at every compiled width
     def attn_pairs(S, causal):
         return S * (S + 1) // 2 if causal else S * S
@@ -1334,7 +1431,8 @@ def lm_kernel_checks(torch, dev) -> list:
             ("gemma-2b prefill causal bf16", (4, 1024, 8, 1, 256), True, bf),
             ("hd 64 non-causal bf16", (4, 1024, 16, 2, 64), False, bf),
             ("qwen train causal bf16", (1, 4096, 28, 4, 128), True, bf),
-            ("reduced train causal f32", (4, 32, 4, 2, 16), True, f32)):
+            ("reduced train causal f32", (4, 32, 4, 2, 16), True, f32),
+            (f"sharded train causal bf16 {shard_attn}", shard_attn, True, bf)):
         q, k, v = randn(B, S, H, hd, dtype=dt), randn(B, S, Kv, hd, dtype=dt), \
             randn(B, S, Kv, hd, dtype=dt)
         es = q.element_size()
@@ -2275,6 +2373,283 @@ def train_reduced_phase(torch, dev) -> dict:
 # phase 7: where a Lanczos solve's device time goes
 # --------------------------------------------------------------------------
 
+def threefry_bits(torch, np, dev) -> dict:
+    """The scale row's start-vector draw (THREEFRY_SHAPE) made by torch ops
+    on the card (``threefry.normal``) against the host's numpy draw
+    (``threefry.normal_host``, the plain version): bit for bit, for two
+    keys; and the times of each."""
+    from repro_torch.core import threefry as TF
+
+    keys = [TF.prng_key(0), TF.split(0)[1]]
+    out = dict(shape=list(THREEFRY_SHAPE), keys=[k.tolist() for k in keys])
+    card_s, host_s = [], []
+    for key in keys:
+        TF.normal(key, (8, 8), dev)                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = TF.normal(key, THREEFRY_SHAPE, dev)
+        torch.cuda.synchronize()
+        card_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = TF.normal_host(key, THREEFRY_SHAPE)
+        host_s.append(time.perf_counter() - t0)
+        got = got.cpu().numpy()
+        assert got.dtype == want.dtype == np.float32
+        differ = int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
+        assert differ == 0, (key.tolist(), differ)
+    out.update(bits_differ=0, card_seconds=card_s, host_numpy_seconds=host_s)
+    return out
+
+
+def quickstart_phase() -> dict:
+    """``repro_torch.quickstart.main(device="cuda")``'s printed figures
+    held to the host run's (``device="cpu"``), number for number."""
+    import io
+
+    from repro_torch import quickstart as Q
+
+    texts = {}
+    seconds = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            Q.main(device=device)
+        seconds[device] = time.time() - t0
+        texts[device] = buf.getvalue()
+    figures = re.findall(r"-?\d+(?:\.\d+)?", texts["cuda"])
+    assert figures == re.findall(r"-?\d+(?:\.\d+)?", texts["cpu"]), texts
+    assert "Ramanujan: True" in texts["cuda"], texts["cuda"]
+    return dict(figures=len(figures), seconds=seconds,
+                lines=texts["cuda"].splitlines())
+
+
+def _ep_single(torch, np, dev) -> tuple:
+    """kimi-k2's expert widths, one MoE layer, all 384 experts on the card:
+    the single-device ``moe_forward`` and its dispatch table (run first
+    and freed: 33.8 GB of experts beside four ranks' shards would not
+    fit)."""
+    from repro_torch.models.moe import _route_group, capacity, moe_forward
+    from repro_torch.parallel.ranks import moe_inputs
+    from repro_torch.serve import serving_config
+
+    cfg = serving_config(EP_ARCH, layers=1)
+    E, k, D, F_ = cfg.n_experts, cfg.experts_per_token, cfg.d_model, \
+        cfg.moe_d_ff
+    assert (E, k, D, F_, cfg.capacity_factor, cfg.compute_dtype) == \
+        (384, 8, 7168, 2048, 1.25, "bfloat16"), cfg
+    C = capacity(EP_TOKENS, E, k, cfg.capacity_factor)
+    assert C == 27, C
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    inp = moe_inputs(cfg, EP_GROUPS, EP_TOKENS, EP_SEED, dev)
+    expert_bytes = sum(inp[n].numel() * inp[n].element_size()
+                       for n in ("wg", "wu", "wd"))
+    x = inp.pop("x")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y_one, _ = moe_forward(inp, x, cfg)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t1) * 1e3
+        logits = x @ inp["router"].to(x.dtype)
+        dispatch_one = _route_group(logits, k, C, E)[0]
+    single = dict(y=y_one.float().cpu().numpy(),
+                  dispatch=dispatch_one.cpu().numpy(),
+                  forward_ms=single_ms, expert_bytes=expert_bytes,
+                  peak=torch.cuda.max_memory_allocated())
+    del inp, x, logits, y_one, dispatch_one
+    gc.collect()
+    torch.cuda.empty_cache()
+    single["seconds"] = time.time() - t0
+    return cfg, C, single
+
+
+def _ep_check(torch, np, cfg, C, single, ranks) -> dict:
+    """The EP layer's rank results against the single-device layer: equal
+    dispatch tables, outputs within EP_REL_TOL, two all-to-alls a rank of
+    the rank's padded slots."""
+    E, k, D = cfg.n_experts, cfg.experts_per_token, cfg.d_model
+    y_ep, dispatch_ep = ranks[0]["y"], ranks[0]["dispatch"]
+    dispatch_one = single["dispatch"]
+    assert dispatch_ep.shape == dispatch_one.shape == (EP_GROUPS, E, C)
+    dispatch_differ = int(np.sum(dispatch_ep != dispatch_one))
+    assert dispatch_differ == 0, dispatch_differ
+    rel = _rel_l2(torch.from_numpy(y_ep), torch.from_numpy(single["y"]))
+    assert np.all(np.isfinite(y_ep)) and rel <= EP_REL_TOL, rel
+    dropped = EP_GROUPS * EP_TOKENS * k - int(np.sum(dispatch_one
+                                                     < EP_TOKENS * k))
+    exchange_bytes = EP_GROUPS * E * C * D * 2      # a rank's slots, bf16
+    for r in ranks:
+        assert r["all_to_all"] == 2, r["all_to_all"]
+        assert r["all_to_all_bytes"] == 2 * exchange_bytes, r
+    return dict(arch=EP_ARCH, experts=E, k=k, d_model=D, d_ff=cfg.moe_d_ff,
+                capacity=C, groups=EP_GROUPS, tokens=EP_TOKENS,
+                mesh=dict(data=EP_MESH[0], model=EP_MESH[1]),
+                expert_weight_bytes=single["expert_bytes"],
+                expert_weight_bytes_per_rank=(single["expert_bytes"]
+                                              // EP_MESH[1]),
+                slots=EP_GROUPS * E * C, assignments_dropped=dropped,
+                dispatch_differ=dispatch_differ, rel_l2_vs_single=rel,
+                tol=EP_REL_TOL, all_to_all_per_rank=2,
+                all_to_all_bytes_per_rank=[r["all_to_all_bytes"]
+                                           for r in ranks],
+                forward_seconds_per_rank=[r["seconds"] for r in ranks],
+                peak_memory_bytes_per_rank=[r["peak_memory_bytes"]
+                                            for r in ranks],
+                peak_reserved_bytes_per_rank=[r["peak_reserved_bytes"]
+                                              for r in ranks],
+                single_forward_ms=single["forward_ms"],
+                single_peak_memory_bytes=single["peak"],
+                single_seconds=single["seconds"])
+
+
+def _train_single(torch, dev) -> tuple:
+    """qwen2-7b at published widths, SHARDED_LAYERS layers: SHARDED_STEPS
+    single-device steps on the card from seed 0 (run first and freed),
+    with step 1's gradients of the small leaves on the host."""
+    from repro_torch import tree as TR
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.ranks import train_batch, whole_leaves
+    from repro_torch.serve import serving_config
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = serving_config(SHARDED_ARCH, layers=SHARDED_LAYERS)
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == \
+        ("bfloat16", "bfloat16", True), cfg
+    opt_cfg = AdamWConfig(**SHARDED_OPT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params, opt = init_train_state(cfg, opt_cfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in TR.leaves(params))
+    names = list(_leaf_paths(params))
+    grads = []
+    step = make_train_step(cfg, opt_cfg, on_grads=lambda g: grads.append(
+        whole_leaves(g, SHARDED_LEAF_ELEMENTS)))
+    metrics, step_ms = [], []
+    for i in range(SHARDED_STEPS):
+        batch = train_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, dev, i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    single = dict(metrics=metrics, step_ms=step_ms, params=n_params,
+                  grads=grads[0], leaf_names=names,
+                  peak=torch.cuda.max_memory_allocated())
+    del params, opt, step, batch, m, grads
+    gc.collect()                 # autograd's cycles hold the step's tensors
+    torch.cuda.empty_cache()
+    single["seconds"] = time.time() - t0
+    return cfg, opt_cfg, single
+
+
+def _train_check(cfg, single, ranks) -> dict:
+    """The sharded steps' rank results against the single-device steps:
+    every rank reads the same metrics, each step's loss and grad norm and
+    step 1's small-leaf gradients within their bounds, each rank's K5 / K3
+    launches the config's count."""
+    import numpy as np
+
+    rows = ranks
+    for r in rows:                     # every rank reads the same metrics
+        assert r["metrics"] == rows[0]["metrics"], (r["metrics"],
+                                                    rows[0]["metrics"])
+    assert len(rows[0]["metrics"]) == len(single["metrics"]) == SHARDED_STEPS
+    loss_rel, gnorm_rel = [], []
+    for mine, one in zip(rows[0]["metrics"], single["metrics"]):
+        loss_rel.append(abs(mine["loss"] - one["loss"]) / abs(one["loss"]))
+        gnorm_rel.append(abs(mine["grad_norm"] - one["grad_norm"])
+                         / abs(one["grad_norm"]))
+        assert math.isfinite(mine["loss"]) and \
+            loss_rel[-1] <= SHARDED_LOSS_REL_TOL, (mine, one)
+        assert gnorm_rel[-1] <= SHARDED_GNORM_REL_TOL, (mine, one)
+    mine, one = rows[0]["grads"][0], single["grads"]
+    assert sorted(mine) == sorted(one) and one, (sorted(mine), sorted(one))
+    leaf_rel = {}
+    for j in sorted(one):
+        a, b = mine[j].astype(np.float64), one[j].astype(np.float64)
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        assert math.isfinite(rel) and rel <= SHARDED_LEAF_REL_TOL, \
+            (single["leaf_names"][j], rel)
+        leaf_rel[single["leaf_names"][j]] = rel
+    want = {n: c * SHARDED_STEPS
+            for n, c in train_launches_per_step(cfg).items()}
+    for r in rows:
+        assert r["launches"] == want, (r["launches"], want)
+    return dict(arch=SHARDED_ARCH, n_layers=cfg.n_layers,
+                params=single["params"], batch=SHARDED_BATCH,
+                seq=SHARDED_SEQ, steps=SHARDED_STEPS,
+                mesh=dict(data=SHARDED_MESH[0], model=SHARDED_MESH[1]),
+                single=single["metrics"], mesh_metrics=rows[0]["metrics"],
+                loss_rel=loss_rel, loss_tol=SHARDED_LOSS_REL_TOL,
+                grad_norm_rel=gnorm_rel, grad_norm_tol=SHARDED_GNORM_REL_TOL,
+                leaf_grad_rel_l2=leaf_rel,
+                leaf_grad_rel_l2_max=max(leaf_rel.values()),
+                leaf_grad_tol=SHARDED_LEAF_REL_TOL,
+                leaf_elements_max=SHARDED_LEAF_ELEMENTS,
+                single_step_ms=single["step_ms"],
+                rank_step_ms=[[1e3 * t for t in r["seconds"]] for r in rows],
+                launches_per_rank=rows[0]["launches"],
+                launches={n: sum(r["launches"][n] for r in rows)
+                          for n in want},
+                host_staged_per_rank=[r["host_staged"] for r in rows],
+                peak_memory_bytes_per_rank=[r["peak_memory_bytes"]
+                                            for r in rows],
+                peak_reserved_bytes_per_rank=[r["peak_reserved_bytes"]
+                                              for r in rows],
+                single_peak_memory_bytes=single["peak"],
+                single_seconds=single["seconds"])
+
+
+def sharded_phase(torch, np, dev) -> tuple:
+    """Slice 11 on SHARDED_RANKS ranks of the one card, in one launch:
+    ``ep_moe`` (kimi-k2's expert widths, data 1 x model 4, each rank
+    drawing its 96 experts from the same per-expert seeds) and
+    ``sharded_train`` (qwen2-7b, SHARDED_LAYERS layers, data 2 x model 2,
+    parameters, AdamW state and batch placed by the sharding rules, the
+    step inside ``activation_mesh``), each held to its single-device run on
+    the same card, which goes first and is freed.  The ranks share the card
+    over gloo, so DTensor's collectives are staged through the host
+    (``run_ranks(stage_through_host=True)``); the card must have
+    SHARDED_RANK_BUDGET_BYTES free for each rank before they start.
+    Returns the two phases' rows and the launch's seconds."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.parallel.ranks import (ep_moe_rank, run_jobs,
+                                            sharded_train_steps)
+
+    ep_cfg, C, ep_single = _ep_single(torch, np, dev)
+    train_cfg, opt_cfg, train_single = _train_single(torch, dev)
+    # what this process still holds on the card beside the four ranks, and
+    # what the card has free for them (every process's memory counted)
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory = dict(parent_reserved_bytes=torch.cuda.memory_reserved(),
+                  free_bytes_before_ranks=torch.cuda.mem_get_info(dev)[0],
+                  rank_budget_bytes=SHARDED_RANK_BUDGET_BYTES,
+                  ranks=SHARDED_RANKS)
+    need = SHARDED_RANKS * SHARDED_RANK_BUDGET_BYTES
+    assert memory["free_bytes_before_ranks"] >= need, \
+        f"sharded: {memory} -- the ranks need {need} bytes free"
+    t0 = time.time()
+    ranks = run_ranks(run_jobs, SHARDED_RANKS, [
+        (ep_moe_rank, (dict(seed=EP_SEED, G=EP_GROUPS, S=EP_TOKENS), ep_cfg,
+                       EP_MESH, str(dev))),
+        (sharded_train_steps, ([train_cfg], opt_cfg, SHARDED_BATCH,
+                               SHARDED_SEQ, SHARDED_MESH, str(dev),
+                               SHARDED_STEPS, SHARDED_LEAF_ELEMENTS))],
+        device=str(dev), stage_through_host=True)
+    ranks_s = time.time() - t0
+    ep = _ep_check(torch, np, ep_cfg, C, ep_single, [r[0] for r in ranks])
+    train = _train_check(train_cfg, train_single, [r[1][0] for r in ranks])
+    ep.update(memory)
+    train.update(memory)
+    return ep, train, ranks_s
+
+
 def lanczos_split(torch, S, topo, dev, iters: int) -> dict:
     """Device time of one rho2_lanczos solve by kernel class, from
     torch.profiler's CUDA kernel events (``not measured`` if it shows none)."""
@@ -3133,6 +3508,10 @@ def run(torch, dev) -> int:
     emit(dict(phase="lanczos_split",
               **lanczos_split(torch, S, topo, dev, iters)))
 
+    # -- phase 7a: the scale row's normals, card against host bits -----
+    bits = threefry_bits(torch, np, dev)
+    emit(dict(phase="threefry_bits", nvidia_smi=smi, **bits))
+
     # -- phase 7b: the datacenter-scale survey row (xpander, routing) ----
     scale, scale_operands, scale_analysis = scale_row(torch, dev)
     emit(dict(phase="scale_row", **scale))
@@ -3227,6 +3606,34 @@ def run(torch, dev) -> int:
     train_small["seconds"] = time.time() - t0
     emit(dict(phase="train_reduced", nvidia_smi=smi, **train_small))
 
+    # -- phase 10e: slice 11, sharded execution, 4 ranks on the card ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ep, sharded, ranks_s = sharded_phase(torch, np, dev)
+    sharded_s = time.time() - t0
+    emit(dict(phase="ep_moe", nvidia_smi=smi, **ep))
+    print(f"ep_moe: {EP_ARCH} experts, {SHARDED_RANKS} ranks (data "
+          f"{EP_MESH[0]} x model {EP_MESH[1]}) on one card: 2 all-to-alls "
+          f"a forward, {ep['all_to_all_bytes_per_rank'][0] // 2} bytes each "
+          f"per rank; forward {max(ep['forward_seconds_per_rank']):.3f} s; "
+          f"dispatch equal; rel L2 {ep['rel_l2_vs_single']:.2e} "
+          f"(tol {EP_REL_TOL:.2e}) ({smi})", flush=True)
+    emit(dict(phase="sharded_train", nvidia_smi=smi, **sharded))
+    emit(dict(phase="sharded", seconds=sharded_s, ranks_seconds=ranks_s))
+    print(f"sharded_train: {SHARDED_ARCH} {sharded['n_layers']} layers, "
+          f"mesh data {SHARDED_MESH[0]} x model {SHARDED_MESH[1]}, B "
+          f"{SHARDED_BATCH} S {SHARDED_SEQ}: losses "
+          f"{[round(m['loss'], 6) for m in sharded['mesh_metrics']]} vs "
+          f"{[round(m['loss'], 6) for m in sharded['single']]} single; "
+          f"small-leaf gradients within "
+          f"{sharded['leaf_grad_rel_l2_max']:.2e} (tol "
+          f"{SHARDED_LEAF_REL_TOL:.0e}); step ms per rank "
+          f"{[round(t[-1], 1) for t in sharded['rank_step_ms']]}; "
+          f"{sharded['host_staged_per_rank'][0]['bytes']} bytes of the "
+          f"rig's host copies per rank; phase {sharded_s:.1f} s ({smi})",
+          flush=True)
+
     # -- phase 11: slice 8, the evaluation path's reference benchmarks --
     # (the routing-scheme bench's MCF LPs run in worker processes on the
     # host while phases 11 and 12 use the card)
@@ -3287,6 +3694,7 @@ def run(torch, dev) -> int:
               spmv_launches=wl["spmv_launches"],
               spmv_launches_by_form=dict(wl_forms),
               new_forms_checked=[r["form"] for r in wl_k1]))
+    emit(dict(phase="quickstart", **quickstart_phase()))
     emit(dict(phase="total", seconds=time.time() - t_start))
 
     # -- the kernels line, then the last line ----------------------------
@@ -3319,7 +3727,8 @@ def run(torch, dev) -> int:
         assert lm_launches[name] > 0, (name, lm_launches)
         path_launches = (lm_launches[name] + qwen["launches"][name]
                          + train["launches"][name]
-                         + train_small["launches"][name])
+                         + train_small["launches"][name]
+                         + sharded["launches"][name])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path_launches, max_abs_err=first["max_abs_err"],

@@ -19,8 +19,9 @@ lift tower's signed solves) then picks what the reference picks, and the
 CPU and the card start from the same vectors.
 
 The batched solvers stream their (B, n, k) operand stacks in memory-bounded
-batch tiles (:data:`DEFAULT_BATCH_TILE_BYTES`).  On one card the reference's
-``launch.mesh.shard_batch`` placement is the identity, so the port omits it.
+batch tiles (:data:`DEFAULT_BATCH_TILE_BYTES`), each through
+``launch.mesh.shard_batch`` where the reference calls it (the identity
+within one process: one rank drives one device).
 
 Relations used throughout (k-regular G):  rho_2 = k * mu_2 = k - lambda_2.
 """
@@ -36,6 +37,7 @@ from scipy.sparse import csgraph
 from repro_torch import obs
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.kernels import spmv as KS
+from repro_torch.launch import mesh as _mesh
 
 from . import threefry
 from .graphs import Topology
@@ -554,11 +556,12 @@ def rho2_laplacian_batched(tables: np.ndarray, weights: np.ndarray,
     betas = np.empty((B, iters), dtype=np.float64)
     for lo in range(0, B, tile):
         idx, keep = _tile_indices(lo, min(lo + tile, B), tile)
-        a, b = _lap_lanczos_batched(
+        ops = _mesh.shard_batch(
             torch.as_tensor(tables[idx], dtype=torch.int32, device=dev),
             torch.as_tensor(weights[idx], dtype=torch.float32, device=dev),
             torch.as_tensor(degs[idx], dtype=torch.float32, device=dev),
-            v0s[torch.as_tensor(idx, device=dev)], iters, backend=backend)
+            v0s[torch.as_tensor(idx, device=dev)])
+        a, b = _lap_lanczos_batched(*ops, iters, backend=backend)
         alphas[lo:lo + keep] = a.cpu().numpy()[:keep]
         betas[lo:lo + keep] = b.cpu().numpy()[:keep]
     lmin, _ = _batched_ritz_extremes(alphas, betas)
@@ -616,10 +619,11 @@ def signed_extremes_batched(table: np.ndarray, slot_signs: np.ndarray,
     betas = np.empty((B, iters), dtype=np.float64)
     for lo in range(0, B, tile):
         idx, keep = _tile_indices(lo, min(lo + tile, B), tile)
-        a, b = _signed_lanczos_batched(
-            tab, torch.as_tensor(slot_signs[idx], dtype=torch.float32,
-                                 device=dev),
-            v0s[torch.as_tensor(idx, device=dev)], iters, backend=backend)
+        sg, v0 = _mesh.shard_batch(
+            torch.as_tensor(slot_signs[idx], dtype=torch.float32,
+                            device=dev),
+            v0s[torch.as_tensor(idx, device=dev)])
+        a, b = _signed_lanczos_batched(tab, sg, v0, iters, backend=backend)
         alphas[lo:lo + keep] = a.cpu().numpy()[:keep]
         betas[lo:lo + keep] = b.cpu().numpy()[:keep]
     lmin, lmax = _batched_ritz_extremes(alphas, betas)

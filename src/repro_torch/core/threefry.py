@@ -29,11 +29,13 @@ from __future__ import annotations
 
 from typing import Tuple, Union
 
+import math
+
 import numpy as np
 import torch
 
 __all__ = ["threefry2x32", "prng_key", "split", "random_bits", "randint",
-           "uniform", "normal"]
+           "uniform", "normal", "normal_host"]
 
 #: a key pair (k0, k1) of uint32 words, or a seed standing for PRNGKey(seed)
 Key = Union[int, Tuple[int, int], np.ndarray]
@@ -227,11 +229,148 @@ def _erfinv32(u: np.ndarray) -> np.ndarray:
     return p * u
 
 
+def normal_host(key: Key, shape: Tuple[int, ...]) -> np.ndarray:
+    """float32 standard normals equal to ``jax.random.normal(key, shape,
+    float32)`` on the CPU, computed in numpy: the plain version of
+    :func:`normal`, which holds the same bits."""
+    f32 = np.float32
+    u = uniform(key, shape, np.nextafter(f32(-1.0), f32(0.0)), 1.0)
+    return f32(np.sqrt(2.0)) * _erfinv32(u)
+
+
+# --------------------------------------------------------------------------
+# the same normals as torch ops on the caller's device
+# --------------------------------------------------------------------------
+#
+# Every step below is one eager torch op, so each rounds once: a fused or
+# compiled kernel could contract ``a * b + c`` into a fused multiply-add
+# and change bits.  uint32 words ride in int64 tensors, masked to 32 bits
+# after each add and shift.
+
+_M32 = 0xFFFFFFFF
+
+
+def _threefry_t(key: np.ndarray, x0: torch.Tensor, x1: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` on int64 tensors holding uint32 words."""
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def _uniform_t(key: Key, shape: Tuple[int, ...], minval: float,
+               maxval: float, device: torch.device) -> torch.Tensor:
+    """:func:`uniform` as torch ops on ``device``."""
+    f32 = np.float32
+    lo, hi = f32(minval), f32(maxval)
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device)
+    b0, b1 = _threefry_t(_key(key), idx >> 32, idx & _M32)
+    bits = (b0 ^ b1) >> 9
+    unit = (bits | int(f32(1.0).view(np.uint32))).to(torch.int32).view(
+        torch.float32) - 1.0
+    scaled = (unit.to(torch.float64) * float(np.float64(hi - lo))
+              + float(lo)).to(torch.float32)
+    return torch.clamp(scaled, min=float(lo)).reshape(shape)
+
+
+def _fma32_t(a: torch.Tensor, b, c) -> torch.Tensor:
+    """:func:`_fma32` as torch ops: ``a * b + c`` of float32 values rounded
+    once (exact float64 product, round-to-odd sum, rounding to float32)."""
+    a = a.to(torch.float64)
+    b = b.to(torch.float64) if isinstance(b, torch.Tensor) else float(b)
+    c = c.to(torch.float64) if isinstance(c, torch.Tensor) else float(c)
+    s = a * b
+    t = s + c
+    bb = t - s
+    err = (s - (t - bb)) + (c - bb)
+    even = (t.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, math.inf, -math.inf)
+    t = torch.where((err != 0) & even, torch.nextafter(t, away), t)
+    return t.to(torch.float32)
+
+
+def _div32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a / b`` correctly rounded: the float64 quotient rounded to
+    float32 (the double rounding is exact for division)."""
+    return (a.to(torch.float64) / b.to(torch.float64)).to(torch.float32)
+
+
+def _sqrt32(a: torch.Tensor) -> torch.Tensor:
+    """float32 ``sqrt`` correctly rounded, as numpy's and XLA's are (the
+    CPU's vectorized float32 sqrt in torch may miss by an ulp); the float64
+    root rounded to float32 is exact."""
+    return torch.sqrt(a.to(torch.float64)).to(torch.float32)
+
+
+def _log1p32_small_t(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_log1p32`'s rational branch (|x| < sqrt(2) - 1)."""
+    x2 = x * x
+    num = x * 0.0 + float(_LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = _fma32_t(num, x, c)
+    den = x * 0.0 + 1.0
+    for c in _LOG1P_DEN:
+        den = _fma32_t(den, x, c)
+    return x + _fma32_t(x2, -0.5, (x * x2) * _div32(num, den))
+
+
+def _log1p32_large_t(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_log1p32`'s ``log(1 + x)`` branch (exponent and mantissa)."""
+    y = torch.clamp(x + 1.0, min=float(np.finfo(np.float32).tiny))
+    bits = y.view(torch.int32)
+    mant = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    expo = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    low = mant < float(_LOG_SQRT_HALF)
+    z = (mant - 1.0) + torch.where(low, mant, 0.0)
+    expo = torch.where(low, expo - 1.0, expo)
+    z2 = z * z
+    z3 = z2 * z
+    a0, a1, a2, b0, b1, b2, c0, c1, c2 = _LOG_POLY
+    pa = _fma32_t(_fma32_t(z, a0, a1), z, a2)
+    pb = _fma32_t(_fma32_t(z, b0, b1), z, b2)
+    pc = _fma32_t(_fma32_t(z, c0, c1), z, c2)
+    poly = _fma32_t(z3, _fma32_t(z3, pa, pb), pc)
+    tail = _fma32_t(z3, poly, expo * float(_LOG_LN2_LO))
+    return _fma32_t(expo, _LOG_LN2_HI, _fma32_t(z2, -0.5, z) + tail)
+
+
+def _log1p32_t(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_log1p32` as torch ops, each element through the one branch
+    it takes."""
+    small = torch.abs(x) < float(_LOG1P_SMALL)
+    out = torch.empty_like(x)
+    out[small] = _log1p32_small_t(x[small])
+    out[~small] = _log1p32_large_t(x[~small])
+    return out
+
+
+def _erfinv32_t(u: torch.Tensor) -> torch.Tensor:
+    """:func:`_erfinv32` as torch ops."""
+    w = -_log1p32_t(-(u * u))
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, _sqrt32(w) - 3.0)
+    lt5 = torch.from_numpy(_ERFINV_W_LT5).to(u.device)
+    ge5 = torch.from_numpy(_ERFINV_W_GE5).to(u.device)
+    p = torch.where(small, lt5[0], ge5[0])
+    for i in range(1, len(_ERFINV_W_LT5)):
+        p = _fma32_t(p, w, torch.where(small, lt5[i], ge5[i]))
+    return p * u
+
+
 def normal(key: Key, shape: Tuple[int, ...],
            device: torch.device) -> torch.Tensor:
     """float32 standard normals equal to ``jax.random.normal(key, shape,
-    float32)`` on the CPU, placed on ``device``."""
+    float32)`` on the CPU, computed by torch ops on ``device`` (the same
+    bits as :func:`normal_host`)."""
     f32 = np.float32
-    u = uniform(key, shape, np.nextafter(f32(-1.0), f32(0.0)), 1.0)
-    z = f32(np.sqrt(2.0)) * _erfinv32(u)
-    return torch.from_numpy(z).to(device)
+    u = _uniform_t(key, shape, np.nextafter(f32(-1.0), f32(0.0)), 1.0,
+                   torch.device(device))
+    return float(f32(np.sqrt(2.0))) * _erfinv32_t(u)

@@ -30,14 +30,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import grad as G
 
-__all__ = ["attention_ref", "flash_attention_cuda", "launches",
-           "reset_launches"]
+__all__ = ["attention_ref", "flash_attention_cuda", "gqa_flash_attention",
+           "launches", "reset_launches"]
 
 _LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
@@ -125,6 +126,20 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_cuda: head width {hd} > {limit} "
                          f"for {q.dtype}")
     return _differentiable(_launch, q, k, v, causal)
+
+
+def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, use_kernel: bool = True,
+                        interpret: Optional[bool] = None) -> torch.Tensor:
+    """The reference's entry point (``kernels/flash_attention/ops.py``):
+    q (B, S, H, hd); k, v (B, S, Kv, hd) -> (B, S, H, hd).  K3 for CUDA
+    tensors with ``use_kernel`` (the kernel reads GQA heads in place, so the
+    reference's repeat of k and v is not needed), else
+    :func:`attention_ref`; ``interpret`` is unused (no interpret mode)."""
+    del interpret
+    if use_kernel and q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, causal=causal)
+    return attention_ref(q, k, v, causal=causal)
 
 
 def _differentiable(launch, q, k, v, causal):

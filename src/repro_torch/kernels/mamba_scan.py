@@ -29,15 +29,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import grad as G
 
-__all__ = ["mamba_scan_ref", "mamba_scan_cuda", "launches", "reset_launches",
-           "MAX_STATE"]
+__all__ = ["mamba_scan_ref", "mamba_scan_cuda", "selective_scan", "launches",
+           "reset_launches", "MAX_STATE"]
 
 #: the kernel keeps a channel's states in registers: at most this many
 MAX_STATE = 16
@@ -133,6 +133,19 @@ def mamba_scan_cuda(x, delta, A, B_t, C_t, D
             raise ValueError(f"mamba_scan_cuda: {name} is {t.dtype}, x is "
                              f"{x.dtype}")
     return _differentiable(_launch, x, delta, A, B_t, C_t, D)
+
+
+def selective_scan(x, delta, A, B_t, C_t, D, use_kernel: bool = True,
+                   chunk: int = 64, interpret: Optional[bool] = None
+                   ) -> torch.Tensor:
+    """The reference's entry point (``kernels/mamba_scan/ops.py``): ``y``
+    (B, L, Di) only.  K4 for CUDA tensors with ``use_kernel``, else
+    :func:`mamba_scan_ref`; ``chunk`` (the Pallas body's time tile) and
+    ``interpret`` are unused (K4 picks its own tiles)."""
+    del chunk, interpret
+    if use_kernel and x.device.type == "cuda":
+        return mamba_scan_cuda(x, delta, A, B_t, C_t, D)[0]
+    return mamba_scan_ref(x, delta, A, B_t, C_t, D)[0]
 
 
 def _differentiable(launch, x, delta, A, B_t, C_t, D):

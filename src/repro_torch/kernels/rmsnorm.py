@@ -22,12 +22,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import grad as G
 
-__all__ = ["rmsnorm_ref", "rmsnorm_cuda", "launches", "reset_launches"]
+__all__ = ["rmsnorm_ref", "rmsnorm_cuda", "fused_rmsnorm", "launches",
+           "reset_launches"]
 
 _LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
@@ -88,6 +90,18 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
         raise ValueError(f"rmsnorm_cuda: w is {w.dtype} on {w.device}; x is "
                          f"{x.dtype} on {x.device}")
     return _differentiable(_launch, x, w, eps)
+
+
+def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+                  use_kernel: bool = True, interpret: Optional[bool] = None
+                  ) -> torch.Tensor:
+    """The reference's entry point (``kernels/rmsnorm/ops.py``): K5 for
+    CUDA tensors with ``use_kernel``, else :func:`rmsnorm_ref`;
+    ``interpret`` is unused (no interpret mode)."""
+    del interpret
+    if use_kernel and x.device.type == "cuda":
+        return rmsnorm_cuda(x, w, eps)
+    return rmsnorm_ref(x, w, eps)
 
 
 def _differentiable(launch, x, w, eps):

@@ -49,9 +49,9 @@ from repro_torch import obs
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = [
-    "BACKENDS", "spmv", "spmv_ref", "spmv_cuda", "spmv_matvec",
-    "default_backend", "resolve_backend", "use_backend", "launches",
-    "reset_launches", "interleave_stride",
+    "BACKENDS", "spmv", "spmv_ref", "spmv_padded", "spmv_cuda", "spmv_matvec",
+    "default_backend", "resolve_backend", "use_backend", "pallas_supported",
+    "kernel_backend", "launches", "reset_launches", "interleave_stride",
 ]
 
 #: "ref" = plain PyTorch gather+sum; "cuda" = the hand-written kernel K1.
@@ -71,6 +71,37 @@ def launches() -> int:
 def reset_launches() -> None:
     global _LAUNCHES
     _LAUNCHES = 0
+
+
+def pallas_supported() -> bool:
+    """True where the hand-written kernel can run: a CUDA card is present
+    and K1's library is built or ``nvcc`` can build it (the reference's
+    name: True where Mosaic can compile its Pallas kernel)."""
+    if not torch.cuda.is_available():
+        return False
+    from . import build
+
+    if build._library_path("spmv").exists():
+        return True
+    try:
+        build._nvcc()
+    except RuntimeError:
+        return False
+    return True
+
+
+def kernel_backend() -> str:
+    """The strongest kernel-exercising backend available here: ``"cuda"``
+    (K1, built on first use) where a card is present and the kernel builds,
+    else ``"ref"`` (the reference names its Pallas ``"pallas"`` or
+    ``"pallas_interpret"``; a CUDA kernel has no interpret mode)."""
+    if not pallas_supported():
+        return "ref"
+    try:
+        _library()
+    except RuntimeError:
+        return "ref"
+    return "cuda"
 
 
 def _validate(backend: str) -> str:
@@ -213,6 +244,22 @@ def spmv_cuda(x: torch.Tensor, table: torch.Tensor,
     counts one launch (:func:`launches`), whichever path it takes.
     """
     return _spmv_cuda(x, table, loops, signs)
+
+
+def spmv_padded(x: torch.Tensor, table: torch.Tensor,
+                loops: Optional[torch.Tensor] = None,
+                signs: Optional[torch.Tensor] = None, *,
+                block_rows: Optional[int] = None,
+                interpret: Optional[bool] = None) -> torch.Tensor:
+    """The reference's kernel entry point: K1 for a CUDA ``x``
+    (:func:`spmv_cuda`), the plain version for a CPU ``x``.  ``block_rows``
+    and ``interpret`` are the Pallas grid's and interpreter's; the CUDA
+    kernel picks its own blocks and has no interpret mode, so both are
+    accepted and unused."""
+    del block_rows, interpret
+    if x.device.type == "cuda":
+        return spmv_cuda(x, table, loops, signs)
+    return spmv_ref(x, table, loops, signs)
 
 
 def _spmv_cuda(x, table, loops=None, signs=None,

@@ -3,7 +3,9 @@
 Plain functions over explicit parameter dicts of tensors, the port of the
 reference's ``models/layers.py``.  ``rms_norm`` on a CUDA tensor launches the
 hand-written kernel K5 (:mod:`repro_torch.kernels.rmsnorm`); on a CPU tensor
-it runs the plain version.
+it runs the plain version.  On a DTensor it runs shard by shard
+(:func:`repro_torch.parallel.act.per_shard`): every dim but the normalized
+last one is independent, so only that one is gathered first.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rmsnorm as K5
+from repro_torch.parallel.act import is_sharded, per_shard
 
 __all__ = ["rms_norm", "rope_angles", "apply_rope", "mrope_positions",
            "gated_mlp", "init_linear", "init_norm"]
@@ -23,6 +26,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
     """``x * rsqrt(mean(x**2) + eps) * weight`` over the last axis, in f32,
     returned in ``x``'s dtype: kernel K5 on the card, else the plain version."""
+    if is_sharded(x):
+        lead = tuple(f"x{i}" for i in range(x.dim() - 1))
+        return per_shard(rms_norm, (x, weight), (lead + ("d",), ("d",)),
+                         (lead + ("d",),), frozenset(lead), eps=eps)
     if x.device.type == "cuda":
         return K5.rmsnorm_cuda(x, weight, eps)
     return K5.rmsnorm_ref(x, weight, eps)

@@ -8,6 +8,12 @@ chunks in order with an associative (or sequential) scan inside each chunk,
 so the (B, L, d_inner, N) working set stays one chunk long.  Decode is a
 single recurrence step over (conv_state, ssm_state), plain PyTorch
 everywhere.
+
+Sharded execution (DTensor inputs inside an ``activation_mesh``): u and z
+are constrained to (batch, -, channels) as in the reference, and the
+causal convolution and the scan run shard by shard
+(:func:`repro_torch.parallel.act.per_shard`): batch and channels are
+independent, time and the state are not.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import mamba_scan as K4
+from repro_torch.parallel.act import BATCH, TP, constrain, per_shard
 
 __all__ = ["mamba_params_shapes", "mamba_forward", "mamba_prefill",
            "mamba_decode_step", "selective_scan_chunked", "selective_scan_ref"]
@@ -101,26 +108,46 @@ def selective_scan_chunked(x, delta, A, B_t, C_t, D, chunk: int = 256,
                        * bc[:, t, None, :].float())
                 h = a_t * h + b_t
                 yc.append(torch.einsum("bdn,bn->bd", h, cc[:, t].float()))
-            ys.append(torch.stack(yc, dim=1))
+            ys.append(constrain(torch.stack(yc, dim=1), BATCH, None, TP))
             continue
         a, b = _ssm_inputs(xc, dc, A, bc, cc)
-        a_cum, b_cum = _assoc_scan(a.to(scan_dtype), b.to(scan_dtype))
-        h_t = a_cum.float() * h[:, None] + b_cum.float()            # (B,c,Di,N)
-        ys.append(torch.einsum("bcdn,bcn->bcd", h_t, cc.float()))
+        a = constrain(a.to(scan_dtype), BATCH, None, TP, None)
+        b = constrain(b.to(scan_dtype), BATCH, None, TP, None)
+        a_cum, b_cum = _assoc_scan(a, b)
+        h_t = constrain(a_cum.float() * h[:, None] + b_cum.float(),
+                        BATCH, None, TP, None)                     # (B,c,Di,N)
+        ys.append(constrain(torch.einsum("bcdn,bcn->bcd", h_t, cc.float()),
+                            BATCH, None, TP))
         h = h_t[:, -1]
     y = torch.cat(ys, dim=1)[:, :L]
     out = y + x[:, :L].float() * D[None, None]
     return out.to(x.dtype), h
 
 
-def _scan(u, delta, A, B_t, C_t, D, cfg, impl: str = "assoc",
-          scan_dtype: torch.dtype = torch.float32):
-    """The prefill scan: kernel K4 on the card, else the chunked plain scan."""
+def _scan_local(u, delta, A, B_t, C_t, D, *, chunk: int, impl: str,
+                scan_dtype: torch.dtype):
+    """The prefill scan on whole sequences: kernel K4 on the card, else the
+    chunked plain scan."""
     if u.device.type == "cuda":
         return K4.mamba_scan_cuda(u, delta, A, B_t, C_t, D)
-    return selective_scan_chunked(u, delta, A, B_t, C_t, D,
-                                  chunk=cfg.mamba_chunk,
+    return selective_scan_chunked(u, delta, A, B_t, C_t, D, chunk=chunk,
                                   scan_dtype=scan_dtype, impl=impl)
+
+
+#: the scan's and the convolution's dims for per_shard: batch ("b") and
+#: channels ("c") are independent, time ("l") and state ("n") are not
+_SEQ = ("b", "l", "c")
+_SCAN_DIMS = (_SEQ, _SEQ, ("c", "n"), ("b", "l", "n"), ("b", "l", "n"),
+              ("c",))
+_FREE = frozenset({"b", "c"})
+
+
+def _scan(u, delta, A, B_t, C_t, D, cfg, impl: str = "assoc",
+          scan_dtype: torch.dtype = torch.float32):
+    """The prefill scan, shard by shard on DTensor inputs: (y, h_final)."""
+    return per_shard(_scan_local, (u, delta, A, B_t, C_t, D), _SCAN_DIMS,
+                     (_SEQ, ("b", "c", "n")), _FREE, chunk=cfg.mamba_chunk,
+                     impl=impl, scan_dtype=scan_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -159,7 +186,10 @@ def _matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _ssm_projections(params, u, cfg):
     N, R = cfg.ssm_state, cfg.dt_rank
-    proj = _matmul(u, params["x_proj"])                           # (B,L,R+2N)
+    # (B, L, R+2N), whole on its last dim: with x_proj's Di rows on 'model'
+    # the product is a partial sum there, which torch 2.11's DTensor cannot
+    # add dt_bias's shard to after dt_proj; reduce it first
+    proj = constrain(_matmul(u, params["x_proj"]), BATCH, None, None)
     dt, B_t, C_t = torch.split(proj, [R, N, N], dim=-1)
     delta = F.softplus(_matmul(dt, params["dt_proj"]) + params["dt_bias"])
     A = -torch.exp(params["A_log"].float())
@@ -182,8 +212,12 @@ def mamba_prefill(params: Dict, x: torch.Tensor, cfg, impl: str = "assoc",
     Di, K = cfg.d_inner, cfg.ssm_conv
     xz = x @ params["in_proj"]
     u, z = torch.split(xz, [Di, Di], dim=-1)
+    u = constrain(u, BATCH, None, TP)
+    z = constrain(z, BATCH, None, TP)
     conv_state = u[:, -(K - 1):, :]                               # raw inputs tail
-    uc = F.silu(_causal_conv(u, params["conv_w"], params["conv_b"]))
+    uc = F.silu(per_shard(_causal_conv, (u, params["conv_w"],
+                                         params["conv_b"]),
+                          (_SEQ, ("k", "c"), ("c",)), (_SEQ,), _FREE))
     delta, A, B_t, C_t = _ssm_projections(params, uc, cfg)
     y, h_final = _scan(uc, delta, A, B_t, C_t, params["D"].float(), cfg,
                        impl=impl, scan_dtype=scan_dtype)

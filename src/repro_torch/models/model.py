@@ -10,6 +10,14 @@ dict of tensors with the reference's tree and names:
 materializes (B, S, V), and with ``cfg.remat`` under autograd each chunk's
 logits are recomputed in the backward (``torch.utils.checkpoint``), as the
 reference's ``jax.checkpoint`` around its chunk body does.
+
+Sharded execution: with DTensor parameters and batch inside
+:class:`repro_torch.parallel.act.activation_mesh`, the embedded input and
+each loss chunk's logits are constrained where the reference constrains
+them; the embedding gather and the per-position loss run shard by shard
+(:func:`repro_torch.parallel.act.per_shard`; DTensor has no sharding rule
+for an indexed gather on a sharded table, so the table and the vocabulary
+dim are gathered whole first).
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.parallel.act import BATCH, TP, constrain, per_shard
 
 from .layers import init_linear, mrope_positions, rms_norm, rope_angles
 from .transformer import (block_param_shapes, blocks_decode, blocks_forward,
@@ -127,11 +136,18 @@ def make_rope(cfg: ArchConfig, B: int, S: int, offset: int = 0, device=None):
 # forward
 # --------------------------------------------------------------------------
 
+def _take_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
 def _embed_in(params, batch, cfg):
     dtype = dtype_of(cfg.compute_dtype)
     if "embeds" in batch:                     # stub frontends (vlm/audio)
-        return batch["embeds"].to(dtype)
-    return params["embed"][batch["tokens"].long()].to(dtype)
+        return constrain(batch["embeds"].to(dtype), BATCH, None, None)
+    x = per_shard(_take_rows, (params["embed"], batch["tokens"]),
+                  (("v", "d"), ("b", "s")), (("b", "s", "d"),),
+                  frozenset({"b", "s"}))
+    return constrain(x.to(dtype), BATCH, None, None)
 
 
 def forward_hidden(params, batch, cfg):
@@ -153,14 +169,22 @@ def _logits(params, h, cfg):
     return (h @ _head_weight(params, cfg).to(h.dtype)).float()
 
 
-def _chunk_nll(hs, ls, hw):
-    """One loss chunk: (sum of the valid positions' -log p(label) in f32,
-    count of valid positions).  hs (B, c, D); ls (B, c), -1 = no label."""
-    logits = (hs @ hw.to(hs.dtype)).float()
+def _token_nll(logits, ls):
+    """Per position: (-log p(label), label present).  logits (B, c, V) f32;
+    ls (B, c), -1 = no label."""
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, ls.clamp(min=0).long()[..., None])[..., 0]
     valid = ls >= 0
-    nll = torch.where(valid, lse - tgt, torch.zeros_like(lse))
+    return torch.where(valid, lse - tgt, torch.zeros_like(lse)), valid
+
+
+def _chunk_nll(hs, ls, hw):
+    """One loss chunk: (sum of the valid positions' -log p(label) in f32,
+    count of valid positions).  hs (B, c, D); ls (B, c), -1 = no label."""
+    logits = constrain((hs @ hw.to(hs.dtype)).float(), BATCH, None, TP)
+    nll, valid = per_shard(_token_nll, (logits, ls),
+                           (("b", "c", "v"), ("b", "c")),
+                           (("b", "c"), ("b", "c")), frozenset({"b", "c"}))
     return nll.sum(), valid.sum(dtype=torch.int32)
 
 

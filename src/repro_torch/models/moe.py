@@ -9,6 +9,15 @@ batched matmul per projection over the E axis.  The reference's per-group
 ``vmap`` is written out as a leading group axis.
 
 ``moe_ref`` is the capacity-unbounded dense oracle used by tests.
+
+Sharded execution (DTensor inputs inside an ``activation_mesh``): the slot
+tensor is constrained to (groups, experts) as in the reference, DTensor
+runs the expert products, and the routing, the gather into slots and the
+combine run group by group (:func:`repro_torch.parallel.act.per_shard`):
+DTensor has no sharding rule for their sorts and indexed scatters
+(``index_put_`` with ``accumulate``), and a group's routing is local to it
+anyway.  The explicit expert-parallel forward with its two all-to-alls is
+:mod:`repro_torch.parallel.ep_moe`.
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.act import BATCH, TP, constrain, per_shard
 
 __all__ = ["moe_params_shapes", "moe_forward", "moe_ref", "capacity"]
 
@@ -75,6 +86,52 @@ def _route_group(router_logits: torch.Tensor, k: int, C: int, E: int
     return dispatch, gate, flat_expert, valid
 
 
+def _route(logits: torch.Tensor, *, k: int, C: int, E: int):
+    """:func:`_route_group` and each slot's token (sentinel S = no token)."""
+    S = logits.shape[1]
+    dispatch, gate, flat_expert, valid = _route_group(logits, k, C, E)
+    token_idx = torch.where(valid, dispatch // k,
+                            torch.full_like(dispatch, S))
+    return dispatch, gate, flat_expert, valid, token_idx
+
+
+def _gather_slots(x: torch.Tensor, token_idx: torch.Tensor) -> torch.Tensor:
+    """Tokens into expert slots: (G, S, D) -> (G, E, C, D); an empty slot
+    reads the zero sentinel row."""
+    G, S, D = x.shape
+    _, E, C = token_idx.shape
+    xpad = torch.cat([x, torch.zeros((G, 1, D), dtype=x.dtype,
+                                     device=x.device)], dim=1)    # sentinel row
+    gidx = torch.arange(G, device=x.device)[:, None]
+    return xpad[gidx, token_idx.reshape(G, E * C)].reshape(G, E, C, D)
+
+
+def _combine(ye: torch.Tensor, gate: torch.Tensor, dispatch: torch.Tensor,
+             valid: torch.Tensor, token_idx: torch.Tensor) -> torch.Tensor:
+    """Expert outputs (G, E, C, D) back to tokens (G, S, D), weighted by
+    each assignment's gate."""
+    G, E, C, D = ye.shape
+    S, k = gate.shape[1], gate.shape[2]
+    gidx = torch.arange(G, device=ye.device)[:, None]
+    gate_flat = torch.cat([gate.reshape(G, S * k),
+                           torch.zeros((G, 1), device=ye.device)], dim=1)
+    assign_gate = torch.gather(
+        gate_flat, 1, torch.where(valid, dispatch, torch.full_like(
+            dispatch, S * k)).reshape(G, E * C)).reshape(G, E, C)
+    # bf16 accumulation, as the reference: each token sums <= k outputs
+    y = torch.zeros((G, S + 1, D), dtype=ye.dtype, device=ye.device)
+    y.index_put_((gidx[:, :, None].expand(G, E, C), token_idx),
+                 ye * assign_gate[..., None].to(ye.dtype), accumulate=True)
+    return y[:, :S]
+
+
+def _top1_one_hot(flat_expert: torch.Tensor, *, k: int, E: int
+                  ) -> torch.Tensor:
+    """(G, S, E) one-hot of each token's first expert, f32."""
+    G = flat_expert.shape[0]
+    return F.one_hot(flat_expert.reshape(G, -1, k)[..., 0], E).float()
+
+
 def moe_forward(params: Dict, x: torch.Tensor, cfg
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (G, S, D) grouped tokens -> (y, aux_loss)."""
@@ -85,14 +142,18 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg
         raise NotImplementedError(
             "moe_forward: the float8 dispatch payload is not ported")
     logits = x @ params["router"].to(x.dtype)                     # (G, S, E)
-    dispatch, gate, flat_expert, valid = _route_group(logits, k, C, E)
+    slots = ("g", "e", "c")
+    groups = frozenset({"g"})
+    dispatch, gate, flat_expert, valid, token_idx = per_shard(
+        _route, (logits,), (("g", "s", "e"),),
+        (slots, ("g", "s", "k"), ("g", "a"), slots, slots), groups,
+        k=k, C=C, E=E)
 
     # gather tokens into expert slots: token of assignment a is a // k
-    xpad = torch.cat([x, torch.zeros((G, 1, D), dtype=x.dtype,
-                                     device=x.device)], dim=1)    # sentinel row
-    token_idx = torch.where(valid, dispatch // k, torch.full_like(dispatch, S))
-    gidx = torch.arange(G, device=x.device)[:, None]
-    xe = xpad[gidx, token_idx.reshape(G, E * C)].reshape(G, E, C, D)
+    xe = per_shard(_gather_slots, (x, token_idx), (("g", "s", "d"), slots),
+                   (slots + ("d",),), groups)
+    # EP boundary: groups on the batch axis, experts on the model axis
+    xe = constrain(xe, BATCH, TP, None, None)
 
     # expert FFN: (E, G*C, D) @ (E, D, F) per projection
     act = _act(cfg)
@@ -101,23 +162,18 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg
     u = xe_e @ params["wu"].to(x.dtype)
     ye = (act(g) * u) @ params["wd"].to(x.dtype)                  # (E, G*C, D)
     ye = ye.reshape(E, G, C, D).permute(1, 0, 2, 3)               # (G, E, C, D)
+    ye = constrain(ye, BATCH, TP, None, None)
 
     # combine: scatter expert outputs back to tokens with gate weights
-    gate_flat = torch.cat([gate.reshape(G, S * k),
-                           torch.zeros((G, 1), device=x.device)], dim=1)
-    assign_gate = torch.gather(
-        gate_flat, 1, torch.where(valid, dispatch, torch.full_like(
-            dispatch, S * k)).reshape(G, E * C)).reshape(G, E, C)
-    # bf16 accumulation, as the reference: each token sums <= k outputs
-    y = torch.zeros((G, S + 1, D), dtype=x.dtype, device=x.device)
-    y.index_put_((gidx[:, :, None].expand(G, E, C), token_idx),
-                 ye * assign_gate[..., None].to(ye.dtype), accumulate=True)
-    y = y[:, :S]
+    y = per_shard(_combine, (ye, gate, dispatch, valid, token_idx),
+                  (slots + ("d",), ("g", "s", "k"), slots, slots, slots),
+                  (("g", "s", "d"),), groups)
 
     # switch-style load-balance aux loss
     probs = torch.softmax(logits.float(), dim=-1)
     me = probs.mean(dim=(0, 1))                                   # (E,)
-    one_hot = F.one_hot(flat_expert.reshape(G, S, k)[..., 0], E).float()
+    one_hot = per_shard(_top1_one_hot, (flat_expert,), (("g", "a"),),
+                        (("g", "s", "e"),), groups, k=k, E=E)
     ce = one_hot.reshape(-1, E).mean(dim=0)
     aux = E * torch.sum(me * ce)
     return y, aux

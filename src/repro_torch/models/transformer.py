@@ -5,7 +5,7 @@ The port of the reference's ``models/transformer.py``.  A model is
 ``pattern`` applied ``n_repeats`` times; parameters for pattern position p
 are stacked with a leading (R,) axis, and the reference's ``lax.scan`` over
 repeats is a Python loop over that axis here (so is the decode caches'
-leading axis).  There is no sharding on one card.  With ``cfg.remat``,
+leading axis).  With ``cfg.remat``,
 when autograd records, each repeat of the pattern in :func:`blocks_forward`
 runs under ``torch.utils.checkpoint`` (non-reentrant): its activations are
 recomputed in the backward, as the reference's ``jax.checkpoint`` around
@@ -20,6 +20,15 @@ layer without a window and without a query offset goes to K3
 and no query offset: a windowed layer, or a query offset, runs the plain
 ``chunked_attention`` on whatever device its tensors are, as the reference
 runs every layer.  Decode attention is plain PyTorch everywhere.
+
+Sharded execution: inside :class:`repro_torch.parallel.act.activation_mesh`
+with DTensor parameters and batch, ``constrain`` redistributes activations
+at the reference's call sites (the hidden state between blocks, q / k / v
+on their heads, or k / v on head_dim for MQA), DTensor propagates the
+rest op by op, and attention runs shard by shard through
+:func:`repro_torch.parallel.act.per_shard` (batch- and head-sharded; a
+head_dim or sequence shard is gathered first, since K3 and the plain
+attention need them whole).  On plain tensors none of this changes a bit.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as K3
+from repro_torch.parallel.act import (BATCH, TP, constrain, per_shard,
+                                      split_last)
 
 from .attention import chunked_attention
 from .layers import apply_rope, gated_mlp, rms_norm
@@ -85,8 +96,30 @@ def _qkv(p, x, cfg, S):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, Kv, hd),
-            v.reshape(B, S, Kv, hd))
+    q = constrain(split_last(q, H, hd), BATCH, None, TP, None)
+    k, v = split_last(k, Kv, hd), split_last(v, Kv, hd)
+    if Kv == 1:   # MQA: the single kv head cannot carry TP — shard head_dim
+        k = constrain(k, BATCH, None, None, TP)
+        v = constrain(v, BATCH, None, None, TP)
+    else:
+        k = constrain(k, BATCH, None, TP, None)
+        v = constrain(v, BATCH, None, TP, None)
+    return q, k, v
+
+
+def _attend(q, k, v, *, causal: bool, window, chunk: int, q_offset: int):
+    """Prefill attention on whole sequences and heads: K3 on the card where
+    it applies (no window, no query offset), else the plain chunked
+    attention."""
+    if q.device.type == "cuda" and window is None and q_offset == 0:
+        return K3.flash_attention_cuda(q, k, v, causal=causal)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=chunk, k_chunk=chunk, q_offset=q_offset)
+
+
+#: attention's dims for :func:`per_shard`: batch and heads are independent
+_ATTN_DIMS = ("b", "s", "h", "d")
+_ATTN_FREE = frozenset({"b", "h"})
 
 
 def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
@@ -98,12 +131,9 @@ def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    if q.device.type == "cuda" and spec.window is None and q_offset == 0:
-        o = K3.flash_attention_cuda(q, k, v, causal=cfg.causal)
-    else:
-        o = chunked_attention(q, k, v, causal=cfg.causal, window=spec.window,
-                              q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk,
-                              q_offset=q_offset)
+    o = per_shard(_attend, (q, k, v), (_ATTN_DIMS,) * 3, (_ATTN_DIMS,),
+                  _ATTN_FREE, causal=cfg.causal, window=spec.window,
+                  chunk=cfg.attn_chunk, q_offset=q_offset)
     out = o.reshape(B, S, H * hd) @ p["wo"]
     if return_kv:
         return out, (k, v)
@@ -170,9 +200,10 @@ def _unstack(tree, R: int) -> List:
 def _repeat_body(pattern, cfg, rope, h, aux, *per_position):
     """One repeat of the pattern: (hidden, aux) in, (hidden, aux) out."""
     for spec, p in zip(pattern, per_position):
+        h = constrain(h, BATCH, None, None)
         h, a, _ = _one_block(spec, p, h, cfg, rope)
         aux = aux + a
-    return h, aux
+    return constrain(h, BATCH, None, None), aux
 
 
 def blocks_forward(block_params: List[Dict], x: torch.Tensor, cfg, rope
@@ -267,6 +298,7 @@ def blocks_prefill(block_params: List[Dict], x: torch.Tensor, cfg, rope,
     for r in range(cfg.n_repeats):
         for i, (spec, p_all) in enumerate(zip(cfg.pattern, block_params)):
             p = _repeat(p_all, r)
+            h = constrain(h, BATCH, None, None)
             hn = rms_norm(h, p["norm1"], cfg.norm_eps)
             if spec.kind == "attn":
                 out, (k, v) = _attn_sublayer(p["attn"], hn, cfg, spec, rope,

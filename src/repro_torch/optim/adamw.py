@@ -20,6 +20,11 @@ the new parameters, m and v into the given tensors, elementwise in slices
 of ``_CHUNK`` elements, so that a full-width step needs no second copy of
 the parameters or the state and only slice-sized float32 temporaries.  It
 returns the trees all the same, as the reference's pure update does.
+
+On DTensor parameters (sharded execution) the global norm is DTensor
+arithmetic, so its sums reduce over the whole mesh; the update itself runs
+on each rank's local shards, every gradient first redistributed to its
+parameter's placements (elementwise work is exact shard by shard).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.parallel.act import is_sharded
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
            "global_norm", "clip_by_global_norm"]
@@ -94,10 +100,26 @@ def adamw_init(params, cfg: AdamWConfig):
     """Zero m and v in ``cfg.state_dtype`` beside each parameter, and a 0-d
     int32 step, on the parameters' device."""
     dt = _STATE_DTYPES[cfg.state_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    # zeros_like keeps a DTensor parameter's placements
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)
     first = T.leaves(params)[0]
     return dict(m=T.tree_map(zeros, params), v=T.tree_map(zeros, params),
                 step=torch.zeros((), dtype=torch.int32, device=first.device))
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor (``t`` if plain)."""
+    return t.full_tensor() if is_sharded(t) else t
+
+
+def _local(t: torch.Tensor, like=None) -> torch.Tensor:
+    """The tensor the update writes: a DTensor's local shard (after moving
+    it to ``like``'s placements), a plain tensor itself."""
+    if not is_sharded(t):
+        return t
+    if like is not None and tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -113,10 +135,10 @@ def adamw_update(params, grads, state, cfg: AdamWConfig
                  ) -> Tuple[Any, Dict, Dict[str, torch.Tensor]]:
     """One AdamW step: ``(params, state, dict(lr=, grad_norm=))``, the
     parameters, m, v and step updated in place (see the module's note)."""
-    step = state["step"] + 1
+    step = _full(state["step"]) + 1
     stepf = step.to(torch.float32)
     lr = cosine_schedule(cfg, stepf)
-    gnorm = global_norm(grads)
+    gnorm = _full(global_norm(grads))
     scale = _clip_scale(gnorm, cfg.clip_norm)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - torch.pow(_f32(b1, stepf), stepf)
@@ -141,13 +163,14 @@ def adamw_update(params, grads, state, cfg: AdamWConfig
         raise ValueError("adamw_update: params, grads, m and v differ in "
                          "their number of leaves")
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        decay = p.dim() >= 2
+        p, g, m, v = _local(p), _local(g, p), _local(m, p), _local(v, p)
         pf, mf, vf, gf = _flat(p), _flat(m), _flat(v), g.reshape(-1)
         for lo in range(0, pf.numel(), _CHUNK):
             s = slice(lo, lo + _CHUNK)
             # slice assignment casts to the stored dtype, as .astype does
-            pf[s], mf[s], vf[s] = upd(pf[s], gf[s], mf[s], vf[s],
-                                      p.dim() >= 2)
-    state["step"].copy_(step)
+            pf[s], mf[s], vf[s] = upd(pf[s], gf[s], mf[s], vf[s], decay)
+    _local(state["step"]).copy_(step)
     return (T.unflatten(tdef, flat_p),
             dict(m=state["m"], v=state["v"], step=state["step"]),
             dict(lr=lr, grad_norm=gnorm))

@@ -1,0 +1,243 @@
+"""Activation sharding constraints (mesh-context based).
+
+The port of the reference's ``parallel/act.py``.  Model code calls
+``constrain(x, *logical_axes)``; inside an :class:`activation_mesh` whose
+mesh is a ``torch.distributed.device_mesh.DeviceMesh`` it redistributes a
+DTensor ``x`` to the placements the cleaned spec gives (the counterpart of
+``jax.lax.with_sharding_constraint``).  Outside the context, or on a plain
+tensor, it returns ``x`` itself, so single-device runs are unaffected.
+
+A mesh here is either a ``DeviceMesh`` (its ``mesh_dim_names`` and sizes)
+or any object with ``axis_names`` and a name -> size ``shape`` mapping, the
+duck-typed mesh the rules accept (:func:`mesh_axes` reads both).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+__all__ = ["activation_mesh", "constrain", "BATCH", "TP",
+           "batch_axes", "pick_tp_dim", "mesh_axes", "clean_spec",
+           "placements_for", "per_shard", "split_last", "is_sharded"]
+
+# logical activation axes used by model code (resolved against the live mesh)
+BATCH = ("pod", "data")
+TP = "model"
+
+_ACT_MESH: Optional[Any] = None
+
+
+def mesh_axes(mesh: Any) -> Dict[str, int]:
+    """Axis name -> size, in mesh-dim order, of a ``DeviceMesh`` or of a
+    duck-typed mesh (``axis_names`` and a ``shape`` mapping)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+class activation_mesh:
+    """Context: model-internal ``constrain`` calls target this mesh.
+    No-op (constraints vanish) when not entered."""
+
+    def __init__(self, mesh: Optional[Any]):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _ACT_MESH
+        self._old = _ACT_MESH
+        _ACT_MESH = self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        global _ACT_MESH
+        _ACT_MESH = self._old
+        return False
+
+
+def clean_spec(shape: Tuple[int, ...], spec: tuple, mesh: Any) -> tuple:
+    """The reference's cleaning of a constraint: per dim, drop the axes
+    absent from the mesh; keep the rest only if their product divides the
+    dim and exceeds 1 (a lone axis as its name, several as a tuple)."""
+    axes_of = mesh_axes(mesh)
+    clean = []
+    for dim, entry in zip(shape, spec):
+        if entry is None:
+            clean.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        axes = tuple(a for a in axes if a in axes_of)
+        size = int(np.prod([axes_of[a] for a in axes])) if axes else 1
+        if axes and dim % size == 0 and size > 1:
+            clean.append(axes if len(axes) > 1 else axes[0])
+        else:
+            # absent, non-dividing or size-1 axes: replicate (the
+            # reference does not try a prefix of ('pod', 'data') either)
+            clean.append(None)
+    return tuple(clean)
+
+
+def placements_for(spec: tuple, mesh: Any) -> tuple:
+    """DTensor placements, one per mesh dim, of a partition spec (one entry
+    per tensor dim).
+
+    A spec maps tensor dims to mesh axes; placements go the other way, one
+    per mesh dim: ``Shard(d)`` where tensor dim d names that axis, else
+    ``Replicate()``.  A dim sharded over several axes, e.g. ``('pod',
+    'data')``, takes one ``Shard(d)`` per axis; DTensor splits it in
+    mesh-dim order (the first mesh dim outermost), which is the partition
+    spec's major-to-minor order only when the entry lists its axes in
+    mesh-dim order, so any other order is refused.  Axes absent from the
+    mesh are dropped."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    order = list(mesh_axes(mesh))
+    owner: Dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = [a for a in (entry if isinstance(entry, tuple) else (entry,))
+                if a in order]
+        if [order.index(a) for a in axes] != sorted(order.index(a)
+                                                   for a in axes):
+            raise ValueError(f"spec entry {entry!r} does not list its axes in "
+                             f"mesh-dim order {tuple(order)}")
+        for a in axes:
+            if a in owner:
+                raise ValueError(f"mesh axis {a!r} shards two dims in {spec}")
+            owner[a] = d
+    return tuple(Shard(owner[a]) if a in owner else Replicate()
+                 for a in order)
+
+
+def constrain(x, *spec):
+    """Redistribute the DTensor ``x`` to ``spec`` (cleaned against the
+    context mesh, as the reference cleans it); ``x`` itself outside an
+    :class:`activation_mesh`, for ``None`` and for a plain tensor."""
+    mesh = _ACT_MESH
+    if mesh is None or x is None or not is_sharded(x):
+        return x
+    want = placements_for(clean_spec(tuple(x.shape), spec, mesh), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def batch_axes(mesh: Any):
+    return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
+
+
+def _axis_size(mesh: Any, name: str) -> int:
+    return mesh_axes(mesh).get(name, 1)
+
+
+def _div(n: int, mesh: Any, axis: str) -> bool:
+    return n % _axis_size(mesh, axis) == 0
+
+
+def pick_tp_dim(mesh: Any, *dims: int) -> int:
+    """Index (into dims) of the first dim divisible by the model axis, else -1."""
+    for i, d in enumerate(dims):
+        if d and _div(d, mesh, "model"):
+            return i
+    return -1
+
+
+def split_last(x, *sizes):
+    """``x.reshape(*x.shape[:-1], *sizes)``; for a DTensor whose last dim
+    is sharded where ``sizes[0]`` does not divide evenly (heads that do
+    not divide the model axis), that shard is gathered first: DTensor
+    cannot split an uneven shard in a view."""
+    if is_sharded(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = x.dim() - 1
+        mesh = x.device_mesh
+        want = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                     and sizes[0] % mesh.size(i) else p
+                     for i, p in enumerate(x.placements))
+        if want != tuple(x.placements):
+            x = x.redistribute(mesh, want)
+    return x.reshape(*x.shape[:-1], *sizes)
+
+
+def is_sharded(x) -> bool:
+    """True for a DTensor (a tensor placed on a device mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
+              **kwargs):
+    """``fn(*args, **kwargs)`` run shard by shard where ``args`` hold
+    DTensors, through ``torch.distributed.tensor.experimental.local_map``.
+
+    ``dims`` names each argument's tensor dims (a tuple of labels per
+    argument, ``None`` for an argument passed as it is), ``outs`` each
+    output's.  A mesh dim stays sharded only on a label in ``free`` (the
+    dims ``fn`` treats independently: batch, heads, channels): the one
+    free label some argument is sharded on there, where it divides every
+    argument carrying it evenly; those arguments are sharded on it (a
+    replicated one keeps its slice, no exchange).  Every other mesh dim is
+    redistributed to ``Replicate`` first (a shard on a kernel dim is
+    gathered, a ``Partial`` reduced).  So a kernel's own dims reach it
+    whole and each shard computes exactly its slice of the result.  An argument
+    replicated over a mesh dim whose shards compute different slices (a
+    norm's weight beside a batch-sharded input) gets its gradient as a
+    ``Partial`` sum over that dim.  With no DTensor among ``args``, ``fn``
+    runs on them directly."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    lead = next((a for a in args if is_sharded(a)), None)
+    if lead is None:
+        return fn(*args, **kwargs)
+    mesh = lead.device_mesh
+    tensors = [(a, d) for a, d in zip(args, dims)
+               if d is not None and is_sharded(a)]
+    # per mesh dim, the one free label some argument is sharded on there
+    label_of: Dict[int, str] = {}
+    for i in range(mesh.ndim):
+        labels = {d[a.placements[i].dim] for a, d in tensors
+                  if isinstance(a.placements[i], Shard)} & free
+        if len(labels) == 1:
+            label_of[i] = labels.pop()
+    # keep a label only where every argument carrying it divides evenly
+    for label in set(label_of.values()):
+        n = int(np.prod([mesh.size(i) for i, lb in label_of.items()
+                         if lb == label]))
+        if any(label in d and a.shape[d.index(label)] % n
+               for a, d in tensors):
+            label_of = {i: lb for i, lb in label_of.items() if lb != label}
+
+    def target(d):
+        # a list: local_map reads a tuple as one entry per output
+        return [Shard(d.index(label_of[i]))
+                if i in label_of and label_of[i] in d else Replicate()
+                for i in range(mesh.ndim)]
+
+    placed = []
+    for a, d in zip(args, dims):
+        if d is not None and is_sharded(a):
+            want = tuple(target(d))
+            if tuple(a.placements) != want:
+                a = a.redistribute(mesh, want)
+        placed.append(a)
+    def grad_target(d):
+        return [Partial() if i in label_of and label_of[i] not in d else p
+                for i, p in enumerate(target(d))]
+
+    sharded = [d is not None and is_sharded(a) for a, d in zip(placed, dims)]
+    in_placements = tuple(target(d) if sh else None
+                          for d, sh in zip(dims, sharded))
+    in_grads = tuple(grad_target(d) if sh else None
+                     for d, sh in zip(dims, sharded))
+    out_placements = tuple(target(d) for d in outs)
+    run = local_map(lambda *xs: fn(*xs, **kwargs),
+                    out_placements=(out_placements if len(outs) > 1
+                                    else out_placements[0]),
+                    in_placements=in_placements,
+                    in_grad_placements=in_grads, device_mesh=mesh)
+    return run(*placed)

@@ -1,0 +1,272 @@
+"""Rank entry points for :func:`repro_torch.launch.mesh.run_ranks`.
+
+Each function runs on every rank of an initialised process group and
+returns what its caller compares: ``spawn`` pickles them by name, so they
+live in the package.
+
+* :func:`sharded_train_steps` -- the reference's sharded-execution check:
+  parameters, optimizer state and batch placed on a (data, model) mesh by
+  ``param_pspecs`` / ``opt_pspecs`` / ``batch_pspecs``, then train steps
+  inside ``activation_mesh``; returns each step's metrics.
+* :func:`ep_moe_rank` -- :func:`repro_torch.parallel.ep_moe.ep_moe_forward`
+  on a (data, model) mesh; returns the whole output and the routing.
+* :func:`local_shards` -- arrays placed by partition specs on a named
+  mesh; returns this rank's shards.
+* :func:`with_host_staging` -- one of the above with DTensor's
+  collectives staged through the host on this device type too
+  (:func:`repro_torch.launch.mesh.stage_collectives_through_host`).
+* :func:`run_jobs` -- several of the above in one launch.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["sharded_train_steps", "ep_moe_rank", "moe_inputs",
+           "local_shards", "with_host_staging", "run_jobs", "train_batch",
+           "whole_leaves"]
+
+
+def train_batch(cfg, B: int, S: int, device, step: int = 0
+                ) -> Dict[str, torch.Tensor]:
+    """The data pipeline's synthetic batch ``step`` (seed 0) as tensors."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+
+    dc = DataConfig(global_batch=B, seq_len=S, vocab_size=cfg.vocab_size)
+    batch = synthetic_batch(dc, step, frontend=cfg.frontend,
+                            d_model=cfg.d_model)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def whole_leaves(tree, limit: Optional[int] = None
+                 ) -> Dict[int, np.ndarray]:
+    """Each leaf of at most ``limit`` elements (every leaf if None), whole
+    (a DTensor's ``full_tensor()``: pending partial sums reduced), as float32
+    numpy, by its index in ``repro_torch.tree`` order.  Every rank of a
+    mesh must call it: the sharded leaves are gathered."""
+    from repro_torch import tree as T
+
+    from .act import is_sharded
+
+    out = {}
+    for i, t in enumerate(T.leaves(tree)):
+        if limit is not None and t.numel() > limit:
+            continue
+        t = t.full_tensor() if is_sharded(t) else t
+        out[i] = t.detach().float().cpu().numpy()
+    return out
+
+
+def _count_launches():
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.kernels import mamba_scan as K4
+    from repro_torch.kernels import rmsnorm as K5
+
+    return dict(rmsnorm=K5.launches(), flash_attention=K3.launches(),
+                mamba_scan=K4.launches())
+
+
+def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
+                        B: int, S: int, mesh_shape, device: str,
+                        steps: int = 1, leaves: Optional[int] = 0
+                        ) -> List[Dict]:
+    """For each config: initial state from seed 0 (the same on every rank,
+    as the single-device step it is held to draws it), placed by the rules
+    on a ('data', 'model') mesh of ``mesh_shape``, then ``steps`` train
+    steps on data steps 0, 1, ...  Returns per config the steps' metrics
+    (floats), the seconds of each step, the K3 / K4 / K5 launches of this
+    rank, and its peak device memory, allocated and reserved (CUDA); on
+    rank 0 also, by :func:`whole_leaves`, for the leaves of at most
+    ``leaves`` elements (0: none, None: every leaf), each step's gradients
+    (``grads``, a list by step) and the parameters after the steps
+    (``params_after``)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.kernels import mamba_scan as K4
+    from repro_torch.kernels import rmsnorm as K5
+    from repro_torch.launch.mesh import (make_local_mesh, reset_staged_bytes,
+                                         staged_bytes)
+    from repro_torch.parallel import sharding as sh
+    from repro_torch import tree as T
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    dev = torch.device(device)
+    mesh = make_local_mesh(*mesh_shape, device=dev.type)
+    out = []
+    for cfg in cfgs:
+        shape = ShapeSpec("t", S, B, "train")
+        # whole parameters from the seed, then this rank's shards (copies,
+        # so the whole tensors are freed); the AdamW state is made beside
+        # the shards, at the placements opt_pspecs gives
+        params = sh.device_put(init_params(cfg, seed=0, device=dev),
+                               sh.to_shardings(sh.param_pspecs(cfg, mesh),
+                                               mesh))
+        opt = adamw_init(params, opt_cfg)
+        want = sh.to_shardings(sh.opt_pspecs(cfg, mesh), mesh)
+        for t, ns in zip(T.leaves(opt), T.leaves(want)):
+            if t.dim() and tuple(t.placements) != ns.placements:
+                raise AssertionError(f"{cfg.name}: optimizer state placed "
+                                     f"{t.placements}, opt_pspecs "
+                                     f"{ns.placements}")
+        b_sh = sh.to_shardings(sh.batch_pspecs(cfg, shape, mesh), mesh)
+        metrics, seconds, grads = [], [], []
+        step = make_train_step(cfg, opt_cfg, on_grads=(
+            None if leaves == 0           # gathered on every rank
+            else lambda g: grads.append(whole_leaves(g, leaves))))
+        reset_staged_bytes()
+        for K in (K3, K4, K5):
+            K.reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(steps):
+            batch = sh.device_put(train_batch(cfg, B, S, dev, i), b_sh)
+            t0 = time.perf_counter()
+            with sh.activation_mesh(mesh):
+                params, opt, m = step(params, opt, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        local = sum(t.to_local().numel() for t in T.leaves(params))
+        whole = sum(t.numel() for t in T.leaves(params))
+        after = whole_leaves(params, leaves) if leaves != 0 else {}
+        row = dict(arch=cfg.name, metrics=metrics, seconds=seconds,
+                   local_param_elements=local, param_elements=whole,
+                   host_staged=staged_bytes(), launches=_count_launches(),
+                   peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
+                                      if dev.type == "cuda" else None),
+                   peak_reserved_bytes=(torch.cuda.max_memory_reserved(dev)
+                                        if dev.type == "cuda" else None))
+        if rank == 0:
+            row.update(grads=grads, params_after=after)
+        out.append(row)
+        del params, opt
+    return out
+
+
+def moe_inputs(cfg, G: int, S: int, seed: int, device, experts=None
+               ) -> Dict[str, torch.Tensor]:
+    """Random MoE-layer inputs in ``cfg.compute_dtype`` on ``device``: x
+    (G, S, D) and the router (D, E) from ``seed``, and ``wg``, ``wu`` (e, D,
+    F), ``wd`` (e, F, D) for the experts in ``experts`` (default all), each
+    expert drawn from its own seed, so a rank draws its shard alone and
+    gets the same numbers as a whole draw."""
+    from repro_torch.models.model import dtype_of
+
+    dt = dtype_of(cfg.compute_dtype)
+    dev = torch.device(device)
+    E, D, F_ = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    experts = range(E) if experts is None else experts
+    gen = torch.Generator(device=dev)
+
+    def draw(shape, scale, s):
+        gen.manual_seed(s)
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    out = dict(x=draw((G, S, D), 1.0, seed),
+               router=draw((D, E), D ** -0.5, seed + 1))
+    for i, (name, shape, fan) in enumerate((("wg", (D, F_), D),
+                                            ("wu", (D, F_), D),
+                                            ("wd", (F_, D), F_))):
+        out[name] = torch.stack([draw(shape, fan ** -0.5,
+                                      seed + 2 + 3 * e + i) for e in experts])
+    return out
+
+
+def ep_moe_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
+                mesh_shape, device: str) -> Dict[str, Any]:
+    """``ep_moe_forward`` on a ('data', 'model') mesh of ``mesh_shape``.
+
+    ``inputs`` holds either the whole ``router``, ``wg``, ``wu``, ``wd``
+    and ``x`` as numpy arrays (every rank keeps its shards), or ``seed``,
+    ``G`` and ``S``: then each rank draws x, the router and only its own
+    experts by :func:`moe_inputs`.  Returns the all-to-alls this rank
+    issued and their bytes, the seconds of the forward, its peak device
+    memory, allocated and reserved (CUDA), and on rank 0 the whole output (float32 numpy) and the
+    whole dispatch table."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    from .act import mesh_axes
+    from .ep_moe import ep_moe_forward, exchange_stats, reset_exchange_stats
+
+    dev = torch.device(device)
+    mesh = make_local_mesh(*mesh_shape, device=dev.type)
+    if "seed" in inputs:
+        M = mesh_axes(mesh)["model"]
+        m = mesh.get_local_rank("model")
+        per = cfg.n_experts // M
+        drawn = moe_inputs(cfg, inputs["G"], inputs["S"], inputs["seed"],
+                           dev, range(m * per, (m + 1) * per))
+        x = drawn.pop("x")
+        on_model = [Shard(0) if a == "model" else Replicate()
+                    for a in mesh_axes(mesh)]
+        params = dict(router=drawn["router"],
+                      **{n: DTensor.from_local(drawn[n], mesh, on_model)
+                         for n in ("wg", "wu", "wd")})
+    else:
+        params = {k: torch.from_numpy(inputs[k]).to(dev)
+                  for k in ("router", "wg", "wu", "wd")}
+        x = torch.from_numpy(inputs["x"]).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_exchange_stats()
+    t0 = time.perf_counter()
+    y, dispatch = ep_moe_forward(mesh, params, x, cfg, return_dispatch=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    y, dispatch = y.full_tensor(), dispatch.full_tensor()
+    cuda = dev.type == "cuda"
+    out = dict(seconds=seconds, **exchange_stats(),
+               peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
+                                  if cuda else None),
+               peak_reserved_bytes=(torch.cuda.max_memory_reserved(dev)
+                                    if cuda else None))
+    if rank == 0:
+        out.update(y=y.float().cpu().numpy(), dispatch=dispatch.cpu().numpy())
+    return out
+
+
+def local_shards(rank: int, world: int, mesh_shape, axis_names,
+                 arrays: List[np.ndarray], specs: List[tuple]
+                 ) -> List[np.ndarray]:
+    """Each array placed by its spec (``sharding.device_put``) on a CPU
+    mesh of ``mesh_shape`` named ``axis_names``; this rank's shards."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from . import sharding as sh
+
+    mesh = init_device_mesh("cpu", tuple(mesh_shape),
+                            mesh_dim_names=tuple(axis_names))
+    placed = sh.device_put([torch.from_numpy(a) for a in arrays],
+                           [sh.NamedSharding(mesh, sh.P(*p)) for p in specs])
+    return [t.to_local().numpy() for t in placed]
+
+
+def run_jobs(rank: int, world: int, jobs: List[tuple]) -> List[Any]:
+    """``fn(rank, world, *args)`` for each ``(fn, args)`` in ``jobs``, in
+    order, on one process group: one launch for several checks."""
+    return [fn(rank, world, *args) for fn, args in jobs]
+
+
+def with_host_staging(rank: int, world: int, device_type: str, fn,
+                      args: tuple) -> Any:
+    """``fn(rank, world, *args)`` with DTensor's collectives on
+    ``device_type`` tensors staged through the host (what ranks sharing
+    one card over gloo run), and the staged bytes: a CPU check of the staging.  The
+    staging stays installed in this process."""
+    from repro_torch.launch.mesh import (reset_staged_bytes, staged_bytes,
+                                         stage_collectives_through_host)
+
+    stage_collectives_through_host((device_type,))
+    reset_staged_bytes()
+    return fn(rank, world, *args), staged_bytes()

@@ -1,50 +1,65 @@
-"""Logical sharding rules -> partition specs for the model's parameters.
+"""Logical sharding rules -> partition specs for params, optimizer, batches,
+caches; and their placement on a device mesh.
 
-The port's copy of the parameter half of the reference's
-``parallel/sharding.py`` (``_param_rule``, ``param_pspecs``) and of the two
-mesh helpers it reads from ``parallel/act.py`` (``_axis_size``, ``_div``).
+The port of the reference's ``parallel/sharding.py``.
 
-Mesh axes (``'data'``, ``'model'``), policy of the baseline:
+Mesh axes:
+  single-pod : ('data', 'model')            = (16, 16)
+  multi-pod  : ('pod', 'data', 'model')     = (2, 16, 16)
 
-* TP (``'model'``)  -> heads / d_ff / vocab / experts;
+Policy (the reference's baseline):
+
+* batch          -> ('pod', 'data')   (pure DP across pods, FSDP within)
+* TP (``'model'``) -> heads / d_ff / vocab / experts
 * FSDP (``'data'``) -> the d_model axis of every weight matrix (ZeRO-3
-  style).
+  style; DTensor gathers each weight where an op needs it whole)
+* long-context decode (batch < data axis) -> KV-cache sequence dim on
+  ``'data'`` (sequence parallelism for the cache)
 
 ``param_pspecs`` is the single source of truth for which parameter axes are
 ``'model'``-sharded: the workload lowering (:mod:`repro_torch.core.
 workloads`) divides each parameter's gradient bytes by its tensor-parallel
 shard factor and counts the ``'model'``-sharded matmul pairs that emit TP
-collectives.  It passes a duck-typed mesh: the rules read only
-``mesh.axis_names`` and ``mesh.shape`` (a name -> size mapping), so no
-devices are needed to evaluate them.  A spec is a :class:`P`, the port's
-stand-in for ``jax.sharding.PartitionSpec``.
+collectives.  It passes a duck-typed mesh: the rules read only its axis
+names and sizes (:func:`.act.mesh_axes`, which also reads a
+``DeviceMesh``), so no devices are needed to evaluate them.  A spec is a
+:class:`P`, the port's stand-in for ``jax.sharding.PartitionSpec``.
+
+Execution: :func:`to_shardings` turns a tree of specs into
+:class:`NamedSharding` leaves (a ``DeviceMesh`` and the DTensor placements
+of the spec, :func:`.act.placements_for`), and :func:`device_put` places a
+tree of tensors by such a tree, the counterpart of ``jax.device_put(tree,
+shardings)``: every rank holds the same full tensor and keeps its own
+shard, with no exchange.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch import tree as T
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import model as M
 
-__all__ = ["P", "param_pspecs"]
+from .act import (BATCH, TP, _axis_size, _div, activation_mesh,  # noqa: F401
+                  batch_axes, constrain, pick_tp_dim, placements_for)
+
+__all__ = ["P", "batch_axes", "param_pspecs", "opt_pspecs", "batch_pspecs",
+           "cache_pspecs", "to_shardings", "pick_tp_dim", "activation_mesh",
+           "constrain", "BATCH", "TP", "NamedSharding", "device_put"]
 
 
 class P(tuple):
     """A partition spec: one entry per array axis, each ``None``
-    (replicated), a mesh-axis name, or a tuple of names."""
+    (replicated), a mesh-axis name, or a tuple of names (a one-name tuple
+    stands for the name, as ``jax.sharding.PartitionSpec`` has it)."""
 
     def __new__(cls, *entries: Any) -> "P":
-        return super().__new__(cls, entries)
-
-
-def _axis_size(mesh: Any, name: str) -> int:
-    return mesh.shape[name] if name in mesh.axis_names else 1
-
-
-def _div(n: int, mesh: Any, axis: str) -> bool:
-    return n % _axis_size(mesh, axis) == 0
+        return super().__new__(cls, (e[0] if isinstance(e, tuple)
+                                     and len(e) == 1 else e
+                                     for e in entries))
 
 
 def _param_rule(name: str, shape: Tuple[int, ...], cfg: ArchConfig, mesh: Any,
@@ -128,3 +143,116 @@ def param_pspecs(cfg: ArchConfig, mesh: Any) -> Dict[str, Any]:
         return _param_rule(name, tuple(tree), cfg, mesh)
 
     return walk(M.param_shapes(cfg))
+
+
+def opt_pspecs(cfg: ArchConfig, mesh: Any) -> Dict[str, Any]:
+    ps = param_pspecs(cfg, mesh)
+    return dict(m=ps, v=ps, step=P())
+
+
+# --------------------------------------------------------------------------
+# batches / caches
+# --------------------------------------------------------------------------
+
+def batch_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh: Any
+                 ) -> Dict[str, P]:
+    ba = batch_axes(mesh)
+    bsz = int(np.prod([_axis_size(mesh, a) for a in ba]))
+    b = ba if shape.global_batch % bsz == 0 else None
+    if b is None and shape.global_batch % _axis_size(mesh, "data") == 0:
+        b = ("data",)
+    spec: Dict[str, P] = {}
+    if cfg.frontend != "none":
+        spec["embeds"] = P(b, None, None)
+    else:
+        spec["tokens"] = P(b, None)
+    if shape.kind == "train":
+        spec["labels"] = P(b, None)
+    return spec
+
+
+def cache_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh: Any) -> List[Dict]:
+    """Per-pattern-position cache partition specs (leading repeat axis)."""
+    from repro_torch.models.transformer import attn_cache_len
+
+    ba = batch_axes(mesh)
+    bsz = int(np.prod([_axis_size(mesh, a) for a in ba]))
+    shard_batch = shape.global_batch % bsz == 0
+    b = ba if shard_batch else None
+    # long-context, tiny batch: sequence-parallel cache
+    seq_ax = None if shard_batch else "data"
+    out = []
+    for spec in cfg.pattern:
+        if spec.kind == "attn":
+            L = attn_cache_len(cfg, spec, shape.seq_len)
+            kv_ok = cfg.n_kv_heads % _axis_size(mesh, "model") == 0
+            hd_ok = cfg.head_dim % _axis_size(mesh, "model") == 0
+            heads = "model" if kv_ok else None
+            hd = "model" if (not kv_ok and hd_ok) else None
+            sax = seq_ax if (seq_ax and L % _axis_size(mesh, "data") == 0) \
+                else None
+            out.append(dict(k=P(None, b, sax, heads, hd),
+                            v=P(None, b, sax, heads, hd),
+                            pos=P(None, sax)))
+        else:
+            di_ok = cfg.d_inner % _axis_size(mesh, "model") == 0
+            di = "model" if di_ok else None
+            out.append(dict(conv=P(None, b, None, di),
+                            ssm=P(None, b, di, None)))
+    return out
+
+
+# --------------------------------------------------------------------------
+# placement on a device mesh
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a ``DeviceMesh``: the counterpart of
+    ``jax.sharding.NamedSharding``.  ``placements`` are the spec's DTensor
+    placements, one per mesh dim (:func:`.act.placements_for`)."""
+    mesh: Any
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return placements_for(tuple(self.spec), self.mesh)
+
+
+def to_shardings(pspecs, mesh: Any):
+    """A tree of :class:`P` -> the same tree of :class:`NamedSharding`."""
+    def walk(t):
+        if isinstance(t, P):
+            return NamedSharding(mesh, t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        raise TypeError(f"to_shardings: leaf {t!r} is not a P")
+    return walk(pspecs)
+
+
+def device_put(tree, shardings):
+    """Place every tensor of ``tree`` as a DTensor by the matching
+    :class:`NamedSharding` of ``shardings`` (same structure).  Each rank
+    passes the same full tensors (drawn from one seed) and keeps a copy of
+    its shard: no data moves between ranks.  A 0-d tensor is replicated.
+    Tensors must already be on the mesh's device type."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    flat, tdef = T.flatten(tree)
+    shard_leaves = T.flatten(shardings)[0]
+    if len(flat) != len(shard_leaves):
+        raise ValueError(f"device_put: {len(flat)} tensors but "
+                         f"{len(shard_leaves)} shardings")
+
+    def put(t, s):
+        local = distribute_tensor(t, s.mesh, s.placements,
+                                  src_data_rank=None).to_local()
+        # a copy: a shard may be a view of the whole tensor, which the
+        # caller then could not free
+        return DTensor.from_local(local.clone(), s.mesh, s.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    return T.unflatten(tdef, [put(t, s) for t, s in zip(flat, shard_leaves)])

@@ -9,10 +9,21 @@ and the optimizer state in place.  It runs eagerly: the reference's
 ``jax.jit`` has no counterpart here.  Its forward, backward and optimizer
 run inside profiler ranges named ``repro_torch/train_step/<part>``, which
 ``chip_smoke.py`` reads to split a traced step's device time.
+
+Sharded: with parameters, optimizer state and batch placed as DTensors
+(:func:`repro_torch.parallel.sharding.device_put` by ``param_pspecs`` /
+``opt_pspecs`` / ``batch_pspecs``) and the step called inside
+:class:`repro_torch.parallel.act.activation_mesh`, the same step runs on
+the mesh: forward and backward under DTensor's implicit replication (the
+rope tables and zero accumulators the model builds are plain tensors,
+replicated), the optimizer as :mod:`repro_torch.optim.adamw` describes,
+and the metrics come back whole.  Gradient compression is single-device
+only.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Any, Callable, Optional, Union
 
 import torch
 
@@ -22,6 +33,7 @@ from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.compression import apply_error_feedback
+from repro_torch.parallel.act import is_sharded
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
            "init_train_state"]
@@ -29,6 +41,19 @@ __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
 
 def _range(part: str):
     return torch.profiler.record_function(f"repro_torch/train_step/{part}")
+
+
+def _replicating(sharded: bool):
+    """DTensor's implicit replication of plain tensors for a sharded step."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if is_sharded(t) else t
 
 
 def init_train_state(cfg: ArchConfig, opt_cfg: AdamWConfig, seed: int = 0,
@@ -40,29 +65,40 @@ def init_train_state(cfg: ArchConfig, opt_cfg: AdamWConfig, seed: int = 0,
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
-                    grad_compression: bool = False):
+                    grad_compression: bool = False,
+                    on_grads: Optional[Callable[[Any], None]] = None):
     """Returns ``train_step(params, opt_state, batch[, err_state])`` ->
     ``(params, opt_state[, err_state], metrics)``; ``batch`` holds tensors
-    on the parameters' device."""
+    on the parameters' device.  ``on_grads``, if given, is called with the
+    gradient tree before the optimizer reads it (a check's hook: it must
+    not write the gradients)."""
 
     def train_step(params, opt_state, batch, err_state=None):
         flat, treedef = T.flatten(params)
+        sharded = any(is_sharded(p) for p in flat)
+        if sharded and grad_compression:
+            raise NotImplementedError("train_step: gradient compression "
+                                      "of a sharded step is not supported")
         was = [p.requires_grad for p in flat]
         for p in flat:
             p.requires_grad_(True)
         try:
-            with _range("forward"):
-                loss, metrics = M.loss_fn(params, batch, cfg)
-            # a leaf the loss does not reach (a stub frontend's embedding)
-            # gets a zero gradient, as jax.grad gives it
-            with _range("backward"):
-                grads = T.unflatten(treedef, list(torch.autograd.grad(
-                    loss, flat, allow_unused=True, materialize_grads=True)))
+            with _replicating(sharded):
+                with _range("forward"):
+                    loss, metrics = M.loss_fn(params, batch, cfg)
+                # a leaf the loss does not reach (a stub frontend's
+                # embedding) gets a zero gradient, as jax.grad gives it
+                with _range("backward"):
+                    grads = T.unflatten(treedef, list(torch.autograd.grad(
+                        loss, flat, allow_unused=True,
+                        materialize_grads=True)))
         finally:
             for p, w in zip(flat, was):
                 p.requires_grad_(w)
-        loss = loss.detach()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        loss = _full(loss.detach())
+        metrics = {k: _full(v.detach()) for k, v in metrics.items()}
+        if on_grads is not None:
+            on_grads(grads)
         new_err = None
         with _range("optimizer"):
             if grad_compression:

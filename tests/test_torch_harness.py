@@ -120,6 +120,9 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import repro_torch.api.survey, repro_torch.api.analysis\n"
         "import repro_torch.core.workloads, repro_torch.parallel.sharding\n"
         "import repro_torch.launch.hlo_analysis, repro_torch.topology_report\n"
+        "import repro_torch.parallel.act, repro_torch.parallel.ep_moe\n"
+        "import repro_torch.parallel.ranks, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.specs, repro_torch.quickstart\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'networkx')]\n"
         "assert not bad, bad\n"
@@ -228,3 +231,111 @@ def test_obs_copy_keeps_the_reference_api(ref):
     rep = obs.metrics_report()
     assert rep.counters["x"] == 2 and rep.spans["a"].calls == 1
     assert np.isfinite(rep.phases["execute"])
+
+
+#: public names of the reference's kernel modules that the port does not
+#: carry, and why (each kernel's Pallas entry takes the Pallas layout and
+#: tiling arguments; the port's kernel entry is ``<name>_cuda``, which
+#: launches or raises, and the reference's ``ops`` entry points are kept)
+KERNEL_NAMES_LEFT_OUT = {
+    ("repro.kernels.cayley_spmv.ref", "spmv_ref"):
+        "the port's Cayley module names its plain version cayley_spmv_ref; "
+        "spmv_ref with this contract is repro_torch.kernels.spmv.spmv_ref",
+    ("repro.kernels.rmsnorm.kernel", "rmsnorm"):
+        "the Pallas call (block_rows, interpret); K5's entry is "
+        "rmsnorm_cuda, the reference's ops.fused_rmsnorm is kept",
+    ("repro.kernels.flash_attention.kernel", "flash_attention"):
+        "the Pallas call on (B, H, S, hd) heads with its block sizes; K3 "
+        "reads the model's (B, S, H, hd) layout (flash_attention_cuda), "
+        "the reference's ops.gqa_flash_attention is kept",
+    ("repro.kernels.mamba_scan.kernel", "mamba_scan"):
+        "the Pallas call (chunk, block_d, interpret); K4's entry is "
+        "mamba_scan_cuda, the reference's ops.selective_scan is kept",
+}
+#: names the port keeps with another meaning, and what differs
+KERNEL_NAMES_CHANGED = {
+    ("repro.kernels.flash_attention.ref", "attention_ref"):
+        "the port's plain attention takes the model's (B, S, H, hd) layout "
+        "with GQA heads, the reference's (B, H, S, hd) with matched heads",
+    ("repro.kernels.mamba_scan.ref", "mamba_scan_ref"):
+        "the port's plain scan also returns the final state (y, h_final), "
+        "which K4 returns for the decode cache",
+    ("repro.kernels.spmv", "pallas_supported"):
+        "True where the hand-written CUDA kernel can run (a card, and its "
+        "library built or nvcc to build it), not where Mosaic compiles",
+    ("repro.kernels.spmv", "kernel_backend"):
+        "'cuda' where a card is present and K1 builds, else 'ref' (a CUDA "
+        "kernel has no interpret mode)",
+}
+
+
+def _public_names(module) -> list:
+    """``__all__``, or the module's own top-level public ``def`` names
+    (the reference's ``ops`` entry points are jit-wrapped, so read from
+    its source)."""
+    if hasattr(module, "__all__"):
+        return list(module.__all__)
+    tree = ast.parse(pathlib.Path(module.__file__).read_text())
+    return [n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+            and not n.name.startswith("_")]
+
+
+def test_kernel_modules_keep_the_references_public_names(ref):
+    """Every public name of the reference's kernel modules (``spmv``'s
+    ``__all__``; each kernel package's ``kernel``, ``ref`` and ``ops``
+    functions) exists in the port's module of that kernel, or is recorded
+    above with the reason it is left out."""
+    import importlib
+
+    pairs = [("repro.kernels.spmv", "repro_torch.kernels.spmv")]
+    for kern in ("cayley_spmv", "rmsnorm", "flash_attention", "mamba_scan"):
+        pairs += [(f"repro.kernels.{kern}.{part}", f"repro_torch.kernels.{kern}")
+                  for part in ("kernel", "ref", "ops")]
+    seen = set()
+    for theirs, mine in pairs:
+        port = importlib.import_module(mine)
+        for name in _public_names(importlib.import_module(theirs)):
+            seen.add((theirs, name))
+            if (theirs, name) in KERNEL_NAMES_LEFT_OUT:
+                continue
+            assert hasattr(port, name), (theirs, name, mine)
+            if hasattr(port, "__all__"):
+                assert name in port.__all__, (name, mine)
+    # the records name real reference names, and the kept ones exist
+    assert set(KERNEL_NAMES_LEFT_OUT) <= seen
+    assert set(KERNEL_NAMES_CHANGED) <= seen
+    for theirs, name in KERNEL_NAMES_CHANGED:
+        mine = ("repro_torch.kernels.spmv" if theirs == "repro.kernels.spmv"
+                else "repro_torch.kernels." + theirs.split(".")[2])
+        assert hasattr(importlib.import_module(mine), name)
+
+
+def test_kernel_entry_points_run_the_plain_versions_on_the_cpu():
+    """The reference-named entry points take a CPU tensor to the plain
+    version (the kernel runs only on the card)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as K3
+    from repro_torch.kernels import mamba_scan as K4
+    from repro_torch.kernels import rmsnorm as K5
+    from repro_torch.kernels import spmv as KS
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 8, generator=g)
+    w = torch.randn(8, generator=g)
+    assert torch.equal(K5.fused_rmsnorm(x, w), K5.rmsnorm_ref(x, w))
+    q = torch.randn(2, 5, 4, 8, generator=g)
+    k = torch.randn(2, 5, 2, 8, generator=g)
+    assert torch.equal(K3.gqa_flash_attention(q, k, k),
+                       K3.attention_ref(q, k, k))
+    u = torch.randn(1, 6, 4, generator=g)
+    A = -torch.rand(4, 3, generator=g)
+    Bt = torch.randn(1, 6, 3, generator=g)
+    D = torch.ones(4)
+    assert torch.equal(K4.selective_scan(u, u.abs(), A, Bt, Bt, D),
+                       K4.mamba_scan_ref(u, u.abs(), A, Bt, Bt, D)[0])
+    tab = torch.tensor([[1, 2], [0, 2], [0, 1]], dtype=torch.int32)
+    v = torch.arange(3.0)
+    assert torch.equal(KS.spmv_padded(v, tab), KS.spmv_ref(v, tab))
+    if not torch.cuda.is_available():
+        assert not KS.pallas_supported() and KS.kernel_backend() == "ref"

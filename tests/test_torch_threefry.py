@@ -2,7 +2,8 @@
 (``core/threefry.py``) and the lift annealer's use of them
 (``synthesis._anneal_draws``), against jax on the CPU: Threefry keys,
 bits, integers and uniforms bit for bit, and the normals too (XLA's own
-float32 ``log1p``, as its CPU backend compiles it).  The towers these
+float32 ``log1p``, as its CPU backend compiles it), both the torch-op path
+the port runs and the numpy plain version.  The towers these
 draws build are held in ``tests/test_torch_synthesis.py``.
 """
 import numpy as np
@@ -61,11 +62,34 @@ def test_threefry_normals_are_xla_bit_for_bit(ref):
     x[:3] = (0.0, -0.41421357, -0.9999999)
     np.testing.assert_array_equal(TF._log1p32(x),
                                   np.asarray(jax.jit(jnp.log1p)(x)))
+    np.testing.assert_array_equal(TF._log1p32_t(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jax.jit(jnp.log1p)(x)))
     for seed in (0, 5):
         k = np.asarray(jax.random.split(jax.random.PRNGKey(seed)))[1]
         got = TF.normal(k, (64, 1500), torch.device("cpu")).numpy()
         want = np.asarray(jax.random.normal(k, (64, 1500), dtype=jnp.float32))
         np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(TF.normal_host(k, (64, 1500)), want)
+
+
+def test_threefry_torch_normals_equal_numpy_at_the_scale_rows_shape(ref):
+    """The scale row's (24, 65536) start-vector draw: the torch-op normals
+    (the main path's) equal the numpy plain version and jax bit for bit,
+    the tail past |u| = 0.9966 (erfinv's w >= 5 branch) included."""
+    from repro_torch.core import threefry as TF
+
+    jax, jnp = ref.jax, ref.jnp
+    shape = (24, 65536)
+    for key in (TF.prng_key(0), TF.split(0)[1]):
+        got = TF.normal(key, shape, torch.device("cpu")).numpy()
+        host = TF.normal_host(key, shape)
+        assert np.abs(host).max() > 3.5            # the tail is exercised
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      host.view(np.uint32))
+        want = np.asarray(jax.random.normal(jnp.asarray(key), shape,
+                                            dtype=jnp.float32))
+        np.testing.assert_array_equal(host.view(np.uint32),
+                                      want.view(np.uint32))
 
 
 @pytest.mark.parametrize("seed,batch,n,m,steps", [(1, 24, 8, 16, 53),
