@@ -66,7 +66,14 @@ drives every main path:
   model 2 mesh against the single-device step (K5, K3 per shard); the
   scale row's start-vector normals by torch ops on the card, bit for bit
   against the host's numpy draw; and ``python -m repro_torch.quickstart``
-  on the card against the host run.
+  on the card against the host run;
+* slice 12, the dry run: the sharded_train step traced over a fake 2 x 2
+  world on ``cuda`` (no card memory), its per-rank FLOPs, collectives and
+  peak held to what the four real ranks count on one more step; then
+  production cells at their published widths on the 16 x 16 and 2 x 16 x
+  16 meshes (DRYRUN_CELLS, full depth), per-device FLOPs, bytes,
+  collectives, memory and the dominant roofline term at the card's
+  constants.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -444,6 +451,28 @@ SHARDED_LEAF_REL_TOL = 2e-2
 #: and cuBLAS workspace, ~0.6 GB, and slack; the card must have this free
 #: for each of the SHARDED_RANKS ranks before they start
 SHARDED_RANK_BUDGET_BYTES = 16_500_000_000
+#: slice 12, the dry run: the sharded_train config traced over a fake 2 x 2
+#: world on the card's device type (K3 / K4 / K5 by their dispatcher ops'
+#: fake implementations), against what each real rank counts on one more,
+#: untimed step.  Both runs execute the same program and are counted by the
+#: same Accounting, so FLOPs agree to the launch (bound 0.5 %) and the
+#: collectives exactly by kind (the staged ones counted as the collective
+#: they stand in for).  The peak is a prediction: the trace's most live
+#: bytes beside the arguments, against the rank's allocator peak after
+#: placement, which also holds the staging's card-side copies, the caching
+#: allocator's 512-byte rounding and cuBLAS's workspace (bound 15 %)
+DRYRUN_FLOPS_REL_TOL = 5e-3
+DRYRUN_PEAK_REL_TOL = 0.15
+#: the production cells traced at their published widths and depths on the
+#: card: (arch, shape, multi_pod).  In the smoke with kimi-k2 cut to 16 of
+#: 61 layers, the cells traced in 6.3-10.3 s and the phase took 37.6 s;
+#: kimi-k2 at ~0.3-0.4 s a layer adds ~15 s at 61, so the phase reads ~55
+#: s, and a host ~1.8 times slower (as in one smoke run) still fits
+DRYRUN_CELLS = (("qwen2-7b", "train_4k", False),
+                ("kimi-k2-1t-a32b", "train_4k", False),
+                ("falcon-mamba-7b", "decode_32k", False),
+                ("jamba-v0.1-52b", "prefill_32k", True))
+DRYRUN_BUDGET_S = 120
 #: the threefry phase: the scale row's start-vector draw, (24, 65536)
 THREEFRY_SHAPE = (24, 65536)
 
@@ -2601,8 +2630,117 @@ def _train_check(cfg, single, ranks) -> dict:
                                             for r in rows],
                 peak_reserved_bytes_per_rank=[r["peak_reserved_bytes"]
                                               for r in rows],
+                allocated_at_reset_bytes_per_rank=[
+                    r["allocated_at_reset_bytes"] for r in rows],
                 single_peak_memory_bytes=single["peak"],
                 single_seconds=single["seconds"])
+
+
+def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
+    """Slice 12: ``repro_torch.launch.dryrun`` on the card's device type.
+    The cross-check cell (the sharded_train config, fake 2 x 2) held to what
+    each real rank counted on its accounted step (``sharded`` carries them):
+    FLOPs within DRYRUN_FLOPS_REL_TOL, collectives equal by kind in calls
+    and bytes, the peak within DRYRUN_PEAK_REL_TOL of the rank's allocator
+    peak; then DRYRUN_CELLS through ``lower_cell`` at their published
+    widths and depths.  No trace allocates card memory (the dry
+    run asserts it per cell).  The phase stays within DRYRUN_BUDGET_S."""
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.serve import serving_config
+
+    t_phase = time.time()
+    # the accounting on this torch against its hand counts (raises)
+    hand = DR.check_hand_counts(str(dev))
+    print(f"dryrun hand counts on {dev.type}: {hand} ({smi})", flush=True)
+    cfg = serving_config(SHARDED_ARCH, layers=SHARDED_LAYERS)
+    pred, _ = DR.trace_step(
+        cfg, ShapeSpec("sharded_train", SHARDED_SEQ, SHARDED_BATCH, "train"),
+        dict(data=SHARDED_MESH[0], model=SHARDED_MESH[1]), device=str(dev))
+    p_flops = pred["cost"]["flops_per_device"]
+    p_peak = pred["memory"]["peak_bytes"]
+    ranks = []
+    for acc, peak, base in zip(sharded["accounting_per_rank"],
+                               sharded["peak_memory_bytes_per_rank"],
+                               sharded["allocated_at_reset_bytes_per_rank"]):
+        flops_rel = abs(acc["flops"] - p_flops) / p_flops
+        peak_rel = (peak - p_peak) / p_peak
+        ranks.append(dict(flops=acc["flops"], flops_rel=flops_rel,
+                          collective_bytes=acc["collective_bytes"],
+                          collective_counts=acc["collective_counts"],
+                          peak_memory_bytes=peak, peak_rel=peak_rel,
+                          allocated_at_reset_bytes=base,
+                          temp_bytes=acc["temp_bytes"]))
+    cross = dict(arch=SHARDED_ARCH, n_layers=cfg.n_layers,
+                 batch=SHARDED_BATCH, seq=SHARDED_SEQ,
+                 mesh=dict(data=SHARDED_MESH[0], model=SHARDED_MESH[1]),
+                 predicted=dict(flops=p_flops,
+                                collective_bytes=pred["collectives"][
+                                    "bytes_by_kind"],
+                                collective_counts=pred["collectives"][
+                                    "count_by_kind"],
+                                argument_bytes=pred["memory"][
+                                    "argument_bytes"],
+                                temp_bytes=pred["memory"]["temp_bytes"],
+                                peak_bytes=p_peak),
+                 trace_seconds=pred["compile_seconds"], ranks=ranks,
+                 flops_tol=DRYRUN_FLOPS_REL_TOL,
+                 peak_tol=DRYRUN_PEAK_REL_TOL)
+    emit(dict(phase="dryrun_cross_check", nvidia_smi=smi, **cross))
+    r0 = ranks[0]
+    print(f"dryrun cross-check: {SHARDED_ARCH} {cfg.n_layers} layers, mesh "
+          f"{SHARDED_MESH[0]}x{SHARDED_MESH[1]}: predicted "
+          f"{p_flops:.6e} FLOPs a rank, measured "
+          f"{[r['flops'] for r in ranks]}; collectives equal by kind; peak "
+          f"predicted {p_peak / 1e9:.3f} GB, measured "
+          f"{[round(r['peak_memory_bytes'] / 1e9, 3) for r in ranks]} GB "
+          f"({100 * r0['peak_rel']:+.1f} %): the rank's allocator peak above "
+          f"its placed state, {(r0['peak_memory_bytes'] - r0['allocated_at_reset_bytes']) / 1e9:.3f} GB, "
+          f"against its own step's tally of live tensors, "
+          f"{r0['temp_bytes'] / 1e9:.3f} GB, and the fake trace's "
+          f"{pred['memory']['temp_bytes'] / 1e9:.3f} GB: the rest is the "
+          f"one-card rig's staged collectives, which copy each gathered "
+          f"tensor back and concatenate it on the card ({smi})", flush=True)
+    for r in ranks:
+        assert r["flops_rel"] <= DRYRUN_FLOPS_REL_TOL, (r, cross["predicted"])
+        assert r["collective_bytes"] == cross["predicted"][
+            "collective_bytes"], (r, cross["predicted"])
+        assert r["collective_counts"] == cross["predicted"][
+            "collective_counts"], (r, cross["predicted"])
+        assert abs(r["peak_rel"]) <= DRYRUN_PEAK_REL_TOL, (r, p_peak)
+    cells = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        res, _ = DR.lower_cell(arch, shape, multi_pod, device=str(dev))
+        assert res["device"] == "cuda" and res["cost"][
+            "flops_per_device"] > 0, res
+        coll_gb = {k: v / 1e9 for k, v in
+                   res["collectives"]["bytes_by_kind"].items() if v}
+        row = dict(tag=DR.cell_tag(arch, shape, multi_pod),
+                   n_layers=get_config(arch).n_layers, reduced=[],
+                   flops_per_device=res["cost"]["flops_per_device"],
+                   bytes_per_device=res["cost"]["bytes_per_device"],
+                   collective_gb_by_kind=coll_gb,
+                   argument_gb=res["memory"]["argument_bytes"] / 1e9,
+                   peak_gb=res["memory"]["peak_bytes"] / 1e9,
+                   card_gb=DR.HW_H100["hbm_bytes"] / 1e9,
+                   dominant=res["roofline"]["dominant"],
+                   roofline=res["roofline"],
+                   trace_seconds=res["compile_seconds"],
+                   model_flops=res["model_flops"],
+                   useful_flops_ratio=res["useful_flops_ratio"])
+        cells.append(row)
+        print(f"dryrun {row['tag']} ({row['n_layers']} layers): "
+              f"{row['flops_per_device']:.4e} FLOPs, "
+              f"{row['bytes_per_device']:.4e} bytes a device; collectives "
+              f"{ {k: round(v, 3) for k, v in coll_gb.items()} } GB; "
+              f"argument {row['argument_gb']:.2f} GB, peak "
+              f"{row['peak_gb']:.2f} GB of {row['card_gb']:.0f}; "
+              f"{row['dominant']}-bound; traced in "
+              f"{row['trace_seconds']:.1f} s ({smi})", flush=True)
+    seconds = time.time() - t_phase
+    assert seconds <= DRYRUN_BUDGET_S, seconds
+    return dict(hand_counts=hand, cross_check=cross, cells=cells,
+                seconds=seconds, budget_seconds=DRYRUN_BUDGET_S)
 
 
 def sharded_phase(torch, np, dev) -> tuple:
@@ -2615,8 +2753,12 @@ def sharded_phase(torch, np, dev) -> tuple:
     the same card, which goes first and is freed.  The ranks share the card
     over gloo, so DTensor's collectives are staged through the host
     (``run_ranks(stage_through_host=True)``); the card must have
-    SHARDED_RANK_BUDGET_BYTES free for each rank before they start.
-    Returns the two phases' rows and the launch's seconds."""
+    SHARDED_RANK_BUDGET_BYTES free for each rank before they start.  Last,
+    each rank runs the sharded_train step once more, untimed, counted by
+    the dry run's ``Accounting`` (``accounting_per_rank``: what
+    :func:`dryrun_phase` holds its fake trace to).  Returns the two
+    phases' rows and the launch's seconds."""
+    from repro_torch.launch.dryrun import accounted_train_step
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.parallel.ranks import (ep_moe_rank, run_jobs,
                                             sharded_train_steps)
@@ -2640,11 +2782,15 @@ def sharded_phase(torch, np, dev) -> tuple:
                        EP_MESH, str(dev))),
         (sharded_train_steps, ([train_cfg], opt_cfg, SHARDED_BATCH,
                                SHARDED_SEQ, SHARDED_MESH, str(dev),
-                               SHARDED_STEPS, SHARDED_LEAF_ELEMENTS))],
+                               SHARDED_STEPS, SHARDED_LEAF_ELEMENTS)),
+        # the same step once more, counted for the dry run's cross-check
+        (accounted_train_step, (train_cfg, opt_cfg, SHARDED_BATCH,
+                                SHARDED_SEQ, SHARDED_MESH, str(dev)))],
         device=str(dev), stage_through_host=True)
     ranks_s = time.time() - t0
     ep = _ep_check(torch, np, ep_cfg, C, ep_single, [r[0] for r in ranks])
     train = _train_check(train_cfg, train_single, [r[1][0] for r in ranks])
+    train["accounting_per_rank"] = [r[2] for r in ranks]
     ep.update(memory)
     train.update(memory)
     return ep, train, ranks_s
@@ -3633,6 +3779,10 @@ def run(torch, dev) -> int:
           f"{sharded['host_staged_per_rank'][0]['bytes']} bytes of the "
           f"rig's host copies per rank; phase {sharded_s:.1f} s ({smi})",
           flush=True)
+
+    # -- phase 10f: slice 12, the dry run on the card's device type -----
+    dry = dryrun_phase(torch, dev, smi, sharded)
+    emit(dict(phase="dryrun", nvidia_smi=smi, **dry))
 
     # -- phase 11: slice 8, the evaluation path's reference benchmarks --
     # (the routing-scheme bench's MCF LPs run in worker processes on the

@@ -18,7 +18,10 @@ reference's Pallas kernel and its ``attention_ref`` do.
   gradient is that of :func:`attention_ref` at the same inputs
   (:mod:`.grad`): a stop-gap whose backward builds the O(S^2) plain scores,
   until LM training gets a backward kernel.  Under ``torch.no_grad()`` it
-  is one launch and saves nothing.
+  is one launch and saves nothing.  The launch goes through the dispatcher
+  operator :func:`flash_attention_op` (``repro_torch::flash_attention``),
+  whose fake implementation and FLOP formula (:func:`flops`) let the dry
+  run trace and count the card's program.
 
 The model's prefill attention (``repro_torch.models.transformer``) routes a
 CUDA tensor of a layer without a window or query offset here, and every
@@ -37,13 +40,18 @@ import torch.nn.functional as F
 
 from . import grad as G
 
-__all__ = ["attention_ref", "flash_attention_cuda", "gqa_flash_attention",
-           "launches", "reset_launches"]
+__all__ = ["attention_ref", "flash_attention_cuda", "flash_attention_op",
+           "gqa_flash_attention", "launches", "reset_launches", "flops",
+           "FLOP_BLOCK"]
 
 _LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 #: elements in 16 bytes: the kernel's head width is a multiple of this
 _ROW_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
+#: the square block of (query, key) pairs by which the FLOP count skips
+#: causal work, as the kernel's bf16 path skips key tiles past a 128-row
+#: query tile
+FLOP_BLOCK = 128
 
 
 def launches() -> int:
@@ -125,7 +133,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd > limit:
         raise ValueError(f"flash_attention_cuda: head width {hd} > {limit} "
                          f"for {q.dtype}")
-    return _differentiable(_launch, q, k, v, causal)
+    return _differentiable(flash_attention_op, q, k, v, causal)
 
 
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -146,6 +154,30 @@ def _differentiable(launch, q, k, v, causal):
     """``launch(q, k, v, causal=causal)`` with :func:`attention_ref`'s
     gradient when autograd records the call (:func:`.grad.through_kernel`)."""
     return G.through_kernel(launch, attention_ref, (q, k, v), causal=causal)
+
+
+def flops(B: int, Sq: int, Sk: int, H: int, hd: int, causal: bool) -> int:
+    """The two products' FLOPs (q k^T and p v, 2 hd each per (query, key)
+    pair) over the pairs the kernel computes: for each FLOP_BLOCK-row query
+    block, the key blocks up to its last row when causal (every key block
+    otherwise), the ragged edges at their true sizes."""
+    bs = FLOP_BLOCK
+    pairs = 0
+    for q0 in range(0, Sq, bs):
+        rows = min(bs, Sq - q0)
+        keys = min(Sk, ((q0 + bs - 1) // bs + 1) * bs) if causal else Sk
+        pairs += rows * keys
+    return 4 * B * H * hd * pairs
+
+
+def _flash_attention_fake(q, k, v, causal):
+    return q.new_empty(q.shape)
+
+
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal=True, *args,
+                           out_shape=None, **kwargs) -> int:
+    B, Sq, H, hd = q_shape
+    return flops(B, Sq, k_shape[1], H, hd, bool(causal))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -184,3 +216,25 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous, copied if its data does not start on 16 bytes."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+#: K3 as an operator of PyTorch's dispatcher
+#: (``repro_torch::flash_attention``): its CUDA implementation is
+#: :func:`_launch`, and it has no other device's.  Its fake implementation
+#: gives the output's shape and dtype and its FLOP formula is
+#: :func:`flops`, so that the dry run (:mod:`repro_torch.launch.dryrun`)
+#: traces and counts the card's program.
+flash_attention_op = G.kernel_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+    lambda q, k, v, causal: _launch(q, k, v, causal=causal),
+    _flash_attention_fake)
+
+
+def _register_flop_formula() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    register_flop_formula(torch.ops.repro_torch.flash_attention)(
+        _flash_attention_flops)
+
+
+_register_flop_formula()

@@ -21,6 +21,10 @@ step's (B, Di, N) state.  Each backward runs inside a profiler range named
 ``repro_torch/plain_backward/<plain version>``, so that a trace gives the
 stop-gap's device time per kernel (``chip_smoke.py``'s training phases
 read it); outside a profiler the range costs a few microseconds a call.
+
+:func:`kernel_op` defines a kernel's launch as an operator of PyTorch's
+dispatcher, so that ``FakeTensorMode`` can trace the card's program (the
+dry run, :mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -29,7 +33,10 @@ from typing import Callable
 import torch
 from torch.autograd.function import once_differentiable
 
-__all__ = ["PlainBackward", "through_kernel", "compute_dtype"]
+__all__ = ["PlainBackward", "through_kernel", "compute_dtype", "kernel_op"]
+
+#: the ``repro_torch`` operators' definitions (alive as long as the process)
+_LIBRARY = torch.library.Library("repro_torch", "FRAGMENT")
 
 
 def compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -78,3 +85,20 @@ def through_kernel(launch: Callable, plain: Callable, tensors: tuple,
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return PlainBackward.apply(launch, plain, kwargs, *tensors)
     return launch(*tensors, **kwargs)
+
+
+def kernel_op(schema: str, launch: Callable, fake: Callable):
+    """Define the operator ``repro_torch::<schema>`` with ``launch`` as its
+    CUDA implementation, no other device's (a CPU tensor raises
+    ``NotImplementedError``), and ``fake`` as its fake implementation (the
+    outputs' shapes and dtypes); return it (the ``OpOverload``).
+
+    A plain ``torch.library.Library`` definition: one dispatch into a
+    Python call.  ``torch.library.custom_op`` would add its own autograd
+    and aliasing layers around the launch, ~20 µs a call on the host, and
+    :class:`PlainBackward` gives the gradient already."""
+    name = schema.split("(", 1)[0]
+    _LIBRARY.define(schema)
+    _LIBRARY.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIBRARY)
+    return getattr(torch.ops.repro_torch, name).default

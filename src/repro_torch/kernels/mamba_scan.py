@@ -19,7 +19,10 @@ dtype and the state after the last step, ``h_final`` (B, Di, N) in f32.
   :func:`mamba_scan_ref` at the same inputs (:mod:`.grad`): a stop-gap whose
   backward runs the plain L-step loop and keeps every step's (B, Di, N)
   state, until LM training gets a backward kernel.  Under
-  ``torch.no_grad()`` it is one launch and saves nothing.
+  ``torch.no_grad()`` it is one launch and saves nothing.  The launch goes
+  through the dispatcher operator :func:`mamba_scan_op`
+  (``repro_torch::mamba_scan``), whose fake implementation lets the dry run
+  trace the card's program.
 
 The model's Mamba prefill (``repro_torch.models.mamba``) routes a CUDA tensor
 here and a CPU tensor to ``selective_scan_chunked``.  :func:`launches`
@@ -36,8 +39,8 @@ import torch.nn.functional as F
 
 from . import grad as G
 
-__all__ = ["mamba_scan_ref", "mamba_scan_cuda", "selective_scan", "launches",
-           "reset_launches", "MAX_STATE"]
+__all__ = ["mamba_scan_ref", "mamba_scan_cuda", "mamba_scan_op",
+           "selective_scan", "launches", "reset_launches", "MAX_STATE"]
 
 #: the kernel keeps a channel's states in registers: at most this many
 MAX_STATE = 16
@@ -132,7 +135,7 @@ def mamba_scan_cuda(x, delta, A, B_t, C_t, D
         if t.dtype != x.dtype:
             raise ValueError(f"mamba_scan_cuda: {name} is {t.dtype}, x is "
                              f"{x.dtype}")
-    return _differentiable(_launch, x, delta, A, B_t, C_t, D)
+    return _differentiable(mamba_scan_op, x, delta, A, B_t, C_t, D)
 
 
 def selective_scan(x, delta, A, B_t, C_t, D, use_kernel: bool = True,
@@ -152,6 +155,12 @@ def _differentiable(launch, x, delta, A, B_t, C_t, D):
     """``launch(x, delta, A, B_t, C_t, D)`` with :func:`mamba_scan_ref`'s
     gradient when autograd records the call (:func:`.grad.through_kernel`)."""
     return G.through_kernel(launch, mamba_scan_ref, (x, delta, A, B_t, C_t, D))
+
+
+def _mamba_scan_fake(x, delta, A, B_t, C_t, D):
+    Bb, L, Di = x.shape
+    return (x.new_empty((Bb, L, Di)),
+            x.new_empty((Bb, Di, A.shape[1]), dtype=torch.float32))
 
 
 def _launch(x, delta, A, B_t, C_t, D) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -191,3 +200,13 @@ def _launch(x, delta, A, B_t, C_t, D) -> Tuple[torch.Tensor, torch.Tensor]:
     if pad:
         return y[..., :Di].contiguous(), h[:, :Di].contiguous()
     return y, h
+
+
+#: K4 as an operator of PyTorch's dispatcher (``repro_torch::mamba_scan``):
+#: its CUDA implementation is :func:`_launch`, and it has no other
+#: device's; its fake implementation gives ``y`` and ``h_final``'s shapes
+#: and dtypes (the dry run traces it so).  No FLOP formula: the reference's
+#: count has none for the scan.
+mamba_scan_op = G.kernel_op(
+    "mamba_scan(Tensor x, Tensor delta, Tensor A, Tensor B_t, Tensor C_t, "
+    "Tensor D) -> (Tensor, Tensor)", _launch, _mamba_scan_fake)

@@ -12,7 +12,10 @@ computed in float32 and returned in ``x``'s dtype.
   launches the kernel or raises, and never falls back.  Its gradient is that
   of :func:`rmsnorm_ref` at the same inputs (:mod:`.grad`), a stop-gap until
   LM training gets a backward kernel; under ``torch.no_grad()`` it is one
-  launch and saves nothing.
+  launch and saves nothing.  The launch goes through the dispatcher
+  operator :func:`rmsnorm_op` (``repro_torch::rmsnorm``), whose fake
+  implementation lets ``FakeTensorMode`` trace the card's program
+  (:mod:`repro_torch.launch.dryrun`).
 
 ``repro_torch.models.layers.rms_norm`` routes between the two by device:
 a CUDA tensor always goes to the kernel.  :func:`launches` counts the
@@ -28,8 +31,8 @@ import torch
 
 from . import grad as G
 
-__all__ = ["rmsnorm_ref", "rmsnorm_cuda", "fused_rmsnorm", "launches",
-           "reset_launches"]
+__all__ = ["rmsnorm_ref", "rmsnorm_cuda", "rmsnorm_op", "fused_rmsnorm",
+           "launches", "reset_launches"]
 
 _LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
@@ -89,7 +92,7 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     if w.device != x.device or w.dtype != x.dtype:
         raise ValueError(f"rmsnorm_cuda: w is {w.dtype} on {w.device}; x is "
                          f"{x.dtype} on {x.device}")
-    return _differentiable(_launch, x, w, eps)
+    return _differentiable(rmsnorm_op, x, w, eps)
 
 
 def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
@@ -131,3 +134,16 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
         raise RuntimeError("rmsnorm_cuda: kernel launch failed: "
                            + lib.rmsnorm_error_string(rc).decode())
     return y
+
+
+def _rmsnorm_fake(x, w, eps):
+    return x.new_empty(x.shape)
+
+
+#: K5 as an operator of PyTorch's dispatcher (``repro_torch::rmsnorm``):
+#: its CUDA implementation is :func:`_launch`, and it has no other
+#: device's; its fake implementation gives the output's shape and dtype
+#: (the dry run traces it so).  No FLOP formula: the reference's count has
+#: none for a norm.
+rmsnorm_op = G.kernel_op("rmsnorm(Tensor x, Tensor w, float eps) -> Tensor",
+                         _launch, _rmsnorm_fake)

@@ -32,10 +32,20 @@ import math
 import re
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["HW", "analyze_hlo", "roofline_terms", "HloStats"]
+__all__ = ["HW", "HW_H100", "analyze_hlo", "roofline_terms", "HloStats"]
 
 HW = dict(peak_flops=197e12, hbm_bw=819e9, link_bw=50e9, n_links=4,
           hbm_bytes=16e9)
+
+#: the card the port runs on, for :mod:`repro_torch.launch.dryrun`'s
+#: roofline: NVIDIA H100 SXM (80GB HBM3) at its published dense bf16 peak,
+#: its HBM rate and size, and its NVLink 4 (18 links x 25 GB/s each way,
+#: 450 GB/s), NVIDIA's data sheet, at the full 700 W power limit.  A mesh
+#: axis of 16 spans two 8-card NVLink nodes, whose link between nodes is
+#: slower than NVLink; the roofline's collective term assumes NVLink for
+#: every byte, so it is a lower bound there.
+HW_H100 = dict(name="NVIDIA H100 80GB HBM3 (SXM)", peak_flops=989.4e12,
+               hbm_bw=3.35e12, link_bw=25e9, n_links=18, hbm_bytes=80e9)
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
@@ -301,16 +311,18 @@ def analyze_hlo(text: str) -> HloStats:
 
 
 def roofline_terms(flops_per_device: float, bytes_per_device: float,
-                   collective_bytes_per_device: float) -> Dict[str, float]:
+                   collective_bytes_per_device: float,
+                   hw: Optional[Dict] = None) -> Dict[str, float]:
     """Per-device roofline times (seconds) and the dominant term.
 
     Inputs are per-device totals for one step; returns ``compute_s`` /
-    ``memory_s`` / ``collective_s`` at the ``HW`` constants plus
-    ``dominant``, the largest of the three.
+    ``memory_s`` / ``collective_s`` at ``hw``'s constants (default
+    :data:`HW`) plus ``dominant``, the largest of the three.
     """
-    t_compute = flops_per_device / HW["peak_flops"]
-    t_memory = bytes_per_device / HW["hbm_bw"]
-    t_coll = collective_bytes_per_device / (HW["n_links"] * HW["link_bw"])
+    hw = HW if hw is None else hw
+    t_compute = flops_per_device / hw["peak_flops"]
+    t_memory = bytes_per_device / hw["hbm_bw"]
+    t_coll = collective_bytes_per_device / (hw["n_links"] * hw["link_bw"])
     dominant = max(("compute", t_compute), ("memory", t_memory),
                    ("collective", t_coll), key=lambda kv: kv[1])[0]
     return dict(compute_s=t_compute, memory_s=t_memory, collective_s=t_coll,

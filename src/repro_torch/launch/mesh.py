@@ -41,6 +41,7 @@ all-to-all is an all-gather and a chunk).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import tempfile
@@ -52,7 +53,7 @@ import torch
 
 __all__ = ["make_production_mesh", "make_local_mesh", "shard_batch",
            "LogicalMesh", "run_ranks", "stage_collectives_through_host",
-           "staged_bytes", "reset_staged_bytes"]
+           "staged_bytes", "reset_staged_bytes", "observe_staged"]
 
 
 class LogicalMesh:
@@ -108,6 +109,41 @@ _STAGE_DEVICES: set = set()
 _REPLACED: list = []
 _REDUCE_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN", "product": "PRODUCT",
                "avg": "SUM"}
+
+
+#: the one observer of the staged collectives (:func:`observe_staged`)
+_OBSERVER: list = [None]
+
+
+@contextlib.contextmanager
+def observe_staged(fn: Callable, device_type: str):
+    """For the block, tell ``fn(kind, payload_bytes, shape)`` of each
+    collective a staged function stands in for: kind as
+    ``launch.hlo_analysis`` names it, the payload by its convention (an
+    all-gather's gathered output, any other collective's operand).  The
+    host exchanges inside are the rig's, not the step's, and lie on the
+    host: an observer of ``device_type``'s collectives tells them apart by
+    device, so CPU tensors staged through the host are refused.  One
+    observer at a time."""
+    if device_type in _STAGE_DEVICES and device_type == "cpu":
+        raise RuntimeError("observe_staged: CPU collectives are staged "
+                           "through the host in this process; their "
+                           "exchanges cannot be told from the step's")
+    if _OBSERVER[0] is not None:
+        raise RuntimeError("observe_staged: an observer is installed")
+    _OBSERVER[0] = fn
+    try:
+        yield
+    finally:
+        _OBSERVER[0] = None
+
+
+def _observe(kind: str, t: torch.Tensor, factor: int = 1) -> None:
+    """Tell the observer of one collective of ``kind`` whose payload is
+    ``factor`` times ``t``'s bytes."""
+    if _OBSERVER[0] is not None:
+        _OBSERVER[0](kind, factor * t.numel() * t.element_size(),
+                     tuple(t.shape))
 
 
 def staged_bytes() -> Dict[str, float]:
@@ -189,22 +225,27 @@ def _reduce_op(name: str):
     return getattr(dist.ReduceOp, _REDUCE_OPS[str(name).lower()])
 
 
+def _gather_through_host(self, gather_dim: int, pg) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = pg.size()
+    host = _to_host(self.contiguous())
+    out = _host_empty((n * host.shape[0], *host.shape[1:]), self)
+    _exchange(dist.all_gather_into_tensor, out, host, group=pg)
+    _count(host, out)
+    out = _to_device(out, self.device)
+    if gather_dim:                # on the card: the host has one thread
+        out = torch.cat(out.chunk(n, dim=0), dim=gather_dim)
+    return out
+
+
 def _all_gather(original):
     def all_gather(self, gather_dim, group, tag=""):
         if self.device.type not in _STAGE_DEVICES:
             return original(self, gather_dim, group, tag)
-        import torch.distributed as dist
-
         pg = _group(group, tag)
-        n = pg.size()
-        host = _to_host(self.contiguous())
-        out = _host_empty((n * host.shape[0], *host.shape[1:]), self)
-        _exchange(dist.all_gather_into_tensor, out, host, group=pg)
-        _count(host, out)
-        out = _to_device(out, self.device)
-        if gather_dim:            # on the card: the host has one thread
-            out = torch.cat(out.chunk(n, dim=0), dim=gather_dim)
-        return out
+        _observe("all-gather", self, pg.size())
+        return _gather_through_host(self, gather_dim, pg)
     return all_gather
 
 
@@ -216,6 +257,7 @@ def _reduce_scatter(original):
 
         pg = _group(group, tag)
         n = pg.size()
+        _observe("reduce-scatter", self)
         host = _to_host(torch.cat(self.chunk(n, dim=scatter_dim), dim=0))
         out = _host_empty((host.shape[0] // n, *host.shape[1:]), self)
         _exchange(dist.reduce_scatter_tensor, out, host,
@@ -235,6 +277,7 @@ def _all_reduce(original):
         import torch.distributed as dist
 
         pg = _group(group, tag)
+        _observe("all-reduce", self)
         # a copy even on the host: the functional all-reduce leaves its
         # input as it was
         host = _to_host(self.detach())
@@ -253,7 +296,9 @@ def _shard_dim_alltoall(original):
         ``gather_dim``, then this rank's chunk along ``shard_dim``."""
         if input.device.type not in _STAGE_DEVICES:
             return original(input, gather_dim, shard_dim, mesh, mesh_dim)
-        whole = _all_gather(None)(input, gather_dim, (mesh, mesh_dim))
+        _observe("all-to-all", input)
+        whole = _gather_through_host(input, gather_dim,
+                                     mesh.get_group(mesh_dim))
         n = mesh.size(mesh_dim)
         return whole.chunk(n, dim=shard_dim)[
             mesh.get_local_rank(mesh_dim)].contiguous()

@@ -210,7 +210,11 @@ def mamba_prefill(params: Dict, x: torch.Tensor, cfg, impl: str = "assoc",
                   ) -> Tuple[torch.Tensor, Dict]:
     """Forward over the prompt, returning the decode cache."""
     Di, K = cfg.d_inner, cfg.ssm_conv
-    xz = x @ params["in_proj"]
+    # whole on its last dim before the split: DTensor cannot split a
+    # 'model' shard there, and the gradient of a split it gathers arrives
+    # whole at the product, which then computes every rank's weight
+    # gradient columns on each rank
+    xz = constrain(x @ params["in_proj"], BATCH, None, None)
     u, z = torch.split(xz, [Di, Di], dim=-1)
     u = constrain(u, BATCH, None, TP)
     z = constrain(z, BATCH, None, TP)

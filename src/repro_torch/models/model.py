@@ -164,9 +164,25 @@ def _head_weight(params, cfg):
     return params["head"]
 
 
+def _project(h, hw):
+    return h @ hw.to(h.dtype)
+
+
+def _head_logits(h, hw):
+    """``(h @ hw).float()``; on a mesh shard by shard: the batch and
+    position shards, and the vocabulary's where the head is sharded on it,
+    each compute their block, the head's d_model (FSDP) shard gathered
+    first, as the reference's partitioner does (DTensor's own choice for
+    the product gathers the activations instead, or shards an indivisible
+    vocabulary unevenly)."""
+    lead = tuple(f"x{i}" for i in range(h.dim() - 1))
+    return per_shard(_project, (h, hw), (lead + ("d",), ("d", "v")),
+                     (lead + ("v",),), frozenset(lead + ("v",))).float()
+
+
 def _logits(params, h, cfg):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ _head_weight(params, cfg).to(h.dtype)).float()
+    return _head_logits(h, _head_weight(params, cfg))
 
 
 def _token_nll(logits, ls):
@@ -181,7 +197,7 @@ def _token_nll(logits, ls):
 def _chunk_nll(hs, ls, hw):
     """One loss chunk: (sum of the valid positions' -log p(label) in f32,
     count of valid positions).  hs (B, c, D); ls (B, c), -1 = no label."""
-    logits = constrain((hs @ hw.to(hs.dtype)).float(), BATCH, None, TP)
+    logits = constrain(_head_logits(hs, hw), BATCH, None, TP)
     nll, valid = per_shard(_token_nll, (logits, ls),
                            (("b", "c", "v"), ("b", "c")),
                            (("b", "c"), ("b", "c")), frozenset({"b", "c"}))
@@ -253,16 +269,20 @@ def prefill(params, batch, cfg, max_len: int):
     return _logits(params, h[:, -1:], cfg)[:, 0], caches
 
 
-def decode_step(params, token, caches, cur_pos: int, cfg):
+def decode_step(params, token, caches, cur_pos, cfg):
     """token: (B,) int (or (B, D) embeds for stub frontends); cur_pos: the
-    position being decoded.  Returns (logits (B, V) f32, new caches)."""
+    position being decoded, an int or a 0-d integer tensor on the model's
+    device (read on the device, never on the host).  Returns (logits (B, V)
+    f32, new caches)."""
     dtype = dtype_of(cfg.compute_dtype)
     if token.dim() == 2:                   # stub frontend embeds
         x = token.to(dtype)[:, None, :]
     else:
-        x = params["embed"][token.long()].to(dtype)[:, None, :]
+        x = per_shard(_take_rows, (params["embed"], token),
+                      (("v", "d"), ("b",)), (("b", "d"),),
+                      frozenset({"b"})).to(dtype)[:, None, :]
     B = x.shape[0]
-    rope = make_rope(cfg, B, 1, offset=int(cur_pos), device=x.device)
+    rope = make_rope(cfg, B, 1, offset=cur_pos, device=x.device)
     h, new_caches = blocks_decode(list(params["blocks"]), caches, x, cfg,
-                                  rope, int(cur_pos))
+                                  rope, cur_pos)
     return _logits(params, h, cfg)[:, 0], new_caches

@@ -28,7 +28,18 @@ on their heads, or k / v on head_dim for MQA), DTensor propagates the
 rest op by op, and attention runs shard by shard through
 :func:`repro_torch.parallel.act.per_shard` (batch- and head-sharded; a
 head_dim or sequence shard is gathered first, since K3 and the plain
-attention need them whole).  On plain tensors none of this changes a bit.
+attention need them whole).  Heads that do not divide the model axis
+(qwen2-7b's 28 at 16, gemma-2b's 8) are gathered in three places:
+``act.split_dim`` gathers q / k / v's uneven shard before splitting out
+the heads (and decode attention's q before splitting the kv groups);
+``act.merge_last`` flattens the attention output on the local tensor, so
+that its backward gathers the gradient's shard on the flattened dim before
+unflattening it; and it gathers a head_dim shard (decode beside a cache
+sharded on head_dim) before the output projection.  The serving steps run
+sharded too: the prefill caches are the tail of k / v padded to the cache
+length, and a decode step writes its slot by a select over the cache, so
+its position may be a 0-d tensor.  On plain tensors none of this changes
+a bit.
 """
 from __future__ import annotations
 
@@ -36,11 +47,12 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as K3
-from repro_torch.parallel.act import (BATCH, TP, constrain, per_shard,
-                                      split_last)
+from repro_torch.parallel.act import (BATCH, TP, constrain, merge_last,
+                                      per_shard, split_dim, split_last)
 
 from .attention import chunked_attention
 from .layers import apply_rope, gated_mlp, rms_norm
@@ -124,9 +136,7 @@ _ATTN_FREE = frozenset({"b", "h"})
 
 def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
                    return_kv: bool = False):
-    B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    q, k, v = _qkv(p, x, cfg, S)
+    q, k, v = _qkv(p, x, cfg, x.shape[1])
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
@@ -134,7 +144,7 @@ def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
     o = per_shard(_attend, (q, k, v), (_ATTN_DIMS,) * 3, (_ATTN_DIMS,),
                   _ATTN_FREE, causal=cfg.causal, window=spec.window,
                   chunk=cfg.attn_chunk, q_offset=q_offset)
-    out = o.reshape(B, S, H * hd) @ p["wo"]
+    out = merge_last(o) @ p["wo"]
     if return_kv:
         return out, (k, v)
     return out
@@ -250,33 +260,32 @@ def init_block_cache(cfg, spec, B: int, max_len: int, dtype,
                                 dtype=torch.float32, device=device))
 
 
-def _attn_decode(p, x, cfg, spec, rope, cache, cur_pos: int):
-    B, S, D = x.shape            # S == 1
-    H, hd = cfg.n_heads, cfg.head_dim
+def _attn_decode(p, x, cfg, spec, rope, cache, cur_pos):
+    """One decode position.  ``cur_pos`` is an int or a 0-d integer tensor
+    (no host read): the new k / v go into slot ``cur_pos % L`` by a select
+    over the cache, which writes the same values an indexed store would."""
     q, k, v = _qkv(p, x, cfg, 1)
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     L = cache["k"].shape[1]
-    slot = cur_pos % L
-    kc = cache["k"].clone()
-    vc = cache["v"].clone()
-    posc = cache["pos"].clone()
-    kc[:, slot] = k[:, 0].to(kc.dtype)
-    vc[:, slot] = v[:, 0].to(vc.dtype)
-    posc[slot] = cur_pos
+    at = torch.arange(L, device=x.device) == cur_pos % L         # the slot
+    kc = torch.where(at[None, :, None, None], k.to(cache["k"].dtype),
+                     cache["k"])
+    vc = torch.where(at[None, :, None, None], v.to(cache["v"].dtype),
+                     cache["v"])
+    posc = torch.where(at, cur_pos, cache["pos"]).to(cache["pos"].dtype)
     o = _decode_attn_with_slots(q, kc, vc, posc, cur_pos, spec.window)
-    out = o.reshape(B, 1, H * hd) @ p["wo"]
+    out = merge_last(o) @ p["wo"]
     return out, dict(k=kc, v=vc, pos=posc)
 
 
-def _decode_attn_with_slots(q, k_cache, v_cache, slot_pos, cur_pos: int,
-                            window):
+def _decode_attn_with_slots(q, k_cache, v_cache, slot_pos, cur_pos, window):
     B, _, H, hd = q.shape
     Kv = k_cache.shape[2]
     G = H // Kv
-    qg = q.reshape(B, Kv, G, hd)
+    qg = split_dim(q[:, 0], 1, Kv, G)                            # (B,Kv,G,hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                      k_cache.float()) / math.sqrt(hd)
     valid = (slot_pos >= 0) & (slot_pos <= cur_pos)
@@ -287,6 +296,13 @@ def _decode_attn_with_slots(q, k_cache, v_cache, slot_pos, cur_pos: int,
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _cache_rows(t, L: int):
+    """``t`` (B, keep, Kv, hd) as the first rows of a zero (B, L, Kv, hd)
+    cache (a sharded ``t`` stays sharded)."""
+    pad = L - t.shape[1]
+    return F.pad(t, (0, 0, 0, 0, 0, pad)) if pad else t
 
 
 def blocks_prefill(block_params: List[Dict], x: torch.Tensor, cfg, rope,
@@ -306,11 +322,7 @@ def blocks_prefill(block_params: List[Dict], x: torch.Tensor, cfg, rope,
                 L = attn_cache_len(cfg, spec, max_len)
                 keep = min(S, L)
                 # windowed layers keep the tail (window | S for our shapes)
-                kc = torch.zeros((B, L, cfg.n_kv_heads, cfg.head_dim),
-                                 dtype=k.dtype, device=k.device)
-                vc = torch.zeros_like(kc)
-                kc[:, :keep] = k[:, S - keep:]
-                vc[:, :keep] = v[:, S - keep:]
+                kc, vc = (_cache_rows(t[:, S - keep:], L) for t in (k, v))
                 ar = torch.arange(L, device=k.device)
                 pos = torch.where(ar < keep, ar + (S - keep),
                                   torch.full_like(ar, -1))
@@ -327,9 +339,10 @@ def blocks_prefill(block_params: List[Dict], x: torch.Tensor, cfg, rope,
 
 
 def blocks_decode(block_params: List[Dict], caches: List[Dict],
-                  x: torch.Tensor, cfg, rope, cur_pos: int
+                  x: torch.Tensor, cfg, rope, cur_pos
                   ) -> Tuple[torch.Tensor, List[Dict]]:
-    """One decode step through all layers.  caches[p] has a leading (R,) axis."""
+    """One decode step through all layers.  caches[p] has a leading (R,) axis;
+    ``cur_pos`` is an int or a 0-d integer tensor."""
     h = x
     per_repeat: List[List[Dict]] = [[] for _ in cfg.pattern]
     for r in range(cfg.n_repeats):

@@ -19,7 +19,8 @@ import numpy as np
 
 __all__ = ["activation_mesh", "constrain", "BATCH", "TP",
            "batch_axes", "pick_tp_dim", "mesh_axes", "clean_spec",
-           "placements_for", "per_shard", "split_last", "is_sharded"]
+           "placements_for", "per_shard", "split_dim", "split_last",
+           "merge_last", "is_sharded"]
 
 # logical activation axes used by model code (resolved against the live mesh)
 BATCH = ("pod", "data")
@@ -144,22 +145,61 @@ def pick_tp_dim(mesh: Any, *dims: int) -> int:
     return -1
 
 
-def split_last(x, *sizes):
-    """``x.reshape(*x.shape[:-1], *sizes)``; for a DTensor whose last dim
-    is sharded where ``sizes[0]`` does not divide evenly (heads that do
-    not divide the model axis), that shard is gathered first: DTensor
-    cannot split an uneven shard in a view."""
+def split_dim(x, dim: int, *sizes):
+    """``x`` with dim ``dim`` split into ``sizes``; for a DTensor whose
+    ``dim`` is sharded on a mesh dim that ``sizes[0]`` does not divide
+    (heads that do not divide the model axis), that shard is gathered
+    first: DTensor cannot split an uneven shard in a view."""
+    dim = dim % x.dim()
     if is_sharded(x):
         from torch.distributed.tensor import Replicate, Shard
 
-        last = x.dim() - 1
         mesh = x.device_mesh
-        want = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+        want = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
                      and sizes[0] % mesh.size(i) else p
                      for i, p in enumerate(x.placements))
         if want != tuple(x.placements):
             x = x.redistribute(mesh, want)
-    return x.reshape(*x.shape[:-1], *sizes)
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def split_last(x, *sizes):
+    """``x.reshape(*x.shape[:-1], *sizes)`` (:func:`split_dim` of the last
+    dim)."""
+    return split_dim(x, -1, *sizes)
+
+
+def merge_last(x):
+    """``x.reshape(*x.shape[:-2], -1)``, the inverse of :func:`split_last`.
+
+    Where a DTensor's dim -2 (the heads) does not divide a mesh dim, this
+    is where an uneven shard is gathered in the backward: the gradient that
+    reaches the flatten (from a product that contracts the merged dim,
+    sharded on it) cannot be unflattened by DTensor's view there.  The
+    flatten then runs shard by shard (:func:`per_shard`), whose backward
+    first brings the gradient to the forward's placements (a shard on the
+    merged dim is gathered), then unflattens it locally.  Elsewhere a shard
+    on the last dim (head_dim, as decode attention leaves it beside a cache
+    sharded on head_dim) is gathered first: merged into the heads it would
+    be a strided shard, which the product after it cannot take."""
+    if not is_sharded(x):
+        return x.reshape(*x.shape[:-2], -1)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    if any(x.shape[-2] % n for n in mesh.shape):
+        lead = tuple(f"x{i}" for i in range(x.dim() - 2))
+        return per_shard(_merge_local, (x,), (lead + ("h", "d"),),
+                         (lead + ("hd",),), frozenset(lead))
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim == x.dim() - 1
+                 else p for p in x.placements)
+    if want != tuple(x.placements):
+        x = x.redistribute(mesh, want)
+    return x.reshape(*x.shape[:-2], -1)
+
+
+def _merge_local(t):
+    return t.reshape(*t.shape[:-2], -1)
 
 
 def is_sharded(x) -> bool:

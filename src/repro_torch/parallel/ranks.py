@@ -8,6 +8,9 @@ live in the package.
   parameters, optimizer state and batch placed on a (data, model) mesh by
   ``param_pspecs`` / ``opt_pspecs`` / ``batch_pspecs``, then train steps
   inside ``activation_mesh``; returns each step's metrics.
+* :func:`sharded_serving_steps` -- the prefill and decode steps on DTensor
+  parameters and caches placed by the rules; returns the whole logits and
+  caches.
 * :func:`ep_moe_rank` -- :func:`repro_torch.parallel.ep_moe.ep_moe_forward`
   on a (data, model) mesh; returns the whole output and the routing.
 * :func:`local_shards` -- arrays placed by partition specs on a named
@@ -19,13 +22,15 @@ live in the package.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["sharded_train_steps", "ep_moe_rank", "moe_inputs",
+__all__ = ["sharded_train_steps", "sharded_serving_steps", "ep_moe_rank",
+           "moe_inputs",
            "local_shards", "with_host_staging", "run_jobs", "train_batch",
            "whole_leaves"]
 
@@ -83,7 +88,9 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
     rank 0 also, by :func:`whole_leaves`, for the leaves of at most
     ``leaves`` elements (0: none, None: every leaf), each step's gradients
     (``grads``, a list by step) and the parameters after the steps
-    (``params_after``)."""
+    (``params_after``), and the device bytes allocated when the peak was
+    reset (after placement: the arguments, and anything an earlier job of
+    the process left)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels import flash_attention as K3
     from repro_torch.kernels import mamba_scan as K4
@@ -100,6 +107,7 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
     mesh = make_local_mesh(*mesh_shape, device=dev.type)
     out = []
     for cfg in cfgs:
+        gc.collect()                # an earlier job's cycles off the card
         shape = ShapeSpec("t", S, B, "train")
         # whole parameters from the seed, then this rank's shards (copies,
         # so the whole tensors are freed); the AdamW state is made beside
@@ -124,6 +132,8 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
             K.reset_launches()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
+        at_reset = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+                    else None)
         for i in range(steps):
             batch = sh.device_put(train_batch(cfg, B, S, dev, i), b_sh)
             t0 = time.perf_counter()
@@ -142,11 +152,73 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                    peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
                                       if dev.type == "cuda" else None),
                    peak_reserved_bytes=(torch.cuda.max_memory_reserved(dev)
-                                        if dev.type == "cuda" else None))
+                                        if dev.type == "cuda" else None),
+                   allocated_at_reset_bytes=at_reset)
         if rank == 0:
             row.update(grads=grads, params_after=after)
         out.append(row)
         del params, opt
+    return out
+
+
+def serving_tokens(cfg, B: int, steps: int) -> np.ndarray:
+    """The decode steps' input tokens, (steps, B) int32 from numpy seed 1."""
+    return np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (steps, B)).astype(np.int32)
+
+
+def sharded_serving_steps(rank: int, world: int, cfgs: List[Any], B: int,
+                          S: int, mesh_shape, device: str,
+                          decode_steps: int = 2) -> List[Dict]:
+    """For each config (token input): parameters from seed 0 placed by
+    ``param_pspecs`` on a ('data', 'model') mesh of ``mesh_shape``; a
+    prefill (``make_prefill_step``, caches of ``S + decode_steps``
+    positions) of the synthetic batch's (B, S) tokens placed by
+    ``batch_pspecs``; its caches redistributed to ``cache_pspecs``; then
+    ``decode_steps`` decode steps of :func:`serving_tokens` at positions
+    S, S + 1, ..., each position a 0-d tensor.  Returns on rank 0 the
+    whole logits of the prefill and of each decode step and the whole
+    caches after the prefill and after the last step (float32 numpy, by
+    leaf index)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    dev = torch.device(device)
+    mesh = make_local_mesh(*mesh_shape, device=dev.type)
+    out = []
+    for cfg in cfgs:
+        L = S + decode_steps
+        params = sh.device_put(init_params(cfg, seed=0, device=dev),
+                               sh.to_shardings(sh.param_pspecs(cfg, mesh),
+                                               mesh))
+        shape = ShapeSpec("serve", L, B, "prefill")
+        batch = {"tokens": train_batch(cfg, B, S, dev)["tokens"]}
+        batch = sh.device_put(batch, sh.to_shardings(
+            sh.batch_pspecs(cfg, shape, mesh), mesh))
+        cache_spec = sh.cache_pspecs(cfg, shape, mesh)
+        with sh.activation_mesh(mesh):
+            logits, caches = make_prefill_step(cfg, max_len=L)(params, batch)
+            caches = sh.reshard(caches, cache_spec, mesh)
+            steps = [logits.full_tensor()]
+            after = [whole_leaves(caches)]
+            decode = make_decode_step(cfg)
+            for i, tok in enumerate(serving_tokens(cfg, B, decode_steps)):
+                token = sh.device_put(torch.from_numpy(tok).to(dev),
+                                      sh.NamedSharding(mesh, sh.P(
+                                          sh.serving_batch_axes(mesh, B))))
+                pos = torch.tensor(S + i, dtype=torch.int32, device=dev)
+                logits, caches = decode(params, token, caches, pos)
+                caches = sh.reshard(caches, cache_spec, mesh)
+                steps.append(logits.full_tensor())
+            after.append(whole_leaves(caches))
+        row = dict(arch=cfg.name)
+        if rank == 0:
+            row.update(logits=[t.float().cpu().numpy() for t in steps],
+                       caches=after)
+        out.append(row)
     return out
 
 

@@ -48,7 +48,8 @@ from .act import (BATCH, TP, _axis_size, _div, activation_mesh,  # noqa: F401
 
 __all__ = ["P", "batch_axes", "param_pspecs", "opt_pspecs", "batch_pspecs",
            "cache_pspecs", "to_shardings", "pick_tp_dim", "activation_mesh",
-           "constrain", "BATCH", "TP", "NamedSharding", "device_put"]
+           "constrain", "BATCH", "TP", "NamedSharding", "device_put",
+           "reshard", "serving_batch_axes"]
 
 
 class P(tuple):
@@ -171,6 +172,18 @@ def batch_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh: Any
     return spec
 
 
+def serving_batch_axes(mesh: Any, B: int):
+    """The mesh axes of a serving batch of ``B`` (the token, the logits):
+    ('pod', 'data') where they divide it, else 'data' alone, else none --
+    the reference's dry run's rule for its serving out-shardings."""
+    ba = batch_axes(mesh)
+    if B % int(np.prod([_axis_size(mesh, a) for a in ba])) == 0:
+        return ba
+    if B % _axis_size(mesh, "data") == 0:
+        return ("data",)
+    return None
+
+
 def cache_pspecs(cfg: ArchConfig, shape: ShapeSpec, mesh: Any) -> List[Dict]:
     """Per-pattern-position cache partition specs (leading repeat axis)."""
     from repro_torch.models.transformer import attn_cache_len
@@ -256,3 +269,29 @@ def device_put(tree, shardings):
                                   stride=t.stride())
 
     return T.unflatten(tdef, [put(t, s) for t, s in zip(flat, shard_leaves)])
+
+
+def reshard(tree, pspecs, mesh: Any):
+    """Each tensor of ``tree`` at the placements of the matching :class:`P`
+    of ``pspecs`` (same structure) on ``mesh``: a DTensor redistributed
+    there (the counterpart of a jitted step's out-shardings), a plain
+    tensor -- the same on every rank -- placed, which moves nothing."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from .act import is_sharded
+
+    flat, tdef = T.flatten(tree)
+    specs = T.flatten(to_shardings(pspecs, mesh))[0]
+    if len(flat) != len(specs):
+        raise ValueError(f"reshard: {len(flat)} tensors but {len(specs)} "
+                         "specs")
+    out = []
+    for t, s in zip(flat, specs):
+        if not is_sharded(t):
+            out.append(distribute_tensor(t, s.mesh, s.placements,
+                                         src_data_rank=None))
+        elif tuple(t.placements) != s.placements:
+            out.append(t.redistribute(s.mesh, s.placements))
+        else:
+            out.append(t)
+    return T.unflatten(tdef, out)

@@ -18,7 +18,9 @@ the mesh: forward and backward under DTensor's implicit replication (the
 rope tables and zero accumulators the model builds are plain tensors,
 replicated), the optimizer as :mod:`repro_torch.optim.adamw` describes,
 and the metrics come back whole.  Gradient compression is single-device
-only.
+only.  The prefill and decode steps run on DTensor parameters, batch and
+caches the same way, under implicit replication; decode takes its
+position as a 0-d tensor without a host read.
 """
 from __future__ import annotations
 
@@ -113,18 +115,31 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def _any_sharded(tree) -> bool:
+    return any(is_sharded(t) for t in T.leaves(tree))
+
+
 def make_prefill_step(cfg: ArchConfig, max_len: Optional[int] = None):
+    """Returns ``prefill_step(params, batch)`` -> ``(logits, caches)``;
+    on DTensor parameters it runs under implicit replication, as the train
+    step does."""
     @torch.no_grad()
     def prefill_step(params, batch):
         L = max_len if max_len is not None else (
             batch["tokens"].shape[1] if "tokens" in batch
             else batch["embeds"].shape[1])
-        return M.prefill(params, batch, cfg, max_len=L)
+        with _replicating(_any_sharded(params)):
+            return M.prefill(params, batch, cfg, max_len=L)
     return prefill_step
 
 
 def make_decode_step(cfg: ArchConfig):
+    """Returns ``decode_step(params, token, caches, cur_pos)`` -> ``(logits,
+    caches)``; ``cur_pos`` an int or a 0-d integer tensor (never read on
+    the host).  On DTensor parameters and caches (placed by
+    ``sharding.cache_pspecs``) it runs under implicit replication."""
     @torch.no_grad()
     def decode_step(params, token, caches, cur_pos):
-        return M.decode_step(params, token, caches, cur_pos, cfg)
+        with _replicating(_any_sharded(params)):
+            return M.decode_step(params, token, caches, cur_pos, cfg)
     return decode_step

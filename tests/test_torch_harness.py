@@ -123,6 +123,7 @@ def test_importing_the_port_loads_no_jax_or_reference():
         "import repro_torch.parallel.act, repro_torch.parallel.ep_moe\n"
         "import repro_torch.parallel.ranks, repro_torch.launch.mesh\n"
         "import repro_torch.launch.specs, repro_torch.quickstart\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hillclimb\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'networkx')]\n"
         "assert not bad, bad\n"

@@ -457,8 +457,115 @@ def test_build_knows_every_kernel_source():
 
 
 # --------------------------------------------------------------------------
+# the kernels' dispatcher operators (traceable under fake tensors)
+# --------------------------------------------------------------------------
+
+def _op_case(name, device):
+    """(wrapper, plain version, inputs) of one kernel at a small bf16 shape
+    on ``device``."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g).to(dtype).to(device)
+
+    if name == "rmsnorm":
+        return K5.rmsnorm_cuda, K5.rmsnorm_ref, (r(3, 5, 64), r(64))
+    if name == "flash_attention":
+        return (K3.flash_attention_cuda, K3.attention_ref,
+                (r(2, 300, 4, 64), r(2, 300, 2, 64), r(2, 300, 2, 64)))
+    A = -torch.exp(torch.rand(48, 5, generator=g)).to(device)
+    return (K4.mamba_scan_cuda, K4.mamba_scan_ref,
+            (r(2, 7, 48), r(2, 7, 48).abs(), A, r(2, 7, 5), r(2, 7, 5),
+             torch.ones(48, device=device)))
+
+
+OP_KERNELS = ["rmsnorm", "flash_attention", "mamba_scan"]
+
+
+def _fake_cuda(args):
+    """Fake CUDA tensors of ``args``' shapes and dtypes (inside a
+    FakeTensorMode: no card needed)."""
+    return [torch.empty(a.shape, dtype=a.dtype, device="cuda") for a in args]
+
+
+@pytest.mark.parametrize("name", OP_KERNELS)
+def test_kernel_ops_give_the_plain_versions_shapes_under_fake_tensors(name):
+    """Under FakeTensorMode, on fake CUDA tensors, each wrapper reaches its
+    operator's fake implementation: the plain version's output shapes and
+    dtypes, no launch counted, no device touched."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    wrapper, plain, args = _op_case(name, "cpu")
+    want = plain(*args)
+    for mod in (K3, K4, K5):
+        mod.reset_launches()
+    with FakeTensorMode():
+        got = wrapper(*_fake_cuda(args))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert [(tuple(t.shape), t.dtype) for t in got] == [
+        (tuple(t.shape), t.dtype) for t in want]
+    assert all(t.device.type == "cuda" for t in got)
+    assert K5.launches() == K3.launches() == K4.launches() == 0
+
+
+def test_flash_attention_flop_formula_counts_the_blocks_the_kernel_computes():
+    """K3's FLOP formula (q k^T and p v, 2 hd FLOPs each per pair) over the
+    128 x 128 blocks the kernel computes.  B 2, Sq = Sk = 300, H 4, hd 64,
+    causal: query blocks of 128, 128 and 44 rows reach 128, 256 and all 300
+    keys, 16384 + 32768 + 13200 = 62352 pairs, 4 * 2 * 4 * 64 * 62352 =
+    127,696,896 FLOPs; without the mask every block, 90000 pairs.  K4 and K5
+    count none, as the reference's HLO count has none for them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    assert K3.flops(2, 300, 300, 4, 64, True) == 127_696_896
+    assert K3.flops(2, 300, 300, 4, 64, False) == 4 * 2 * 4 * 64 * 90000
+    for name, want in (("flash_attention", 127_696_896), ("rmsnorm", 0),
+                       ("mamba_scan", 0)):
+        wrapper, _, args = _op_case(name, "cpu")
+        with FakeTensorMode():
+            fake = _fake_cuda(args)
+            with FlopCounterMode(display=False) as counter:
+                wrapper(*fake)
+        assert counter.get_total_flops() == want, name
+
+
+def test_kernel_ops_have_no_cpu_implementation():
+    """An operator runs its kernel or raises: there is no CPU kernel for it
+    to fall back to."""
+    _, _, args = _op_case("rmsnorm", "cpu")
+    with pytest.raises(NotImplementedError):
+        K5.rmsnorm_op(*args, 1e-6)
+    assert K5.launches() == 0
+
+
+# --------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OP_KERNELS)
+def test_kernel_ops_match_plain_on_card(cuda_device, name):
+    """Each operator, called directly, launches once and agrees with its
+    plain version (bf16 tolerances of LM_TOL / ATTN_TOL's kind)."""
+    wrapper, plain, args = _op_case(name, cuda_device)
+    op = dict(rmsnorm=lambda x, w: K5.rmsnorm_op(x, w, 1e-6),
+              flash_attention=lambda q, k, v: K3.flash_attention_op(
+                  q, k, v, True),
+              mamba_scan=K4.mamba_scan_op)[name]
+    mod = dict(rmsnorm=K5, flash_attention=K3, mamba_scan=K4)[name]
+    mod.reset_launches()
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert mod.launches() == 1
+    want = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4096, 4096), (37, 64), (5, 3, 1000),

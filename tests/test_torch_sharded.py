@@ -20,11 +20,14 @@ checks, run in one launch of ``run_ranks`` (gloo, one torch thread a rank).
   and 1.25 (assignments dropped: the same ones, the dispatch tables equal).
 * A dim sharded over ('pod', 'data') on a (2, 2, 2) mesh: each rank's
   shard against the hand-computed slice.
+* The uneven-heads repair: 12 query and 4 kv heads on a 1 x 8 mesh, two
+  steps against the single-device steps (loss and grad norm within 1e-6).
 * The host staging of DTensor's collectives that ranks sharing one card
   over gloo run (``launch.mesh.stage_collectives_through_host``), forced
   on the CPU: the same step; it refuses a torch that lacks a name it
   replaces.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -66,6 +69,14 @@ LOSS_TOL, GNORM_REL_TOL = 2e-3, 2e-2
 LEAF_REL_TOL = 1e-4
 EP_TOL = 1e-4
 EP_CFS = (8.0, 1.25)
+#: the uneven-heads repair: 12 query and 4 kv heads on an 8-wide model
+#: axis (1 x 8), neither dividing it
+UNEVEN_MESH = (1, 8)
+#: loss and grad norm: the mesh only reorders f32 sums, ~1e-7; each leaf's
+#: gradient is held at LEAF_REL_TOL as for the other configs (the worst
+#: leaf measured 1.04e-6, a bias gradient: a sum of B * S f32 terms
+#: reordered, relative to its own small norm)
+UNEVEN_TOL = 1e-6
 #: the two-axis placement: (pod, data, model) = (2, 2, 2)
 POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
 POD_SPEC = (("pod", "data"), None, "model")
@@ -105,6 +116,11 @@ for i, cf in enumerate(d["cfs"]):
     out[f"dispatch{i}"] = np.asarray(disp)
 np.savez(sys.argv[2], **out)
 """
+
+
+def _uneven_cfg():
+    return dataclasses.replace(reduced(get_config("qwen2-7b")), n_heads=12,
+                               n_kv_heads=4, name="qwen2-7b-reduced-h12")
 
 
 def _ep_cfg(cf: float):
@@ -159,6 +175,8 @@ def runs(ep_inputs, pod_array, tmp_path_factory):
                 *[(ep_moe_rank, (ep_inputs, _ep_cfg(cf), MESH, "cpu"))
                   for cf in EP_CFS],
                 (local_shards, (*POD_MESH, [pod_array], [POD_SPEC])),
+                (sharded_train_steps, ([_uneven_cfg()], OPT, B, S,
+                                       UNEVEN_MESH, "cpu", STEPS, None)),
                 # last: the host staging of ranks on one card, here on
                 # the CPU
                 (with_host_staging, ("cpu", sharded_train_steps,
@@ -260,6 +278,35 @@ def test_ep_moe_matches_reference_and_single_device(launched, ep_reference,
         assert kept == G * Sg * 2
     else:
         assert kept < G * Sg * 2, "capacity 1.25 should drop assignments"
+
+
+def test_uneven_heads_step_matches_single_device(launched):
+    """12 query heads and 4 kv heads on an 8-wide model axis (1 x 8): the
+    sharded backward gathers the uneven heads where it flattens them (it
+    raised there before), and two steps equal the single-device steps:
+    loss and grad norm within UNEVEN_TOL, step 1's gradient leaf by leaf
+    within LEAF_REL_TOL."""
+    cfg = _uneven_cfg()
+    params, opt = init_train_state(cfg, OPT, seed=0, device="cpu")
+    grads = []
+    step = make_train_step(cfg, OPT, on_grads=lambda g: grads.append(
+        whole_leaves(g)))
+    want = []
+    for k in range(STEPS):
+        params, opt, m = step(params, opt, train_batch(cfg, B, S, "cpu", k))
+        want.append({n: float(v) for n, v in m.items()})
+    rows = [r[4][0] for r in launched]
+    for r in rows:
+        assert r["arch"] == cfg.name
+        assert r["metrics"] == rows[0]["metrics"]
+    for got, one in zip(rows[0]["metrics"], want, strict=True):
+        assert abs(got["loss"] - one["loss"]) < UNEVEN_TOL, (got, one)
+        assert abs(got["grad_norm"] - one["grad_norm"]) < UNEVEN_TOL * max(
+            one["grad_norm"], 1), (got, one)
+    mine, single = rows[0]["grads"][0], grads[0]
+    assert sorted(mine) == sorted(single)
+    worst = max((_rel_l2(mine[j], single[j]), j) for j in single)
+    assert worst[0] < LEAF_REL_TOL, worst
 
 
 def test_two_axis_dim_takes_the_hand_computed_shard(launched, pod_array):
