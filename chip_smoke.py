@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA card::
 
     python3 chip_smoke.py
 
-It builds the port's five CUDA kernels and its measurement probes
+It builds the port's six CUDA kernel sources (K1-K5 and K3's backward)
+and its measurement probes
 (``csrc/probe.cu``: the L2 read bandwidth, the launch floor, the gather
 rate of a cluster's distributed shared memory) from the
 sources in this checkout (one ``nvcc`` each, all at once), holds each
@@ -53,7 +54,8 @@ drives every main path:
 * slice 10, LM training: qwen2-7b at its published widths, 12 of its 28
   layers, one 4096-token sequence, bf16 with f32 AdamW state and remat,
   6 steps through ``repro_torch.runtime.trainer.Trainer`` (K5 and K3
-  forward, their plain versions' backward; exact launch counts), with
+  forward, K3's backward kernel, K5's plain backward; exact launch
+  counts), with
   step 1's loss and every gradient held against the plain path, the step
   time, MFU, peak memory and a profiled step's split; then the reduced
   jamba and qwen2 trained on the card against the CPU, a restart from a
@@ -73,7 +75,14 @@ drives every main path:
   production cells at their published widths on the 16 x 16 and 2 x 16 x
   16 meshes (DRYRUN_CELLS, full depth), per-device FLOPs, bytes,
   collectives, memory and the dominant roofline term at the card's
-  constants.
+  constants;
+* slice 13: K3's backward kernel (the forward writing each row's
+  log-sum-exp) at the table, training, sharded-rank, MQA hd 256 and f32
+  forms against the plain tile-by-tile backward, timed beside SDPA's
+  backward; its launches counted in every training path and its device
+  ms read from its profiler range in the training split; K5's redesign
+  timed beside its first design and ``F.rms_norm`` at the (4096, 4096),
+  (4096, 3584) and (2048, 3584) bf16 forms.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -293,6 +302,11 @@ LM_KERNELS = {
                 "src/repro/kernels/rmsnorm/kernel.py:25"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:71"),
+    # port-side: the reference has no backward kernel; its backward is the
+    # jax.checkpoint recompute of chunked_attention's block scan, in JAX
+    "flash_attention_backward": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/attention.py:104"),
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan/kernel.py:54"),
 }
@@ -302,6 +316,16 @@ LM_KERNELS = {
 #: tolerance (tests/test_kernels.py, mamba sweep)
 LM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+#: K3's backward kernel against its plain version, relative L2 of each of
+#: dq, dk, dv (tests/test_torch_attention_grad.py: f32 products in 3xTF32
+#: keep ~1e-6; bf16 rounds P and dS to bf16, 2^-9, before three of the
+#: five products, where the plain version keeps dS in f32)
+BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: K3's training forward's row log-sum-exp against the plain version's,
+#: absolute (tests/test_torch_attention_grad.py: lse is O(log S), its f32
+#: sums of exponentials ~1e-6 relative; a wrong lse rescales P in the
+#: backward, which takes it as given)
+LSE_ABS = 1e-4
 H_FINAL_TOL = 2e-4
 
 #: the serving phase: jamba-v0.1-52b at full width, 16 of 32 layers
@@ -490,11 +514,13 @@ def emit(obj) -> None:
 # timing
 # --------------------------------------------------------------------------
 
-def _graph_ms(torch, fn, arg_sets, reps: int) -> float:
+def _graph_ms(torch, fn, arg_sets, reps: int, stream=None) -> float:
     """Per-call device time of ``fn`` over ``reps`` calls cycling through
     ``arg_sets``, captured into one CUDA graph so host launch overhead does
-    not enter; median of 5 replays, timed with CUDA events."""
-    side = torch.cuda.Stream()
+    not enter; median of 5 replays, timed with CUDA events.  ``stream``:
+    the stream to warm up and capture on (an autograd backward must be
+    captured on the stream its forward ran on)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for a in arg_sets:
@@ -502,7 +528,7 @@ def _graph_ms(torch, fn, arg_sets, reps: int) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(reps):
             fn(*arg_sets[i % len(arg_sets)])
     times = []
@@ -1331,41 +1357,71 @@ def _allclose_err(torch, got, want, tol) -> tuple:
 
 def _lm_case(torch, name, form, kernel, plain, args, tol, nbytes, flops,
              peak, library=None, lib_args=None, reps=64, plain_reps=None,
-             extra_check=None) -> dict:
+             extra_check=None, rel_l2_tol=None, library_stream=False,
+             also_timed=None, time_plain=True) -> dict:
     """One LM kernel case: error against the plain version, then kernel /
-    plain / library times (CUDA graph, cold operands) and the bound."""
+    plain / library times (CUDA graph, cold operands) and the bound.  With
+    ``rel_l2_tol`` every output is held to the plain version's by relative
+    L2 instead of the allclose on the first; ``also_timed`` names more
+    functions of the same arguments to time beside the kernel (another
+    design of it); ``library_stream``: ``lib_args`` runs on the stream the
+    library is captured on (it runs a forward whose backward is timed);
+    without ``time_plain`` the plain version is the check only
+    (``plain_ms`` None).  ``seconds``: the case's wall time."""
+    t0 = time.perf_counter()
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
-    out_k = got[0] if isinstance(got, tuple) else got
-    out_p = want[0] if isinstance(want, tuple) else want
-    assert out_k.shape == out_p.shape and out_k.dtype == out_p.dtype, form
-    err, excess = _allclose_err(torch, out_k, out_p, tol)
-    if not (math.isfinite(err) and excess <= 0):
-        raise AssertionError(f"{name} {form}: |kernel - plain| exceeds "
-                             f"{tol} (max abs {err}, excess {excess})")
+    outs_k = got if isinstance(got, tuple) else (got,)
+    outs_p = want if isinstance(want, tuple) else (want,)
+    out_k, out_p = outs_k[0], outs_p[0]
+    for a, b in zip(outs_k, outs_p, strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype, form
+    if rel_l2_tol is None:
+        err, excess = _allclose_err(torch, out_k, out_p, tol)
+        if not (math.isfinite(err) and excess <= 0):
+            raise AssertionError(f"{name} {form}: |kernel - plain| exceeds "
+                                 f"{tol} (max abs {err}, excess {excess})")
+        rels = None
+    else:
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(outs_k, outs_p))
+        rels = [_rel_l2(a, b) for a, b in zip(outs_k, outs_p)]
+        if not all(math.isfinite(r) and r <= rel_l2_tol for r in rels):
+            raise AssertionError(f"{name} {form}: relative L2 {rels} > "
+                                 f"{rel_l2_tol}")
     row = dict(kernel=name, form=form, dtype=str(out_k.dtype).replace(
-        "torch.", ""), shape=list(out_k.shape), max_abs_err=err, tol=tol)
+        "torch.", ""), shape=list(out_k.shape), max_abs_err=err,
+        tol=tol if rel_l2_tol is None else None)
+    if rels is not None:
+        row.update(rel_l2=rels, rel_l2_tol=rel_l2_tol)
     if extra_check is not None:
         row.update(extra_check(got, want))
     copies = max(2, min(64, math.ceil(COLD_BYTES / nbytes)))
     sets = [tuple(a.clone() if hasattr(a, "clone") else a for a in args)
             for _ in range(copies)]
     row["ms"] = _graph_ms(torch, kernel, sets, max(reps, copies))
+    for key, fn in (also_timed or {}).items():
+        row[key] = _graph_ms(torch, fn, sets, max(reps, copies))
     pr = plain_reps or max(reps, copies)
-    row["plain_ms"] = _graph_ms(torch, plain, sets[:max(2, min(copies, pr))],
-                                pr)
+    row["plain_ms"] = _graph_ms(
+        torch, plain, sets[:max(2, min(copies, pr))], pr) if time_plain \
+        else None
     row["library_ms"] = None
     if library is not None:
-        lib_sets = [lib_args(a) for a in sets]
+        stream = torch.cuda.Stream() if library_stream else None
+        with torch.cuda.stream(stream):
+            lib_sets = [lib_args(a) for a in sets]
         row["library_ms"] = _graph_ms(torch, library, lib_sets,
-                                      max(reps, copies))
+                                      max(reps, copies), stream=stream)
+        del lib_sets
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak * 1e3
     row.update(bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                bytes=nbytes, flops=flops, cold_copies=copies)
     del sets
+    row["seconds"] = time.perf_counter() - t0
     return row
 
 
@@ -1408,6 +1464,11 @@ def lm_kernel_checks(torch, dev) -> list:
 
     # K5: prefill rows (B*S, D), decode rows (jamba, then qwen2-7b's width),
     # f32, ragged rows and widths, the sharded_train ranks' rows
+    # (the three bf16 forms of the redesign's targets also time K5's first
+    # design, a warp or a block a row reading it twice, on the same inputs)
+    first_design = ("prefill (4096, 4096) bf16",
+                    "qwen prefill (4096, 3584) bf16",
+                    f"sharded train {shard_rows} bf16")
     for form, (R, D), dt in (("prefill (4096, 4096) bf16", (4096, 4096), bf),
                              ("decode (4, 4096) bf16", (4, 4096), bf),
                              ("qwen prefill (4096, 3584) bf16", (4096, 3584),
@@ -1426,7 +1487,9 @@ def lm_kernel_checks(torch, dev) -> list:
             LM_TOL[str(dt)[6:]], 2 * R * D * es + D * es, 4 * R * D,
             PEAK_FLOPS[str(dt)[6:]],
             library=lambda a, b: F.rms_norm(a, (a.shape[-1],), b, 1e-6),
-            lib_args=lambda a: a))
+            lib_args=lambda a: a,
+            also_timed=({"first_design_ms": K5.block_design_cuda}
+                        if form in first_design else None)))
 
     # K3: the serving prefill (B 4, S 1024, H 32, Kv 8, hd 128), then the
     # qwen2-7b phase's prefill (G = 7), gemma-2b's MQA hd 256, an hd 64
@@ -1487,6 +1550,72 @@ def lm_kernel_checks(torch, dev) -> list:
             lib_args=sdpa_args, reps=16, plain_reps=8,
             extra_check=row_check))
 
+    # K3's backward kernel: the table form, the training phase's, a
+    # sharded_train rank's, the reduced configs' f32 and a ragged MQA hd 256
+    # form.  First the training forward's o and row lse against the plain
+    # version's (ATTN_TOL, LSE_ABS), then dq, dk, dv against the plain
+    # tile-by-tile backward from that saved forward (relative L2
+    # BWD_REL_TOL), timed beside SDPA's backward at the same shape (its
+    # autograd backward captured in a CUDA graph like the kernel, on the
+    # backend SDPA picks: bf16 with grouped K and V (enable_gqa; cuDNN's
+    # on the H100), f32 with K and V repeated to the query heads, since no
+    # f32 backend but the unfused one takes groups); bound by the five
+    # products' 10 hd FLOPs a computed (query, key) pair.  The plain
+    # backward is timed at the table form only (the kernels line's row).
+    for i, (form, (B, S, H, Kv, hd), causal, dt) in enumerate((
+            ("prefill causal bf16", (4, 1024, 32, 8, 128), True, bf),
+            ("qwen train causal bf16", (1, 4096, 28, 4, 128), True, bf),
+            (f"sharded train causal bf16 {shard_attn}", shard_attn, True, bf),
+            ("ragged S=1000 MQA hd 256 causal bf16", (2, 1000, 8, 1, 256),
+             True, bf),
+            ("prefill causal f32", (2, 1024, 16, 4, 128), True, f32),
+            ("reduced train causal f32", (4, 32, 4, 2, 16), True, f32))):
+        q, k, v, do = (randn(B, S, n, hd, dtype=dt) for n in (H, Kv, Kv, H))
+        o, lse = K3.flash_attention_lse_op(q, k, v, causal)
+        o_ref, lse_ref = K3.attention_lse_ref(q, k, v, causal=causal)
+        o_err, o_excess = _allclose_err(torch, o, o_ref,
+                                        ATTN_TOL[str(dt)[6:]])
+        lse_err = float((lse.double() - lse_ref.double()).abs().max())
+        if not (math.isfinite(o_err) and o_excess <= 0
+                and math.isfinite(lse_err) and lse_err <= LSE_ABS):
+            raise AssertionError(
+                f"flash_attention_lse {form}: o max abs {o_err} (tol "
+                f"{ATTN_TOL[str(dt)[6:]]}), lse max abs {lse_err} (tol "
+                f"{LSE_ABS})")
+        fwd_check = dict(o_max_abs_err=o_err, o_tol=ATTN_TOL[str(dt)[6:]],
+                         lse_max_abs_err=lse_err, lse_tol=LSE_ABS)
+        del o_ref, lse_ref
+        es = q.element_size()
+        G = H // Kv
+
+        def sdpa_bwd_args(a, G=G, causal=causal, gqa=dt == bf):
+            qq, kk, vv, _, _, dd = a
+            r = 1 if gqa else G
+            ins = [t.transpose(1, 2).repeat_interleave(n, 1).detach()
+                   .contiguous().requires_grad_()
+                   for t, n in ((qq, 1), (kk, r), (vv, r))]
+            out = F.scaled_dot_product_attention(*ins, is_causal=causal,
+                                                 enable_gqa=gqa)
+            return (out, *ins, dd.transpose(1, 2).contiguous())
+
+        rows.append(_lm_case(
+            torch, "flash_attention_backward", form,
+            lambda *a, causal=causal: K3.flash_attention_backward_op(
+                *a, causal),
+            lambda *a, causal=causal: K3.attention_backward_ref(
+                *a, causal=causal),
+            (q, k, v, o, lse, do), None,
+            (4 * q.numel() + 4 * k.numel()) * es + lse.numel() * 4,
+            10 * B * H * hd * attn_pairs(S, causal),
+            TENSOR_FLOPS[str(dt)[6:]],
+            library=lambda out, qq, kk, vv, dd: torch.autograd.grad(
+                out, (qq, kk, vv), dd, retain_graph=True),
+            lib_args=sdpa_bwd_args, reps=8, plain_reps=2,
+            rel_l2_tol=BWD_REL_TOL[str(dt)[6:]], library_stream=True,
+            extra_check=lambda got, want, c=fwd_check: c,
+            time_plain=i == 0))
+        del q, k, v, do, o, lse
+
     # K4: the serving prefill (B 4, L 1024, Di 8192, N 16) with the model's
     # A = -(n+1) and with a general A, f32, ragged L and Di, one request
     # (B 1), N 5 (no multiple of K4's eight states a lane) at an odd Di
@@ -1537,10 +1666,15 @@ def lm_kernel_checks(torch, dev) -> list:
 # --------------------------------------------------------------------------
 
 def _lm_counters():
+    import types
+
     from repro_torch.kernels import flash_attention as K3
     from repro_torch.kernels import mamba_scan as K4
     from repro_torch.kernels import rmsnorm as K5
-    return {"rmsnorm": K5, "flash_attention": K3, "mamba_scan": K4}
+    bwd = types.SimpleNamespace(launches=K3.backward_launches,
+                                reset_launches=K3.reset_backward_launches)
+    return {"rmsnorm": K5, "flash_attention": K3,
+            "flash_attention_backward": bwd, "mamba_scan": K4}
 
 
 @contextlib.contextmanager
@@ -1668,7 +1802,8 @@ def serving_phase(torch, dev) -> dict:
 
     steps = res.decode_steps
     want = {"rmsnorm": (2 * cfg.n_layers + 1) * (1 + steps),
-            "flash_attention": n_attn, "mamba_scan": n_mamba}
+            "flash_attention": n_attn, "flash_attention_backward": 0,
+            "mamba_scan": n_mamba}
     assert launches == want, (launches, want)
     assert plain_launches == launches, (plain_launches, launches)
     logits = res.prefill_logits
@@ -1775,8 +1910,10 @@ def _leaves(tree):
 
 def _classify_kernel(name: str) -> str:
     n = name.lower()
-    if "rmsnorm_kernel" in n:
+    if "rmsnorm_" in n and "_kernel" in n:
         return "rmsnorm_ms"
+    if "fa_bwd_" in n:
+        return "flash_attention_backward_ms"
     if "fa_kernel" in n:
         return "flash_attention_ms"
     if "scan_kernel" in n:
@@ -1801,7 +1938,8 @@ def _profiled(torch, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     classes = dict.fromkeys(("rmsnorm_ms", "flash_attention_ms",
-                             "mamba_scan_ms", "matmul_ms", "other_ms"), 0.0)
+                             "flash_attention_backward_ms", "mamba_scan_ms",
+                             "matmul_ms", "other_ms"), 0.0)
     kernels = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or e.name.startswith(RANGE_PREFIX):
@@ -1883,7 +2021,8 @@ def qwen_phase(torch, dev) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = res.decode_steps
     want = {"rmsnorm": (2 * cfg.n_layers + 1) * (1 + steps),
-            "flash_attention": n_attn, "mamba_scan": 0}
+            "flash_attention": n_attn, "flash_attention_backward": 0,
+            "mamba_scan": 0}
     assert launches == want, (launches, want)
 
     (logits, _), prefill_row = _profiled(
@@ -2001,6 +2140,7 @@ def lm_grad_check(torch, dev) -> dict:
     torch.cuda.synchronize()
     n_attn = sum(k == "attn" for k in kinds) * cfg.n_repeats
     expect = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": n_attn,
+              "flash_attention_backward": n_attn,
               "mamba_scan": cfg.n_layers - n_attn}
     assert launches == expect, (launches, expect)
     rows = {}
@@ -2030,7 +2170,8 @@ def train_launches_per_step(cfg) -> dict:
     K5 for every norm1 / norm2 and the final norm, K3 for every attention
     layer without a window, K4 for every Mamba layer; with ``cfg.remat``
     the backward's recompute launches each block's kernels again (the final
-    norm is outside the checkpointed repeats)."""
+    norm is outside the checkpointed repeats); K3's backward kernel once
+    for every K3 layer."""
     from repro_torch.models import model as M
 
     R = cfg.n_repeats
@@ -2040,7 +2181,7 @@ def train_launches_per_step(cfg) -> dict:
     mamba = R * sum(s.kind == "mamba" for s in cfg.pattern)
     again = 2 if cfg.remat else 1
     return {"rmsnorm": norms * again + 1, "flash_attention": attn * again,
-            "mamba_scan": mamba * again}
+            "flash_attention_backward": attn, "mamba_scan": mamba * again}
 
 
 def train_model_flops(cfg, B: int, S: int) -> float:
@@ -2092,8 +2233,9 @@ def _train_split(torch, fn) -> tuple:
     ``repro_torch/train_step/*`` ranges; the backward runs on autograd's
     device thread, so it is the busy time the other two leave), the
     stop-gap backward's device ms per kernel (``repro_torch/plain_backward/
-    *`` ranges) with its own class split, and the idle share of the
-    host-clock wall.  ``not measured`` where the trace shows no device
+    *`` ranges) with its own class split, the backward kernels' device ms
+    (``repro_torch/kernel_backward/*``: K3's attention backward), and the
+    idle share of the host-clock wall.  ``not measured`` where the trace shows no device
     time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2106,14 +2248,15 @@ def _train_split(torch, fn) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     classes = dict.fromkeys(("rmsnorm_ms", "flash_attention_ms",
-                             "mamba_scan_ms", "matmul_ms", "other_ms"), 0.0)
+                             "flash_attention_backward_ms", "mamba_scan_ms",
+                             "matmul_ms", "other_ms"), 0.0)
     ranges, inside, kernels = {}, {}, 0
     for e in prof.events():
         if e.name.startswith(RANGE_PREFIX):
             if e.device_type == DeviceType.CPU:
                 key = e.name[len(RANGE_PREFIX):]
                 ranges[key] = ranges.get(key, 0.0) + e.device_time_total / 1e3
-                if key.startswith("plain_backward/"):
+                if key.startswith(("plain_backward/", "kernel_backward/")):
                     _range_classes(e, inside.setdefault(key, {}))
             continue             # the ranges' own device-side annotations
         if e.device_type != DeviceType.CUDA:
@@ -2140,7 +2283,14 @@ def _train_split(torch, fn) -> tuple:
                                   for k, v in ranges.items()
                                   if k.startswith("plain_backward/")},
                plain_backward_classes={k.split("/", 1)[1]: v
-                                       for k, v in inside.items()})
+                                       for k, v in inside.items()
+                                       if k.startswith("plain_backward/")},
+               kernel_backward_ms={k.split("/", 1)[1]: v
+                                   for k, v in ranges.items()
+                                   if k.startswith("kernel_backward/")},
+               kernel_backward_classes={k.split("/", 1)[1]: v
+                                        for k, v in inside.items()
+                                        if k.startswith("kernel_backward/")})
     pb = sum(row["plain_backward_ms"].values())
     row["plain_backward_share"] = pb / busy
     return out, row
@@ -3538,8 +3688,11 @@ def run(torch, dev) -> int:
     lm_rows = lm_kernel_checks(torch, dev)
     for r in lm_rows:
         emit(dict(phase="lm_kernel_check", **r))
+    by_kernel = {}
+    for r in lm_rows:
+        by_kernel[r["kernel"]] = by_kernel.get(r["kernel"], 0.0) + r["seconds"]
     emit(dict(phase="lm_kernel_check_done", cases=len(lm_rows),
-              seconds=time.time() - t0))
+              seconds=time.time() - t0, seconds_by_kernel=by_kernel))
 
     # -- phase 3: the main path at full width, through survey ------------
     iters = 200
@@ -3740,10 +3893,13 @@ def run(torch, dev) -> int:
     train = train_phase(torch, dev)
     train["seconds"] = time.time() - t0
     emit(dict(phase="train", nvidia_smi=smi, **train))
+    attn_bwd = train["profiled_step"].get("kernel_backward_ms", {}).get(
+        "flash_attention", "not measured")
     print(f"train: qwen2-7b {train['n_layers']} layers, S {train['seq']}: "
           f"{train['step_ms']:.1f} ms a step, "
           f"{train['tokens_per_s']:.0f} tokens/s, MFU {train['mfu']:.4f} "
-          f"of 989 TFLOP/s, peak {train['peak_memory_gb']:.2f} GB ({smi})",
+          f"of 989 TFLOP/s, attention backward {attn_bwd} ms a step (K3's "
+          f"backward kernel), peak {train['peak_memory_gb']:.2f} GB ({smi})",
           flush=True)
 
     # -- phase 10d: reduced training card vs CPU, restart, compression --
@@ -3873,12 +4029,16 @@ def run(torch, dev) -> int:
         form=k2["form"], forms=[r["form"] for r in k2_rows])]
     for name, (source, replaces) in LM_KERNELS.items():
         mine = [r for r in lm_rows if r["kernel"] == name]
-        first = mine[0]               # the serving path's case
-        assert lm_launches[name] > 0, (name, lm_launches)
+        first = mine[0]               # the serving path's (table) case
         path_launches = (lm_launches[name] + qwen["launches"][name]
                          + train["launches"][name]
                          + train_small["launches"][name]
                          + sharded["launches"][name])
+        assert path_launches > 0, (name, path_launches)
+        # the forward kernels run on the serving path, the backward in
+        # training
+        assert (lm_launches[name] > 0) == (name != "flash_attention_backward"), \
+            (name, lm_launches)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path_launches, max_abs_err=first["max_abs_err"],

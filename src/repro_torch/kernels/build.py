@@ -30,8 +30,10 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-#: every kernel source of the port: K1 (spmv), K2, K5, K3, K4
-KERNELS = ("spmv", "cayley_spmv", "rmsnorm", "flash_attention", "mamba_scan")
+#: every kernel source of the port: K1 (spmv), K2, K5, K3 and its backward,
+#: K4
+KERNELS = ("spmv", "cayley_spmv", "rmsnorm", "flash_attention",
+           "flash_attention_bwd", "mamba_scan")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}

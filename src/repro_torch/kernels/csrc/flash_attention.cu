@@ -42,7 +42,9 @@
 //     together with O += P V of tile kt - 1, and tile kt's softmax runs while
 //     that product is on the tensor cores; the two consumers take turns at
 //     issuing (named barriers), so that one's softmax overlaps the other's
-//     products.  The epilogue writes O / max(l, 1e-30) as bf16 into the
+//     products.  The epilogue writes, when asked, each row's log-sum-exp
+//     m + log(max(l, 1e-30)) in f32 (the backward kernel's input, in
+//     flash_attention_bwd.cu), and O / max(l, 1e-30) as bf16 into the
 //     warpgroup's own Q rows (the same swizzle) and stores it with one TMA
 //     store per 64-column panel, which clips rows >= Sq and columns >= hd;
 //     the Q buffer is handed back to the producer in the next tile, once the
@@ -91,7 +93,16 @@ namespace {
 struct Shape {
   int B, Sq, Sk, H, Kv, hd, causal, nq;
   float scale_log2;            // softmax scale * log2(e)
+  float* lse;                  // (B, H, Sq) row log-sum-exp, or null
 };
+
+// the natural log-sum-exp of a row's scaled scores from its running max m
+// (log2 units, -inf before any key) and its sum l of 2^(s - m):
+// m + log(max(l, 1e-30)), in the units of the softmax's argument
+__device__ __forceinline__ float row_lse(float m, float l) {
+  const float mu = m == -INFINITY ? 0.f : m;
+  return (mu + __log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
+}
 
 constexpr float kNegInf = -INFINITY;
 
@@ -686,6 +697,15 @@ fa_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       inv[i] = 1.f / fmaxf(l[i], 1e-30f);
     }
+    if (p.lse != nullptr && c0 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = tc.q0 + row0 + ra + 8 * i;
+        if (row < p.Sq)
+          p.lse[(static_cast<int64_t>(tc.b) * p.H + tc.h) * p.Sq + row] =
+              row_lse(m[i], l[i]);
+      }
+    }
     unsigned char* Ow = Qb + row0 * 128;
 #pragma unroll
     for (int j = 0; j < HDP / 8; ++j) {
@@ -965,6 +985,15 @@ fa_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+  if (p.lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wr0 + g + 8 * r;
+      if (row < p.Sq)
+        p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + row] =
+            row_lse(m[r], l[r]);
+    }
+  }
   float* ob = o + (static_cast<int64_t>(b) * p.Sq * p.H + h) * p.hd;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -1104,18 +1133,19 @@ extern "C" {
 
 // dtype: 0 = float32, 2 = bfloat16.  q, o: (B, Sq, H, hd); k, v:
 // (B, Sk, Kv, hd); all contiguous and 16-byte aligned; H % Kv == 0; hd a
-// multiple of 8 (bf16, <= 256) or 4 (f32, <= 128).
+// multiple of 8 (bf16, <= 256) or 4 (f32, <= 128).  lse: null, or a float32
+// (B, H, Sq) that receives each row's log-sum-exp of its scaled scores.
 int flash_attention_launch(int dtype, const void* q, const void* k,
-                           const void* v, void* o, int B, int Sq, int Sk,
-                           int H, int Kv, int hd, int causal, float scale,
-                           void* stream) {
+                           const void* v, void* o, void* lse, int B, int Sq,
+                           int Sk, int H, int Kv, int hd, int causal,
+                           float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
   if (Sk <= 0 || Kv <= 0 || H % Kv != 0 || hd <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return static_cast<int>(cudaErrorInvalidValue);
   Shape p{B, Sq, Sk, H, Kv, hd, causal ? 1 : 0, 0,
-          scale * 1.4426950408889634f};
+          scale * 1.4426950408889634f, static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 2 && hd % 8 == 0) {
     if (hd <= 64) return launch_bf16<64>(q, k, v, o, p, s);

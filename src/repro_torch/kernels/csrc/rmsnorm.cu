@@ -6,18 +6,34 @@
 // (`_rmsnorm_kernel`), which loaded a (block_rows, D) tile into VMEM and did
 // the square, mean and scale in one pass on the VPU.
 //
-// Design (simple and right first):
-//   * A group of TPR threads owns one row: a warp (TPR = 32, eight rows per
-//     256-thread block) when D <= 1024, the whole block (TPR = 256) above.
-//     A row of the serving path (D = 4096, bf16) is 8 KB: 256 threads read
-//     it in two 16-byte loads each.
-//   * Pass 1 reads the row with 16-byte vector loads (8 bf16 or 4 f32) when
-//     D is a multiple of the vector width, else element by element, and sums
-//     the squares in f32.  The sum is reduced by warp shuffles and, for
-//     TPR = 256, across the block's eight warps through shared memory.
-//   * Pass 2 reads the row again (from L1/L2: it was just read) with the
-//     weight, and writes (x * inv) * w, the order of the Pallas body.
-//   * Ragged row counts are masked by the row index; nothing is padded.
+// Design (the Hopper redesign, `rmsnorm_rows_kernel`), for rows of 16-byte
+// vectors// (D a multiple of 8 bf16 or 4 f32, 16-byte-aligned pointers) of up to
+// 2,048 vectors:
+//   * Warp slices sized to D: a row is owned by W warps, the least power of
+//     two with 256 W >= nvec (nvec = D / vector width; W divides the
+//     block's 8 warps), each thread holding NV = ceil(nvec / 32 W)
+//     <= 8 of its vectors in registers (vector k of a thread: lane + 32 W k
+//     of the row).  D 3584 bf16: 448 vectors, 2 warps of 7 each; D 4096: 2
+//     warps of 8.  The row is read once: every load of a row is issued
+//     before any reduction, and the next row's loads are issued before this
+//     row's reduction and stores (two register buffers), so ~2 rows of
+//     bytes a thread are in flight.
+//   * Several rows a block (256 threads: 256 / 32 W rows at once), the
+//     weight's vectors loaded once per block into registers, a persistent
+//     grid of a multiple of the SM count (the occupancy's blocks an SM)
+//     walking the row groups: no wave tail.
+//   * The row's sum of squares in f32: warp shuffles, then the W warps'
+//     partials through shared memory (double-buffered by the group's
+//     parity, one __syncthreads a group).
+//   * (x * inv) * w in f32, the order of the Pallas body.
+// Other widths (or misaligned pointers, or longer rows) take the first
+// design, `rmsnorm_block_kernel`: a warp (TPR = 32, eight rows per 256-thread
+// block) for D <= 1024, the whole block (TPR = 256) above; pass 1 sums
+// the squares (16-byte vectors when D allows, else element by element),
+// pass 2 reads the row again from L1/L2 with the weight.  It is also
+// exported alone (rmsnorm_launch_block), so that both designs can be
+// timed on the same inputs.  Ragged row counts are masked by the row
+// index; nothing is padded.
 //
 // Bound: device-memory bytes.  It reads x and w once and writes y once; it
 // does ~4 flops per element.  At the serving path's prefill shape,
@@ -54,7 +70,7 @@ template <typename T> struct Vec {
 
 template <typename T, int TPR, bool VECTOR>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+rmsnorm_block_kernel(const T* __restrict__ x, const T* __restrict__ w,
                T* __restrict__ y, int64_t rows, int D, float eps) {
   constexpr int kRowsPerBlock = kThreads / TPR;
   constexpr int VN = Vec<T>::N;
@@ -112,16 +128,136 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---- the redesign: warp slices, rows in registers, a persistent grid ----
+
+__device__ __forceinline__ float sum_sq(const uint4& v, float) {
+  const float4 f = *reinterpret_cast<const float4*>(&v);
+  return f.x * f.x + f.y * f.y + f.z * f.z + f.w * f.w;
+}
+__device__ __forceinline__ float sum_sq(const uint4& v, __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    s += f.x * f.x + f.y * f.y;
+  }
+  return s;
+}
+
 template <typename T>
-void launch(const void* x, const void* w, void* y, int64_t rows, int D,
-            float eps, cudaStream_t stream) {
-  const bool vec = D % Vec<T>::N == 0;
+__device__ __forceinline__ uint4 scale_vec(const uint4& v, const uint4& wv,
+                                           float inv) {
+  constexpr int VN = Vec<T>::N;
+  const T* a = reinterpret_cast<const T*>(&v);
+  const T* b = reinterpret_cast<const T*>(&wv);
+  alignas(16) T o[VN];
+#pragma unroll
+  for (int j = 0; j < VN; ++j)
+    o[j] = from_f32<T>(to_f32(a[j]) * inv * to_f32(b[j]));
+  return *reinterpret_cast<const uint4*>(o);
+}
+
+// W warps a row, NV vectors a thread; blockDim 256, 256 / 32 W rows a group
+template <typename T, int NV>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
+            T* __restrict__ y, int64_t rows, int D, int W, float eps) {
+  const int nvec = D / Vec<T>::N;
+  const int tpr = 32 * W;
+  const int rows_per_group = kThreads / tpr;
+  const int slot = threadIdx.x / tpr;          // the row of the group
+  const int lane = threadIdx.x % tpr;          // the thread in its row
+  const int64_t groups = (rows + rows_per_group - 1) / rows_per_group;
+  __shared__ float part[2][kThreads / 32];
+
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  uint4 wr[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int i = lane + k * tpr;
+    wr[k] = i < nvec ? __ldg(wv + i) : make_uint4(0, 0, 0, 0);
+  }
+
+  auto load = [&](uint4 (&buf)[NV], int64_t g) {
+    const int64_t row = g * rows_per_group + slot;
+    const uint4* xr = reinterpret_cast<const uint4*>(x) + row * nvec;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = lane + k * tpr;
+      buf[k] = (row < rows && i < nvec) ? __ldcs(xr + i)
+                                        : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  uint4 cur[NV], nxt[NV];
+  int64_t g = blockIdx.x;
+  if (g < groups) load(cur, g);
+  for (int parity = 0; g < groups; g += gridDim.x, parity ^= 1) {
+    const int64_t g_next = g + gridDim.x;
+    if (g_next < groups) load(nxt, g_next);
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) ss += sum_sq(cur[k], T());
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (threadIdx.x % 32 == 0) part[parity][threadIdx.x / 32] = ss;
+    __syncthreads();
+    ss = 0.f;
+    for (int j = 0; j < W; ++j) ss += part[parity][slot * W + j];
+    const float inv = rsqrtf(ss / static_cast<float>(D) + eps);
+    const int64_t row = g * rows_per_group + slot;
+    if (row < rows) {
+      uint4* yr = reinterpret_cast<uint4*>(y) + row * nvec;
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int i = lane + k * tpr;
+        if (i < nvec) __stcs(yr + i, scale_vec<T>(cur[k], wr[k], inv));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k) cur[k] = nxt[k];
+  }
+}
+
+template <typename T, int NV>
+int launch_rows(const T* xp, const T* wp, T* yp, int64_t rows, int D, int W,
+                float eps, cudaStream_t stream) {
+  static int grid[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (grid[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rmsnorm_rows_kernel<T, NV>, kThreads, 0);
+    grid[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int per_group = kThreads / (32 * W);
+  const int64_t groups = (rows + per_group - 1) / per_group;
+  const unsigned blocks =
+      static_cast<unsigned>(groups < grid[dev] ? groups : grid[dev]);
+  rmsnorm_rows_kernel<T, NV><<<blocks, kThreads, 0, stream>>>(
+      xp, wp, yp, rows, D, W, eps);
+  return cudaSuccess;
+}
+
+template <typename T>
+void launch_block(const void* x, const void* w, void* y, int64_t rows, int D,
+                  float eps, cudaStream_t stream) {
+  const bool vec = D % Vec<T>::N == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(y) & 15) == 0;
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* yp = static_cast<T*>(y);
 #define RMS_LAUNCH(TPR, V)                                                  \
-  rmsnorm_kernel<T, TPR, V>                                                 \
-      <<<static_cast<unsigned>((rows + kThreads / TPR - 1) / (kThreads / TPR)), \
+  rmsnorm_block_kernel<T, TPR, V>                                           \
+      <<<static_cast<unsigned>((rows + kThreads / TPR - 1) /                \
+                               (kThreads / TPR)),                           \
          kThreads, 0, stream>>>(xp, wp, yp, rows, D, eps)
   if (D > 1024) {
     if (vec) RMS_LAUNCH(256, true); else RMS_LAUNCH(256, false);
@@ -129,6 +265,36 @@ void launch(const void* x, const void* w, void* y, int64_t rows, int D,
     if (vec) RMS_LAUNCH(32, true); else RMS_LAUNCH(32, false);
   }
 #undef RMS_LAUNCH
+}
+
+template <typename T>
+int launch(const void* x, const void* w, void* y, int64_t rows, int D,
+           float eps, cudaStream_t stream) {
+  constexpr int VN = Vec<T>::N;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int nvec = D / VN;
+  if (!aligned || D % VN != 0 || nvec > 8 * kThreads) {
+    launch_block<T>(x, w, y, rows, D, eps, stream);
+    return cudaSuccess;
+  }
+  int W = 1;                                    // warps a row: 1, 2, 4, 8
+  while (32 * 8 * W < nvec) W *= 2;
+  const int NV = (nvec + 32 * W - 1) / (32 * W);  // vectors a thread, <= 8
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* yp = static_cast<T*>(y);
+  switch (NV) {
+    case 1: return launch_rows<T, 1>(xp, wp, yp, rows, D, W, eps, stream);
+    case 2: return launch_rows<T, 2>(xp, wp, yp, rows, D, W, eps, stream);
+    case 3: return launch_rows<T, 3>(xp, wp, yp, rows, D, W, eps, stream);
+    case 4: return launch_rows<T, 4>(xp, wp, yp, rows, D, W, eps, stream);
+    case 5: return launch_rows<T, 5>(xp, wp, yp, rows, D, W, eps, stream);
+    case 6: return launch_rows<T, 6>(xp, wp, yp, rows, D, W, eps, stream);
+    case 7: return launch_rows<T, 7>(xp, wp, yp, rows, D, W, eps, stream);
+    default: return launch_rows<T, 8>(xp, wp, yp, rows, D, W, eps, stream);
+  }
 }
 
 }  // namespace
@@ -140,10 +306,27 @@ int rmsnorm_launch(int dtype, const void* x, const void* w, void* y,
                    long long rows, int D, float eps, void* stream) {
   if (rows <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = cudaSuccess;
   if (dtype == 0)
-    launch<float>(x, w, y, rows, D, eps, s);
+    err = launch<float>(x, w, y, rows, D, eps, s);
   else if (dtype == 2)
-    launch<__nv_bfloat16>(x, w, y, rows, D, eps, s);
+    err = launch<__nv_bfloat16>(x, w, y, rows, D, eps, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the first design alone (rmsnorm_block_kernel), for timing it beside the
+// redesign
+int rmsnorm_launch_block(int dtype, const void* x, const void* w, void* y,
+                         long long rows, int D, float eps, void* stream) {
+  if (rows <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch_block<float>(x, w, y, rows, D, eps, s);
+  else if (dtype == 2)
+    launch_block<__nv_bfloat16>(x, w, y, rows, D, eps, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

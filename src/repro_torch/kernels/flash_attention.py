@@ -14,19 +14,30 @@ reference's Pallas kernel and its ``attention_ref`` do.
   (``csrc/flash_attention.cu``), the Hopper port of the reference's Pallas
   ``flash_attention`` (``src/repro/kernels/flash_attention/kernel.py``) with
   its ``ops.gqa_flash_attention`` layout adaptation.  It takes CUDA tensors
-  only: it launches the kernel or raises, and never falls back.  Its
-  gradient is that of :func:`attention_ref` at the same inputs
-  (:mod:`.grad`): a stop-gap whose backward builds the O(S^2) plain scores,
-  until LM training gets a backward kernel.  Under ``torch.no_grad()`` it
-  is one launch and saves nothing.  The launch goes through the dispatcher
-  operator :func:`flash_attention_op` (``repro_torch::flash_attention``),
-  whose fake implementation and FLOP formula (:func:`flops`) let the dry
-  run trace and count the card's program.
+  only: it launches the kernel or raises, and never falls back.  Under
+  ``torch.no_grad()`` (or with no input that requires grad) it is one
+  launch that writes O alone and saves nothing.  When autograd records
+  the call it goes through :class:`FlashAttentionFunction`: the forward
+  launch also writes each row's log-sum-exp ``lse`` (B, H, Sq) in f32,
+  and the backward is the hand-written backward kernel
+  (``csrc/flash_attention_bwd.cu``), which recomputes each live tile's
+  scores from ``lse`` and keeps no (S, S) tensor, as the reference's
+  ``jax.checkpoint``-ed chunked attention does.  The launches go through
+  the dispatcher operators :data:`flash_attention_op`,
+  :data:`flash_attention_lse_op` and :data:`flash_attention_backward_op`
+  (``repro_torch::flash_attention*``), whose fake implementations and FLOP
+  formulas (:func:`flops`, :func:`backward_flops`) let the dry run trace
+  and count the card's program;
+* :func:`attention_lse_ref` and :func:`attention_backward_ref` — the
+  plain versions of the forward with ``lse`` and of the backward; the
+  latter recomputes (query block, key block) tiles as the reference's
+  backward does, never an (S, S) tensor.
 
 The model's prefill attention (``repro_torch.models.transformer``) routes a
 CUDA tensor of a layer without a window or query offset here, and every
 other layer, and any CPU tensor, to ``models.attention.chunked_attention``.
-:func:`launches` counts the kernel's launches.
+:func:`launches` counts the forward kernel's launches,
+:func:`backward_launches` the backward's.
 """
 from __future__ import annotations
 
@@ -38,13 +49,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from torch.autograd.function import once_differentiable
+
 from . import grad as G
 
-__all__ = ["attention_ref", "flash_attention_cuda", "flash_attention_op",
-           "gqa_flash_attention", "launches", "reset_launches", "flops",
-           "FLOP_BLOCK"]
+__all__ = ["attention_ref", "attention_lse_ref", "attention_backward_ref",
+           "flash_attention_cuda", "flash_attention_op",
+           "flash_attention_lse_op", "flash_attention_backward_op",
+           "FlashAttentionFunction", "gqa_flash_attention", "launches",
+           "reset_launches", "backward_launches", "reset_backward_launches",
+           "flops", "backward_flops", "FLOP_BLOCK", "BACKWARD_RANGE"]
 
 _LAUNCHES = 0
+_BACKWARD_LAUNCHES = 0
+#: the profiler range around each backward launch
+BACKWARD_RANGE = "repro_torch/kernel_backward/flash_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 #: elements in 16 bytes: the kernel's head width is a multiple of this
 _ROW_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
@@ -65,10 +84,28 @@ def reset_launches() -> None:
     _LAUNCHES = 0
 
 
+def backward_launches() -> int:
+    """Launches of the backward kernel since the last reset."""
+    return _BACKWARD_LAUNCHES
+
+
+def reset_backward_launches() -> None:
+    global _BACKWARD_LAUNCHES
+    _BACKWARD_LAUNCHES = 0
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
     """Plain PyTorch attention: softmax(q k^T / sqrt(hd)) v in f32 (f64 for
     f64 inputs)."""
+    return attention_lse_ref(q, k, v, causal=causal)[0]
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True) -> tuple:
+    """:func:`attention_ref`'s output and each row's log-sum-exp of its
+    scaled, masked scores, (B, H, Sq) in the plain versions' type: the
+    forward launch's two outputs."""
     B, Sq, H, hd = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
     ct = G.compute_dtype(q)
@@ -78,9 +115,60 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = s.masked_fill(~mask, -1e30)
-    p = torch.softmax(s, dim=-1)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(ct))
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    return (o.reshape(B, Sq, H, hd).to(q.dtype),
+            lse.reshape(B, H, Sq))
+
+
+def attention_backward_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                           block: int = FLOP_BLOCK) -> tuple:
+    """(dq, dk, dv) of softmax attention at the saved forward (``o`` and
+    its row log-sum-exp ``lse`` (B, H, Sq)), recomputed tile by tile as the
+    reference's ``jax.checkpoint``-ed chunked attention recomputes it: for
+    each ``block``-row query block, the key blocks up to its last row when
+    causal; no tensor of (S, S) elements.  P is rounded to v's dtype before
+    dV = P^T dO, as the forward rounds it; the rest is in the plain
+    versions' type.  Returns tensors in the inputs' dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    Gq = H // Kv
+    ct = G.compute_dtype(q)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qf = q.to(ct).reshape(B, Sq, Kv, Gq, hd)
+    dof = do.to(ct).reshape(B, Sq, Kv, Gq, hd)
+    kf, vf = k.to(ct), v.to(ct)
+    delta = (dof * o.to(ct).reshape(B, Sq, Kv, Gq, hd)).sum(-1)
+    lse_ = lse.to(ct).reshape(B, Kv, Gq, Sq).permute(0, 3, 1, 2)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros(B, Sk, Kv, hd, dtype=ct, device=dev)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, Sq, block):
+        q1 = min(q0 + block, Sq)
+        k_end = min(Sk, q1) if causal else Sk
+        q_pos = torch.arange(q0, q1, device=dev)
+        for k0 in range(0, k_end, block):
+            k1 = min(k0 + block, k_end)
+            s = torch.einsum("bqkgd,bskd->bqkgs", qf[:, q0:q1],
+                             kf[:, k0:k1]) * scale
+            p = torch.exp(s - lse_[:, q0:q1, :, :, None])
+            if causal:
+                mask = q_pos[:, None] >= torch.arange(k0, k1,
+                                                      device=dev)[None, :]
+                p = p.masked_fill(~mask[None, :, None, None, :], 0.0)
+            dv[:, k0:k1] += torch.einsum("bqkgs,bqkgd->bskd",
+                                         p.to(v.dtype).to(ct), dof[:, q0:q1])
+            dp = torch.einsum("bqkgd,bskd->bqkgs", dof[:, q0:q1],
+                              vf[:, k0:k1])
+            ds = p * (dp - delta[:, q0:q1, :, :, None])
+            dq[:, q0:q1] += torch.einsum("bqkgs,bskd->bqkgd", ds,
+                                         kf[:, k0:k1]) * scale
+            dk[:, k0:k1] += torch.einsum("bqkgs,bqkgd->bskd", ds,
+                                         qf[:, q0:q1]) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,12 +179,27 @@ def _library() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_library() -> ctypes.CDLL:
+    """The backward kernel's library, built on first use."""
+    from . import build
+
+    lib = build.load("flash_attention_bwd")
+    lib.flash_attention_backward_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_backward_launch.restype = ctypes.c_int
+    lib.flash_attention_backward_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -133,7 +236,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd > limit:
         raise ValueError(f"flash_attention_cuda: head width {hd} > {limit} "
                          f"for {q.dtype}")
-    return _differentiable(flash_attention_op, q, k, v, causal)
+    return _differentiable(_kernel_forward, _kernel_backward, q, k, v,
+                           causal)
 
 
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,28 +254,85 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_ref(q, k, v, causal=causal)
 
 
-def _differentiable(launch, q, k, v, causal):
-    """``launch(q, k, v, causal=causal)`` with :func:`attention_ref`'s
-    gradient when autograd records the call (:func:`.grad.through_kernel`)."""
-    return G.through_kernel(launch, attention_ref, (q, k, v), causal=causal)
+class FlashAttentionFunction(torch.autograd.Function):
+    """forward: ``o, lse = forward(q, k, v, causal)``, saving q, k, v, o and
+    lse; backward: ``backward(q, k, v, o, lse, do, causal)`` -> (dq, dk,
+    dv), inside the profiler range :data:`BACKWARD_RANGE`.  On the card the
+    two are K3's forward with ``lse`` and the backward kernel; the CPU
+    tests give it the plain versions."""
+
+    @staticmethod
+    def forward(ctx, forward, backward, causal, q, k, v):
+        o, lse = forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.backward_fn, ctx.causal = backward, causal
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            dq, dk, dv = ctx.backward_fn(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal)
+        need = ctx.needs_input_grad[3:]
+        return (None, None, None, *(g if n else None
+                                    for g, n in zip((dq, dk, dv), need)))
 
 
-def flops(B: int, Sq: int, Sk: int, H: int, hd: int, causal: bool) -> int:
-    """The two products' FLOPs (q k^T and p v, 2 hd each per (query, key)
-    pair) over the pairs the kernel computes: for each FLOP_BLOCK-row query
-    block, the key blocks up to its last row when causal (every key block
-    otherwise), the ragged edges at their true sizes."""
+def _differentiable(forward, backward, q, k, v, causal):
+    """Attention through :class:`FlashAttentionFunction` when autograd
+    records the call; otherwise ``forward``'s O alone, which on the card is
+    one launch of K3 without ``lse`` (serving under ``torch.no_grad()``
+    pays nothing for it).  On the card ``forward`` / ``backward`` are the
+    kernels' operators; the CPU tests pass :func:`attention_lse_ref` /
+    :func:`attention_backward_ref` through the same seam."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(forward, backward, bool(causal),
+                                            q, k, v)
+    if forward is _kernel_forward:
+        return flash_attention_op(q, k, v, causal)
+    return forward(q, k, v, causal)[0]
+
+
+def _pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """The (query, key) pairs the kernels compute: for each FLOP_BLOCK-row
+    query block, the key blocks up to its last row when causal (every key
+    block otherwise), the ragged edges at their true sizes."""
     bs = FLOP_BLOCK
     pairs = 0
     for q0 in range(0, Sq, bs):
         rows = min(bs, Sq - q0)
         keys = min(Sk, ((q0 + bs - 1) // bs + 1) * bs) if causal else Sk
         pairs += rows * keys
-    return 4 * B * H * hd * pairs
+    return pairs
+
+
+def flops(B: int, Sq: int, Sk: int, H: int, hd: int, causal: bool) -> int:
+    """The forward's two products' FLOPs (q k^T and p v, 2 hd each per
+    (query, key) pair) over the pairs of :func:`_pairs`."""
+    return 4 * B * H * hd * _pairs(Sq, Sk, causal)
+
+
+def backward_flops(B: int, Sq: int, Sk: int, H: int, hd: int,
+                   causal: bool) -> int:
+    """The backward's five products' FLOPs (q k^T recomputed, dO v^T,
+    P^T dO, dS^T q, dS k: 2 hd each, 10 hd per (query, key) pair) over the
+    same pairs as :func:`flops`."""
+    return 10 * B * H * hd * _pairs(Sq, Sk, causal)
 
 
 def _flash_attention_fake(q, k, v, causal):
     return q.new_empty(q.shape)
+
+
+def _flash_attention_lse_fake(q, k, v, causal):
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+def _flash_attention_backward_fake(q, k, v, o, lse, do, causal):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 def _flash_attention_flops(q_shape, k_shape, v_shape, causal=True, *args,
@@ -180,22 +341,38 @@ def _flash_attention_flops(q_shape, k_shape, v_shape, causal=True, *args,
     return flops(B, Sq, k_shape[1], H, hd, bool(causal))
 
 
+def _flash_attention_backward_flops(q_shape, k_shape, v_shape, o_shape,
+                                    lse_shape, do_shape, causal=True, *args,
+                                    out_shape=None, **kwargs) -> int:
+    B, Sq, H, hd = q_shape
+    return backward_flops(B, Sq, k_shape[1], H, hd, bool(causal))
+
+
+def _padded_width(q: torch.Tensor) -> int:
+    """The head width padded to whole 16-byte rows (TMA and cp.async read
+    16-byte rows): a multiple of 8 (bf16) or 4 (f32)."""
+    hd, n = q.shape[-1], _ROW_ELEMS[q.dtype]
+    return -(-hd // n) * n
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool) -> torch.Tensor:
-    """One launch of K3 on inputs :func:`flash_attention_cuda` has checked."""
+            causal: bool, with_lse: bool = False):
+    """One launch of K3 on inputs :func:`flash_attention_cuda` has checked:
+    O, or (O, lse) with ``with_lse``."""
     global _LAUNCHES
     B, Sq, H, hd = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
-    # the kernel reads 16-byte rows (TMA, cp.async): pad the head width to a
-    # multiple of 8 (bf16) or 4 (f32) with zero columns, which change no
-    # product, and slice the output back
-    width = -(-hd // _ROW_ELEMS[q.dtype]) * _ROW_ELEMS[q.dtype]
+    # zero columns up to the padded width change no product; the output is
+    # sliced back
+    width = _padded_width(q)
     if width != hd:
         q, k, v = (F.pad(t, (0, width - hd)) for t in (q, k, v))
     qc, kc, vc = (_aligned(t) for t in (q, k, v))
     o = torch.empty_like(qc)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if o.numel() == 0:
-        return o[..., :hd]
+        return (o[..., :hd], lse) if with_lse else o[..., :hd]
     if Sk == 0:
         raise ValueError("flash_attention_cuda: no keys (Sk == 0)")
     lib = _library()
@@ -204,12 +381,52 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _LAUNCHES += 1
         rc = lib.flash_attention_launch(
             _DTYPE_CODE[q.dtype], qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-            o.data_ptr(), B, Sq, Sk, H, Kv, width, int(bool(causal)),
-            1.0 / math.sqrt(hd), stream)
+            o.data_ptr(), lse.data_ptr() if with_lse else None, B, Sq, Sk, H,
+            Kv, width, int(bool(causal)), 1.0 / math.sqrt(hd), stream)
     if rc != 0:
         raise RuntimeError("flash_attention_cuda: kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
-    return o if width == hd else o[..., :hd].contiguous()
+    o = o if width == hd else o[..., :hd].contiguous()
+    return (o, lse) if with_lse else o
+
+
+def _launch_backward(q, k, v, o, lse, do, causal: bool) -> tuple:
+    """One launch of the backward kernel (its three grids) on the saved
+    forward: (dq, dk, dv) in the inputs' dtype."""
+    global _BACKWARD_LAUNCHES
+    B, Sq, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    width = _padded_width(q)
+    if width != hd:
+        q, k, v, o, do = (F.pad(t, (0, width - hd))
+                          for t in (q, k, v, o, do))
+    qc, kc, vc, oc, doc = (_aligned(t) for t in (q, k, v, o, do))
+    lc = _aligned(lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (qc, kc, vc))
+    if q.numel() and Sk:
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        # each query head's f32 share of dk and dv, summed by the kernel
+        share = (torch.empty((2, H // Kv, B, Sk, Kv, width),
+                             dtype=torch.float32, device=q.device)
+                 if H > Kv else None)
+        lib = _backward_library()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            _BACKWARD_LAUNCHES += 1
+            rc = lib.flash_attention_backward_launch(
+                _DTYPE_CODE[q.dtype], qc.data_ptr(), kc.data_ptr(),
+                vc.data_ptr(), oc.data_ptr(), lc.data_ptr(), doc.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                delta.data_ptr(), None if share is None else share.data_ptr(),
+                B, Sq, Sk, H, Kv, width,
+                int(bool(causal)), 1.0 / math.sqrt(hd), stream)
+        if rc != 0:
+            raise RuntimeError(
+                "flash_attention backward: kernel launch failed: "
+                + lib.flash_attention_backward_error_string(rc).decode())
+    if width != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -229,12 +446,39 @@ flash_attention_op = G.kernel_op(
     lambda q, k, v, causal: _launch(q, k, v, causal=causal),
     _flash_attention_fake)
 
+#: K3's forward writing the row log-sum-exp beside O, for training
+#: (``repro_torch::flash_attention_lse``): (O, lse (B, H, Sq) f32)
+flash_attention_lse_op = G.kernel_op(
+    "flash_attention_lse(Tensor q, Tensor k, Tensor v, bool causal) "
+    "-> (Tensor, Tensor)",
+    lambda q, k, v, causal: _launch(q, k, v, causal=causal, with_lse=True),
+    _flash_attention_lse_fake)
+
+#: the backward kernel (``repro_torch::flash_attention_backward``):
+#: (dq, dk, dv) from q, k, v, O, lse and dO
+flash_attention_backward_op = G.kernel_op(
+    "flash_attention_backward(Tensor q, Tensor k, Tensor v, Tensor o, "
+    "Tensor lse, Tensor do, bool causal) -> (Tensor, Tensor, Tensor)",
+    _launch_backward, _flash_attention_backward_fake)
+
+
+def _kernel_forward(q, k, v, causal):
+    return flash_attention_lse_op(q, k, v, causal)
+
+
+def _kernel_backward(q, k, v, o, lse, do, causal):
+    return flash_attention_backward_op(q, k, v, o, lse, do, causal)
+
 
 def _register_flop_formula() -> None:
     from torch.utils.flop_counter import register_flop_formula
 
     register_flop_formula(torch.ops.repro_torch.flash_attention)(
         _flash_attention_flops)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_lse)(
+        _flash_attention_flops)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_backward)(
+        _flash_attention_backward_flops)
 
 
 _register_flop_formula()

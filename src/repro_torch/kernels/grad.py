@@ -1,5 +1,6 @@
-"""A gradient for the LM kernels K3 (flash attention), K4 (Mamba scan) and
-K5 (RMSNorm).
+"""A gradient for the LM kernels K4 (Mamba scan) and K5 (RMSNorm), and the
+dispatcher operators of K3, K4 and K5.  K3 (flash attention) has a backward
+kernel of its own (``kernels.flash_attention.FlashAttentionFunction``).
 
 :class:`PlainBackward` is a ``torch.autograd.Function`` whose forward calls
 the kernel's launch, exactly as without autograd, and whose backward
@@ -14,10 +15,9 @@ calls the launch directly: one launch, nothing saved.  That is so under
 ``torch.no_grad()``, which :func:`repro_torch.serve.generate` runs in, and
 wherever no input requires grad.
 
-A stop-gap until LM training gets backward kernels: the backward costs the
-plain version's forward and backward, for K3 the O(S^2) plain attention with
-its (B, H, S, S) scores, for K4 an L-step Python loop that keeps every
-step's (B, Di, N) state.  Each backward runs inside a profiler range named
+A stop-gap until K4 and K5 get backward kernels: the backward costs the
+plain version's forward and backward, for K4 an L-step Python loop that
+keeps every step's (B, Di, N) state.  Each backward runs inside a profiler range named
 ``repro_torch/plain_backward/<plain version>``, so that a trace gives the
 stop-gap's device time per kernel (``chip_smoke.py``'s training phases
 read it); outside a profiler the range costs a few microseconds a call.

@@ -32,7 +32,7 @@ import torch
 from . import grad as G
 
 __all__ = ["rmsnorm_ref", "rmsnorm_cuda", "rmsnorm_op", "fused_rmsnorm",
-           "launches", "reset_launches"]
+           "block_design_cuda", "launches", "reset_launches"]
 
 _LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
@@ -68,6 +68,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.rmsnorm_launch.restype = ctypes.c_int
+    lib.rmsnorm_launch_block.argtypes = lib.rmsnorm_launch.argtypes
+    lib.rmsnorm_launch_block.restype = ctypes.c_int
     lib.rmsnorm_error_string.argtypes = [ctypes.c_int]
     lib.rmsnorm_error_string.restype = ctypes.c_char_p
     return lib
@@ -132,6 +134,30 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
                                 float(eps), stream)
     if rc != 0:
         raise RuntimeError("rmsnorm_cuda: kernel launch failed: "
+                           + lib.rmsnorm_error_string(rc).decode())
+    return y
+
+
+def block_design_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+                      ) -> torch.Tensor:
+    """K5's first design (a warp or a block a row, the row read twice),
+    launched alone on the inputs :func:`rmsnorm_cuda` takes, so that it can
+    be timed beside the redesign on the same tensors (``chip_smoke.py``,
+    the card tests).  On no path of the model; it counts no launch."""
+    xc, wc = x.contiguous(), w.contiguous()
+    y = torch.empty_like(xc)
+    D = int(x.shape[-1])
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return y
+    lib = _library()
+    with torch.cuda.device(x.device):
+        rc = lib.rmsnorm_launch_block(
+            _DTYPE_CODE[x.dtype], xc.data_ptr(), wc.data_ptr(), y.data_ptr(),
+            rows, D, float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("rmsnorm block design: kernel launch failed: "
                            + lib.rmsnorm_error_string(rc).decode())
     return y
 

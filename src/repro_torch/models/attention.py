@@ -3,9 +3,13 @@
 The port of the reference's ``models/attention.py``.  ``chunked_attention``
 is the plain prefill path: a block-chunked online softmax that never
 materializes the (S, S) score matrix and skips key blocks wholly outside the
-causal / window band.  It is the oracle of the hand-written flash-attention
-kernel K3 (:mod:`repro_torch.kernels.flash_attention`), which the model's
-prefill calls instead on the card.  ``decode_attention`` is plain PyTorch
+causal / window band.  When autograd records it, each live block's step
+runs under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+the reference's ``jax.checkpoint(body)``: the backward recomputes the
+block's scores and probabilities, and only the running (m, l, acc) are
+kept.  It is the oracle of the hand-written flash-attention kernel K3
+(:mod:`repro_torch.kernels.flash_attention`), which the model's prefill
+calls instead on the card.  ``decode_attention`` is plain PyTorch
 everywhere (the reference has no kernel for it).
 """
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["chunked_attention", "decode_attention"]
 
@@ -39,7 +44,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_offset``: absolute position of q[0] (for prefill continuation).
     Key blocks entirely outside the causal/window band of a query block are
-    skipped.
+    skipped.  Under autograd each block's step is checkpointed: its
+    backward recomputes the block, as the reference's does.
     """
     B, Sq, H, hd = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
@@ -53,6 +59,23 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kp = F.pad(k, (0, 0, 0, 0, 0, Sk_p - Sk))
     vp = F.pad(v, (0, 0, 0, 0, 0, Sk_p - Sk))
     dev = q.device
+    record = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+
+    def body(m, l, acc, qc, kc_, vc_, q_pos, k_lo):
+        s = torch.einsum("bqkgd,bskd->bqkgs", qc.float(),
+                         kc_.float()) * scale
+        k_pos = k_lo + torch.arange(k_chunk, device=dev)
+        mask = _block_mask(q_pos, k_pos, causal, window)
+        mask &= (k_pos < Sk)[None, :]                      # padding
+        s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgs,bskd->bqkgd", p.to(vc_.dtype).float(), vc_.float())
+        return m_new, l, acc
 
     out_chunks = []
     for qi in range(nq):
@@ -72,21 +95,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 continue                                   # future block
             if window is not None and k_hi < q_lo - window + 1:
                 continue                                   # expired block
-            kc_ = kp[:, k_lo:k_hi + 1]
-            vc_ = vp[:, k_lo:k_hi + 1]
-            s = torch.einsum("bqkgd,bskd->bqkgs", qc.float(),
-                             kc_.float()) * scale
-            k_pos = k_lo + torch.arange(k_chunk, device=dev)
-            mask = _block_mask(q_pos, k_pos, causal, window)
-            mask &= (k_pos < Sk)[None, :]                  # padding
-            s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqkgs,bskd->bqkgd", p.to(vc_.dtype).float(), vc_.float())
-            m = m_new
+            args = (m, l, acc, qc, kp[:, k_lo:k_hi + 1],
+                    vp[:, k_lo:k_hi + 1], q_pos, k_lo)
+            if record:
+                m, l, acc = checkpoint(body, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+            else:
+                m, l, acc = body(*args)
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         out_chunks.append(out.reshape(B, q_chunk, H, hd))
     o = torch.cat(out_chunks, dim=1)[:, :Sq]

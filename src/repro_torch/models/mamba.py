@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import mamba_scan as K4
-from repro_torch.parallel.act import BATCH, TP, constrain, per_shard
+from repro_torch.parallel.act import (BATCH, TP, constrain,
+                                      contract_shards, per_shard)
 
 __all__ = ["mamba_params_shapes", "mamba_forward", "mamba_prefill",
            "mamba_decode_step", "selective_scan_chunked", "selective_scan_ref"]
@@ -188,8 +189,11 @@ def _ssm_projections(params, u, cfg):
     N, R = cfg.ssm_state, cfg.dt_rank
     # (B, L, R+2N), whole on its last dim: with x_proj's Di rows on 'model'
     # the product is a partial sum there, which torch 2.11's DTensor cannot
-    # add dt_bias's shard to after dt_proj; reduce it first
-    proj = constrain(_matmul(u, params["x_proj"]), BATCH, None, None)
+    # add dt_bias's shard to after dt_proj; reduce it first.  The product
+    # runs shard by shard, so its input gradient stays on each rank's own
+    # Di shard (DTensor's own backward computes all of it on every rank)
+    proj = constrain(contract_shards(_matmul, u, params["x_proj"]), BATCH,
+                     None, None)
     dt, B_t, C_t = torch.split(proj, [R, N, N], dim=-1)
     delta = F.softplus(_matmul(dt, params["dt_proj"]) + params["dt_bias"])
     A = -torch.exp(params["A_log"].float())

@@ -14,13 +14,15 @@ reference's ``jax.checkpoint`` around its chunk body does.
 Sharded execution: with DTensor parameters and batch inside
 :class:`repro_torch.parallel.act.activation_mesh`, the embedded input and
 each loss chunk's logits are constrained where the reference constrains
-them; the embedding gather and the per-position loss run shard by shard
-(:func:`repro_torch.parallel.act.per_shard`; DTensor has no sharding rule
-for an indexed gather on a sharded table, so the table and the vocabulary
-dim are gathered whole first).
+them; the embedding lookup looks up each model rank's own rows of the table
+(:func:`repro_torch.parallel.act.embed_rows`: zeros for the others' rows,
+then one all-reduce), and the per-position loss runs shard by shard
+(:func:`repro_torch.parallel.act.per_shard`; its vocabulary dim is
+gathered whole first).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
@@ -29,7 +31,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.parallel.act import BATCH, TP, constrain, per_shard
+from repro_torch.parallel.act import (BATCH, TP, constrain, embed_rows,
+                                      is_sharded, mesh_axes, model_axis_size,
+                                      per_shard)
 
 from .layers import init_linear, mrope_positions, rms_norm, rope_angles
 from .transformer import (block_param_shapes, blocks_decode, blocks_forward,
@@ -140,13 +144,25 @@ def _take_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
+def _lookup(table, tokens, dims):
+    """The embedding rows of ``tokens`` (dims: their labels).  On a mesh
+    whose model axis shards the table's rows, each rank looks up the rows
+    it owns (:func:`repro_torch.parallel.act.embed_rows`); elsewhere the
+    table is gathered whole first (DTensor has no sharding rule for an
+    indexed gather on a sharded table)."""
+    if is_sharded(table):
+        got = embed_rows(table, tokens, _take_rows)
+        if got is not None:            # a partial sum over the model axis
+            return constrain(got, BATCH, *([None] * (got.dim() - 1)))
+    return per_shard(_take_rows, (table, tokens), (("v", "d"), dims),
+                     (dims + ("d",),), frozenset(dims))
+
+
 def _embed_in(params, batch, cfg):
     dtype = dtype_of(cfg.compute_dtype)
     if "embeds" in batch:                     # stub frontends (vlm/audio)
         return constrain(batch["embeds"].to(dtype), BATCH, None, None)
-    x = per_shard(_take_rows, (params["embed"], batch["tokens"]),
-                  (("v", "d"), ("b", "s")), (("b", "s", "d"),),
-                  frozenset({"b", "s"}))
+    x = _lookup(params["embed"], batch["tokens"], ("b", "s"))
     return constrain(x.to(dtype), BATCH, None, None)
 
 
@@ -168,16 +184,62 @@ def _project(h, hw):
     return h @ hw.to(h.dtype)
 
 
+class _RowGradProduct(torch.autograd.Function):
+    """``h @ hw`` whose weight gradient is computed for hw's rows [lo, hi)
+    alone (zeros elsewhere); the output and the input gradient are
+    whole."""
+
+    @staticmethod
+    def forward(ctx, h, hw, lo: int, hi: int):
+        ctx.save_for_backward(h, hw)
+        ctx.rows = (lo, hi)
+        return h @ hw
+
+    @staticmethod
+    def backward(ctx, g):
+        h, hw = ctx.saved_tensors
+        lo, hi = ctx.rows
+        dh = g @ hw.T if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = torch.zeros_like(hw)
+            dw[lo:hi] = (h[..., lo:hi].reshape(-1, hi - lo).T
+                         @ g.reshape(-1, g.shape[-1]))
+        return dh, dw, None, None
+
+
+def _project_rows(h, hw, *, lo: int, hi: int):
+    """:func:`_project` whose weight gradient covers rows [lo, hi) only."""
+    return _RowGradProduct.apply(h, hw.to(h.dtype), lo, hi)
+
+
 def _head_logits(h, hw):
     """``(h @ hw).float()``; on a mesh shard by shard: the batch and
     position shards, and the vocabulary's where the head is sharded on it,
     each compute their block, the head's d_model (FSDP) shard gathered
     first, as the reference's partitioner does (DTensor's own choice for
     the product gathers the activations instead, or shards an indivisible
-    vocabulary unevenly)."""
+    vocabulary unevenly).  Where the model axis does not shard the
+    vocabulary, its ranks would each compute the same whole weight
+    gradient: each computes its own share of d_model's rows instead (a
+    partial sum over the axis), as the reference's per-device count
+    shows."""
     lead = tuple(f"x{i}" for i in range(h.dim() - 1))
-    return per_shard(_project, (h, hw), (lead + ("d",), ("d", "v")),
-                     (lead + ("v",),), frozenset(lead + ("v",))).float()
+    fn, split = _project, None
+    M = model_axis_size(hw)
+    if M > 1:
+        from torch.distributed.tensor import Replicate
+
+        mesh = hw.device_mesh
+        if hw.placements[list(mesh_axes(mesh)).index(TP)] == Replicate():
+            rows = -(-hw.shape[0] // M)
+            lo = min(hw.shape[0], mesh.get_local_rank(TP) * rows)
+            fn = functools.partial(_project_rows, lo=lo,
+                                   hi=min(hw.shape[0], lo + rows))
+            split = {1: TP}
+    return per_shard(fn, (h, hw), (lead + ("d",), ("d", "v")),
+                     (lead + ("v",),), frozenset(lead + ("v",)),
+                     grad_partial=split).float()
 
 
 def _logits(params, h, cfg):
@@ -278,9 +340,7 @@ def decode_step(params, token, caches, cur_pos, cfg):
     if token.dim() == 2:                   # stub frontend embeds
         x = token.to(dtype)[:, None, :]
     else:
-        x = per_shard(_take_rows, (params["embed"], token),
-                      (("v", "d"), ("b",)), (("b", "d"),),
-                      frozenset({"b"})).to(dtype)[:, None, :]
+        x = _lookup(params["embed"], token, ("b",)).to(dtype)[:, None, :]
     B = x.shape[0]
     rope = make_rope(cfg, B, 1, offset=cur_pos, device=x.device)
     h, new_caches = blocks_decode(list(params["blocks"]), caches, x, cfg,

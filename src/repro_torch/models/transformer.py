@@ -28,10 +28,15 @@ on their heads, or k / v on head_dim for MQA), DTensor propagates the
 rest op by op, and attention runs shard by shard through
 :func:`repro_torch.parallel.act.per_shard` (batch- and head-sharded; a
 head_dim or sequence shard is gathered first, since K3 and the plain
-attention need them whole).  Heads that do not divide the model axis
-(qwen2-7b's 28 at 16, gemma-2b's 8) are gathered in three places:
-``act.split_dim`` gathers q / k / v's uneven shard before splitting out
-the heads (and decode attention's q before splitting the kv groups);
+attention need them whole).  Where the query or kv heads do not divide
+the model axis (qwen2-7b's 28 / 4 at 16, gemma-2b's 8 / 1), the train and
+prefill steps take the reference partitioner's padded layout
+(:func:`_padded_heads_attention`): ``act.split_dim`` gathers q / k / v's
+uneven shard before splitting out the heads, each model rank computes
+attention for its own heads only (one kv group of qwen2-7b's, 7 heads,
+not all 28), and the result is reduce-scattered onto ``wo``'s row shards.
+Decode gathers the uneven heads:
+``act.split_dim`` gathers its q before splitting the kv groups, and
 ``act.merge_last`` flattens the attention output on the local tensor, so
 that its backward gathers the gradient's shard on the flattened dim before
 unflattening it; and it gathers a head_dim shard (decode beside a cache
@@ -52,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as K3
 from repro_torch.parallel.act import (BATCH, TP, constrain, merge_last,
+                                      model_axis_size, padded_heads,
                                       per_shard, split_dim, split_last)
 
 from .attention import chunked_attention
@@ -141,13 +147,83 @@ def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    o = per_shard(_attend, (q, k, v), (_ATTN_DIMS,) * 3, (_ATTN_DIMS,),
-                  _ATTN_FREE, causal=cfg.causal, window=spec.window,
-                  chunk=cfg.attn_chunk, q_offset=q_offset)
-    out = merge_last(o) @ p["wo"]
+    kw = dict(causal=cfg.causal, window=spec.window, chunk=cfg.attn_chunk,
+              q_offset=q_offset)
+    M = model_axis_size(q)
+    if M > 1 and (cfg.n_heads % M or cfg.n_kv_heads % M):
+        out = _padded_heads_attention(q, k, v, p["wo"], cfg, M, **kw)
+    else:
+        o = per_shard(_attend, (q, k, v), (_ATTN_DIMS,) * 3, (_ATTN_DIMS,),
+                      _ATTN_FREE, **kw)
+        out = merge_last(o) @ p["wo"]
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _padded_heads_attention(q, k, v, wo, cfg, M: int, **kw):
+    """Attention and the output projection on a mesh whose model axis (M
+    wide) the query or kv heads do not divide, in the reference
+    partitioner's padded layout (:func:`repro_torch.parallel.act.
+    padded_heads`): each model rank computes attention for its own heads
+    only, each with its kv head, and places them among zero heads, a
+    partial sum over the axis; that is reduce-scattered onto the flattened
+    heads (the columns ``wo``'s rows are sharded by) and multiplied by
+    ``wo`` row-parallel, as for evenly divided heads.  q, k, v arrive
+    whole on the axis (the uneven shard is gathered where the heads are
+    split out).  A zero head's query is zero and its output is dropped,
+    so its dO is zero: q, k and v get no gradient from it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    H, hd = cfg.n_heads, cfg.head_dim
+    mesh = q.device_mesh
+    # per local head: its query head (None for a zero head) and kv head
+    qh, kvh = zip(*padded_heads(H, cfg.n_kv_heads, M,
+                                mesh.get_local_rank(TP)))
+    # a rank's real heads are contiguous, in order, at local positions
+    # [i0, i0 + len(real)) (zero heads only pad a group or the axis)
+    real = [(i, h) for i, h in enumerate(qh) if h is not None]
+    i0, h0 = real[0] if real else (0, 0)
+    kv = _grouped_kv(kvh)
+
+    act = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+           else Replicate() for pl in q.placements]
+    names = mesh.mesh_dim_names
+    part = [Partial() if names[i] == TP else pl for i, pl in enumerate(act)]
+    q, k, v = (t.redistribute(mesh, act) for t in (q, k, v))
+
+    def pick(t, heads):
+        """t's heads (dim 2) in the order given, a zero head for None (a
+        product with t, so that a rank of zero heads still gives t a
+        gradient, of zeros, and joins its reduction)."""
+        zero = t[:, :, :1] * 0
+        return torch.cat([zero if h is None else t[:, :, h:h + 1]
+                          for h in heads], dim=2)
+
+    def local(q, k, v):
+        o = _attend(pick(q, qh), pick(k, kv), pick(v, kv), **kw)
+        o = o[:, :, i0:i0 + len(real)]
+        return F.pad(o, (0, 0, h0, H - h0 - len(real)))
+
+    run = local_map(local, out_placements=part,
+                    in_placements=(act, act, act),
+                    in_grad_placements=(part, part, part), device_mesh=mesh)
+    o = run(q, k, v)
+    o = constrain(o.reshape(*o.shape[:2], H * hd), BATCH, None, TP)
+    return o @ wo
+
+
+def _grouped_kv(kvh) -> list:
+    """The local heads' kv heads ``kvh`` as K3's grouped layout: each kv
+    head once where ``kvh`` runs in equal groups of G (whole kv groups, or
+    a share of one), local head i reading entry i // G, so that attention
+    reads a kv head once and its backward sums the group; else ``kvh``
+    itself, one kv head a query head."""
+    g = next((i for i, h in enumerate(kvh) if h != kvh[0]), len(kvh))
+    if len(kvh) % g or any(h != kvh[i - i % g] for i, h in enumerate(kvh)):
+        g = 1
+    return list(kvh[::g])
 
 
 def _ffn_sublayer(p, x, cfg, spec) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -13,14 +13,15 @@ duck-typed mesh the rules accept (:func:`mesh_axes` reads both).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 __all__ = ["activation_mesh", "constrain", "BATCH", "TP",
            "batch_axes", "pick_tp_dim", "mesh_axes", "clean_spec",
            "placements_for", "per_shard", "split_dim", "split_last",
-           "merge_last", "is_sharded"]
+           "merge_last", "is_sharded", "model_axis_size", "padded_heads",
+           "contract_shards", "embed_rows"]
 
 # logical activation axes used by model code (resolved against the live mesh)
 BATCH = ("pod", "data")
@@ -202,6 +203,120 @@ def _merge_local(t):
     return t.reshape(*t.shape[:-2], -1)
 
 
+def model_axis_size(t) -> int:
+    """The size of the model axis a DTensor ``t`` is placed on (1 for a
+    plain tensor or a mesh without one)."""
+    if not is_sharded(t):
+        return 1
+    return mesh_axes(t.device_mesh).get(TP, 1)
+
+
+def padded_heads(H: int, Kv: int, model: int, rank: int) -> List[tuple]:
+    """The heads rank ``rank`` of a ``model``-wide axis computes when the
+    ``H`` query heads (``Kv`` kv groups of G = H / Kv) do not all divide it,
+    in the reference partitioner's padded layout: (query head, kv head) per
+    local head, ``None`` for a zero (padding) head.
+
+    * H divides the axis: a contiguous share of H / model heads (the kv
+      groups split inside);
+    * else, Kv > 1: the kv groups are padded to a multiple of the axis and
+      each rank takes whole groups, all G heads of each; a rank past the
+      last group computes zero groups (qwen2-7b's 28 / 4 at 16: ranks 0-3
+      one group of 7 heads each, ranks 4-15 7 zero heads, as the
+      reference's per-device FLOP count shows);
+    * else (one kv head): the query heads padded to a multiple of the axis,
+      a contiguous share each (gemma-2b's 8 at 16: one head a rank)."""
+    G = H // Kv
+    if H % model == 0:
+        n = H // model
+        return [(j, j // G) for j in range(rank * n, (rank + 1) * n)]
+    if Kv > 1:
+        c = -(-Kv // model)
+        return [(g * G + i, g) if g < Kv else (None, 0)
+                for g in range(rank * c, (rank + 1) * c) for i in range(G)]
+    n = -(-H // model)
+    return [(j, 0) if j < H else (None, 0)
+            for j in range(rank * n, (rank + 1) * n)]
+
+
+def contract_shards(fn, a, w):
+    """``fn(a, w)``, a product contracting ``a``'s last dim with ``w``'s
+    first, run shard by shard where both are sharded alike on it (and
+    ``a`` perhaps on its batch dim): each rank multiplies its own shards,
+    a partial sum over the contraction's mesh dims, and its input gradient
+    is its own shard's only (the gradient of the partial sum is whole on
+    every rank).  DTensor's own choice for the backward gathers ``w`` and
+    computes every shard's input gradient on each rank.  Anything else,
+    and plain tensors, go to ``fn`` directly."""
+    if not (is_sharded(a) and is_sharded(w)):
+        return fn(a, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    last = a.dim() - 1
+    out, w_grad = [], []
+    for pa, pw in zip(a.placements, w.placements):
+        if isinstance(pa, Shard) and pa.dim == last and pw == Shard(0):
+            out.append(Partial())
+            w_grad.append(Shard(0))
+        elif isinstance(pa, Shard) and pa.dim == 0 and pw == Replicate():
+            out.append(Shard(0))
+            w_grad.append(Partial())
+        elif pa == Replicate() and pw == Replicate():
+            out.append(Replicate())
+            w_grad.append(Replicate())
+        else:
+            return fn(a, w)
+    run = local_map(fn, out_placements=out,
+                    in_placements=(list(a.placements), list(w.placements)),
+                    in_grad_placements=(list(a.placements), w_grad),
+                    device_mesh=a.device_mesh)
+    return run(a, w)
+
+
+def embed_rows(table, tokens, take):
+    """``take(table, tokens)`` (the table's rows at the tokens) where the
+    DTensor ``table`` (V, D) is sharded on its rows over the model axis, as
+    the reference's partitioner runs it: the tokens are gathered whole
+    (a few bytes), and each rank looks up, in its own block of the table
+    (its rows, and its columns where FSDP shards D), the tokens whose rows
+    it owns, zeros for the rest.  The result is a partial sum over the
+    model axis, sharded on D where the table is; the caller's constraint
+    reduces it and moves the D shard onto the batch (an all-to-all).  The
+    table is never gathered.  Returns None where the table is not so
+    sharded (the caller gathers it)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    names = list(mesh_axes(mesh))
+    if TP not in names or table.placements[names.index(TP)] != Shard(0) or \
+            not is_sharded(tokens) or any(
+                p not in (Replicate(), Shard(0), Shard(1))
+                for p in table.placements):
+        return None
+    m = names.index(TP)
+    rows = table.shape[0] // mesh.size(m)
+    lo = mesh.get_local_rank(TP) * rows
+    whole = [Replicate()] * mesh.ndim
+    last = tokens.dim()
+    out = [Partial() if i == m else (Shard(last) if p == Shard(1)
+                                     else Replicate())
+           for i, p in enumerate(table.placements)]
+
+    def local(t, ids):
+        ids = ids.long() - lo
+        own = (ids >= 0) & (ids < rows)
+        got = take(t, ids.clamp(0, rows - 1))
+        return got * own[..., None].to(got.dtype)
+
+    run = local_map(local, out_placements=out,
+                    in_placements=(list(table.placements), whole),
+                    in_grad_placements=(list(table.placements), whole),
+                    device_mesh=mesh)
+    return run(table, tokens.redistribute(mesh, whole))
+
+
 def is_sharded(x) -> bool:
     """True for a DTensor (a tensor placed on a device mesh)."""
     from torch.distributed.tensor import DTensor
@@ -210,7 +325,7 @@ def is_sharded(x) -> bool:
 
 
 def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
-              **kwargs):
+              grad_partial: Optional[Dict[int, str]] = None, **kwargs):
     """``fn(*args, **kwargs)`` run shard by shard where ``args`` hold
     DTensors, through ``torch.distributed.tensor.experimental.local_map``.
 
@@ -222,7 +337,10 @@ def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
     argument carrying it evenly; those arguments are sharded on it (a
     replicated one keeps its slice, no exchange).  Every other mesh dim is
     redistributed to ``Replicate`` first (a shard on a kernel dim is
-    gathered, a ``Partial`` reduced).  So a kernel's own dims reach it
+    gathered, a ``Partial`` reduced).  ``grad_partial`` maps an argument's
+    index to a mesh axis over which ``fn`` computes a different share of
+    that argument's gradient on each rank: its gradient is ``Partial``
+    there.  So a kernel's own dims reach it
     whole and each shard computes exactly its slice of the result.  An argument
     replicated over a mesh dim whose shards compute different slices (a
     norm's weight beside a batch-sharded input) gets its gradient as a
@@ -265,15 +383,21 @@ def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
             if tuple(a.placements) != want:
                 a = a.redistribute(mesh, want)
         placed.append(a)
-    def grad_target(d):
-        return [Partial() if i in label_of and label_of[i] not in d else p
-                for i, p in enumerate(target(d))]
+    names = list(mesh_axes(mesh))
+
+    def grad_target(d, idx):
+        g = [Partial() if i in label_of and label_of[i] not in d else p
+             for i, p in enumerate(target(d))]
+        axis = (grad_partial or {}).get(idx)
+        if axis in names:
+            g[names.index(axis)] = Partial()
+        return g
 
     sharded = [d is not None and is_sharded(a) for a, d in zip(placed, dims)]
     in_placements = tuple(target(d) if sh else None
                           for d, sh in zip(dims, sharded))
-    in_grads = tuple(grad_target(d) if sh else None
-                     for d, sh in zip(dims, sharded))
+    in_grads = tuple(grad_target(d, i) if sh else None
+                     for i, (d, sh) in enumerate(zip(dims, sharded)))
     out_placements = tuple(target(d) for d in outs)
     run = local_map(lambda *xs: fn(*xs, **kwargs),
                     out_placements=(out_placements if len(outs) > 1

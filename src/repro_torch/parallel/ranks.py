@@ -72,6 +72,7 @@ def _count_launches():
     from repro_torch.kernels import rmsnorm as K5
 
     return dict(rmsnorm=K5.launches(), flash_attention=K3.launches(),
+                flash_attention_backward=K3.backward_launches(),
                 mamba_scan=K4.launches())
 
 
@@ -130,6 +131,7 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
         reset_staged_bytes()
         for K in (K3, K4, K5):
             K.reset_launches()
+        K3.reset_backward_launches()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         at_reset = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"

@@ -9,9 +9,11 @@ in bf16, 3e-5 for f32 attention), ragged shapes included: a row count that
 is no block multiple, a sequence that is no tile multiple, a length that is
 no chunk multiple.  K4's final state is held against the reference's
 ``selective_scan_chunked``.  The kernels' gradient (``kernels/grad.py``:
-the kernel forward, the plain version's backward) is checked here with each
-plain version standing in for its launch: ``gradcheck`` in f64, equality
-with autograd of the plain version, and nothing saved under ``no_grad``.
+the kernel forward, the plain version's backward; K3's own backward) is
+checked here with each plain version standing in for its launch:
+``gradcheck`` in f64, equality with autograd of the plain version, and
+nothing saved under ``no_grad``.  K3's backward kernel and its plain
+version are tested in ``tests/test_torch_attention_grad.py``.
 Tests marked ``cuda`` launch the kernels on the card; they skip elsewhere
 (run them there with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_lm_kernels.py``).
@@ -333,7 +335,20 @@ def _grad_case(name, dtype=torch.float64, seed=0):
 
 
 def _through(mod, launch, args, kw):
-    """The module's kernel call with ``launch`` standing in for the launch."""
+    """The module's kernel call with ``launch`` standing in for the launch.
+    K3 takes a forward that also returns the row log-sum-exp, and its
+    backward (``FlashAttentionFunction``): the plain versions stand in for
+    both launches."""
+    if mod is K3:
+        def forward(q, k, v, causal):
+            lse = K3.attention_lse_ref(q, k, v, causal=causal)[1]
+            return launch(q, k, v, causal=causal), lse
+
+        def backward(q, k, v, o, lse, do, causal):
+            return K3.attention_backward_ref(q, k, v, o, lse, do,
+                                             causal=causal)
+
+        return K3._differentiable(forward, backward, *args, *kw.values())
     return mod._differentiable(launch, *args, *kw.values())
 
 
@@ -355,7 +370,11 @@ def test_kernel_gradient_equals_autograd_of_the_plain_version(name):
     """Through the Function (forward: the launch; backward: the plain
     version recomputed) the gradients are autograd's of the plain version,
     in f32, bit for bit; outputs of a tuple (K4's y, h_final) each carry
-    theirs, and an output left out of the loss contributes nothing."""
+    theirs, and an output left out of the loss contributes nothing.  K3's
+    backward is its own (``attention_backward_ref``, tile by tile from the
+    saved log-sum-exp, the backward kernel's plain version): its gradients
+    differ from autograd's of the whole softmax only in the order of f32
+    sums, within 1e-5 relative (a few f32 ulps of the largest term)."""
     mod, plain, args, kw = _grad_case(name, torch.float32, seed=1)
     out = _through(mod, plain, args, kw)
     want = plain(*args, **kw)
@@ -371,16 +390,22 @@ def test_kernel_gradient_equals_autograd_of_the_plain_version(name):
             sum((o * w).sum() for o, w in zip(wants[:used], ws)), args,
             retain_graph=True)
         for a, b in zip(got_g, want_g):
-            assert torch.equal(a, b)
+            if mod is K3:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(a, b)
     for o in outs:
-        assert type(o.grad_fn).__name__ == "PlainBackwardBackward"
+        assert type(o.grad_fn).__name__ == (
+            "FlashAttentionFunctionBackward" if mod is K3
+            else "PlainBackwardBackward")
 
 
 @pytest.mark.parametrize("name", GRAD_KERNELS)
 def test_kernel_gradient_saves_nothing_under_no_grad(name):
     """Under ``torch.no_grad()`` (all of serving) a kernel call is one
     launch and saves no tensor; with grad enabled the Function saves its
-    inputs and nothing else, and still launches once."""
+    inputs and nothing else (K3 also its output and row log-sum-exp, what
+    its backward kernel reads), and still launches once."""
     mod, plain, args, kw = _grad_case(name, torch.float32)
     calls, packed = [], []
 
@@ -396,7 +421,8 @@ def test_kernel_gradient_saves_nothing_under_no_grad(name):
         outs = out if isinstance(out, tuple) else (out,)
         assert all(o.grad_fn is None and not o.requires_grad for o in outs)
         _through(mod, launch, args, kw)
-    assert len(calls) == 2 and len(packed) == len(args)
+    assert len(calls) == 2
+    assert len(packed) == len(args) + (2 if mod is K3 else 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_that_require_grad():
@@ -449,7 +475,8 @@ def test_route_sends_cpu_tensors_to_the_plain_versions():
 
 def test_build_knows_every_kernel_source():
     assert build.KERNELS == ("spmv", "cayley_spmv", "rmsnorm",
-                             "flash_attention", "mamba_scan")
+                             "flash_attention", "flash_attention_bwd",
+                             "mamba_scan")
     for name in build.KERNELS:
         src = build.CSRC / f"{name}.cu"
         assert src.is_file(), src
@@ -584,6 +611,34 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     other = torch.float32 if dtype == "bfloat16" else torch.bfloat16
     with pytest.raises(ValueError, match="w is"):
         K5.rmsnorm_cuda(x, w.to(other))
+
+
+#: K5's forms for its two designs: the smoke's three timed forms, every
+#: warp-slice width (1, 2, 4, 8 warps a row; 1-8 vectors a thread), the
+#: block design's (a width of no whole 16-byte vectors, a row past 2,048
+#: vectors), and a row count of several persistent sweeps
+RMS_DESIGN_CASES = [(2048, 3584), (4096, 3584), (4096, 4096), (3, 8),
+                    (1001, 1024), (37, 2056), (9, 16384), (5, 16392),
+                    (70000, 64), (37, 4095)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RMS_DESIGN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_designs_match_plain_on_card(cuda_device, shape, dtype):
+    """The redesign (warp slices, rows in registers, a persistent grid) and
+    the first design, each against the plain version; a misaligned x (a
+    view one element in) takes the first design and agrees too."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dt = TORCH_DT[dtype]
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dt)
+    w = (torch.randn(shape[-1], generator=g, device=cuda_device) + 1).to(dt)
+    want = K5.rmsnorm_ref(x, w, 1e-6)
+    _close(K5.rmsnorm_cuda(x, w, 1e-6), want, TOL[dtype])
+    _close(K5.block_design_cuda(x, w, 1e-6), want, TOL[dtype])
+    flat = torch.empty(x.numel() + 1, dtype=dt, device=cuda_device)
+    x_off = flat[1:].view(shape).copy_(x)
+    _close(K5.rmsnorm_cuda(x_off, w, 1e-6), want, TOL[dtype])
 
 
 FA_CARD_CASES = [  # (B, S, H, Kv, hd, causal)

@@ -400,8 +400,9 @@ def test_train_step_launch_counts_on_card(cuda_device, remat):
 # --------------------------------------------------------------------------
 
 def test_chip_smoke_training_counts_and_flops():
-    """The launch counts the smoke's training phases assert, its model
-    FLOPs and the full-width configuration's size, against hand counts."""
+    """The launch counts the smoke's training phases assert (K3's backward
+    kernel once a K3 layer, remat or not), its model FLOPs and the
+    full-width configuration's size, against hand counts."""
     import dataclasses
 
     from repro_torch.models import model as PM
@@ -414,13 +415,15 @@ def test_chip_smoke_training_counts_and_flops():
             cfg.vocab_size) == (True, 512, 3584, 18944, 152064)
     assert smoke.train_launches_per_step(cfg) == {
         "rmsnorm": 2 * 12 + 1 + 2 * 12, "flash_attention": 24,
-        "mamba_scan": 0}
+        "flash_attention_backward": 12, "mamba_scan": 0}
     assert smoke.train_launches_per_step(dataclasses.replace(
         cfg, remat=False)) == {"rmsnorm": 25, "flash_attention": 12,
+                               "flash_attention_backward": 12,
                                "mamba_scan": 0}
     jamba = serving_config("jamba-v0.1-52b", use_reduced=True)  # 2 x (1:7)
     assert smoke.train_launches_per_step(jamba) == {
-        "rmsnorm": 2 * 32 + 1, "flash_attention": 2 * 2, "mamba_scan": 2 * 14}
+        "rmsnorm": 2 * 32 + 1, "flash_attention": 2 * 2,
+        "flash_attention_backward": 2, "mamba_scan": 2 * 14}
     layer = 3584 * (28 + 8) * 128 + 28 * 128 * 3584 + 3 * 3584 * 18944
     assert layer == 233_046_016                # + 4,608 bias + 7,168 norm
     mm = 12 * layer + 3584 * 152064

@@ -123,6 +123,13 @@ def _uneven_cfg():
                                n_kv_heads=4, name="qwen2-7b-reduced-h12")
 
 
+def _padded_cfg():
+    """qwen2-7b-shaped heads that do not divide MESH's model axis of 4: 6
+    query heads in 3 kv groups (G 2), as qwen2-7b's 28 / 4 at 16."""
+    return dataclasses.replace(reduced(get_config("qwen2-7b")), n_heads=6,
+                               n_kv_heads=3, name="qwen2-7b-reduced-h6")
+
+
 def _ep_cfg(cf: float):
     return types.SimpleNamespace(
         d_model=32, n_experts=8, experts_per_token=2, moe_d_ff=16,
@@ -177,6 +184,8 @@ def runs(ep_inputs, pod_array, tmp_path_factory):
                 (local_shards, (*POD_MESH, [pod_array], [POD_SPEC])),
                 (sharded_train_steps, ([_uneven_cfg()], OPT, B, S,
                                        UNEVEN_MESH, "cpu", STEPS, None)),
+                (sharded_train_steps, ([_padded_cfg()], OPT, B, S, MESH,
+                                       "cpu", STEPS, None)),
                 # last: the host staging of ranks on one card, here on
                 # the CPU
                 (with_host_staging, ("cpu", sharded_train_steps,
@@ -296,6 +305,35 @@ def test_uneven_heads_step_matches_single_device(launched):
         params, opt, m = step(params, opt, train_batch(cfg, B, S, "cpu", k))
         want.append({n: float(v) for n, v in m.items()})
     rows = [r[4][0] for r in launched]
+    for r in rows:
+        assert r["arch"] == cfg.name
+        assert r["metrics"] == rows[0]["metrics"]
+    for got, one in zip(rows[0]["metrics"], want, strict=True):
+        assert abs(got["loss"] - one["loss"]) < UNEVEN_TOL, (got, one)
+        assert abs(got["grad_norm"] - one["grad_norm"]) < UNEVEN_TOL * max(
+            one["grad_norm"], 1), (got, one)
+    mine, single = rows[0]["grads"][0], grads[0]
+    assert sorted(mine) == sorted(single)
+    worst = max((_rel_l2(mine[j], single[j]), j) for j in single)
+    assert worst[0] < LEAF_REL_TOL, worst
+
+
+def test_padded_heads_step_matches_single_device(launched):
+    """6 query heads in 3 kv groups on MESH's model axis of 4, in the
+    reference partitioner's padded layout (ranks 0-2 one kv group each,
+    rank 3 a zero group): two steps equal the single-device steps, loss
+    and grad norm within UNEVEN_TOL, step 1's gradient of every leaf within
+    LEAF_REL_TOL."""
+    cfg = _padded_cfg()
+    params, opt = init_train_state(cfg, OPT, seed=0, device="cpu")
+    grads = []
+    step = make_train_step(cfg, OPT, on_grads=lambda g: grads.append(
+        whole_leaves(g)))
+    want = []
+    for k in range(STEPS):
+        params, opt, m = step(params, opt, train_batch(cfg, B, S, "cpu", k))
+        want.append({n: float(v) for n, v in m.items()})
+    rows = [r[5][0] for r in launched]
     for r in rows:
         assert r["arch"] == cfg.name
         assert r["metrics"] == rows[0]["metrics"]
