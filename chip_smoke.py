@@ -83,6 +83,18 @@ drives every main path:
   ms read from its profiler range in the training split; K5's redesign
   timed beside its first design and ``F.rms_norm`` at the (4096, 4096),
   (4096, 3584) and (2048, 3584) bf16 forms.
+* slice 14, the float8 expert dispatch and the serving example's other
+  branches: kimi-k2-1t-a32b at its published widths, 1 of its 61 layers
+  (~38.8 GB of bf16 weights), serving 4 requests of 1024 tokens with the
+  bf16 dispatch and then the e4m3 dispatch on the same weights (payload
+  bits against the host's quantize of the same slots, logits within a
+  bound from e4m3's half ulp); the DTensor ``moe_forward`` with the
+  e4m3 dispatch on the 4 ranks (groups on every rank, so DTensor's
+  all-to-all carries the e4m3 bytes) against one device; the hill-climb's
+  ``fp8_dispatch`` variant of kimi-k2 ``train_4k`` traced on ``cuda``; and
+  qwen2-vl-7b (a vision stub: prompts and decode inputs are embeddings)
+  at full width and depth, served greedy and sampled at temperature 0.8,
+  the card's Gumbel draws and samples bit for bit against the host's.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -375,6 +387,43 @@ QWEN_REQUESTS, QWEN_PROMPT, QWEN_NEW = 4, 1024, 8
 #: MoE routing is replayed)
 QWEN_LAYERS = 28
 QWEN_LOGITS_REL_TOL = SERVE_MIXER_REL_TOL * math.sqrt(QWEN_LAYERS)
+
+#: slice 14, the float8 expert dispatch: kimi-k2-1t-a32b at its published
+#: widths (D 7168, 384 experts, top-8, expert F 2048), 1 of its 61 layers
+#: (~19.3 B parameters, ~38.8 GB of bf16 weights, 33.8 GB of them
+#: experts), 4 requests of 1024-token prompts and 8 greedy new tokens,
+#: served with the bf16 dispatch and then the e4m3 dispatch on the same
+#: weights
+MOE_FP8_ARCH = "kimi-k2-1t-a32b"
+MOE_FP8_LAYERS = 1
+MOE_FP8_REQUESTS, MOE_FP8_PROMPT, MOE_FP8_NEW = 4, 1024, 8
+#: the e4m3 run's last-position logits against the bf16 run's, relative
+#: L2.  Each payload element rounds by at most e4m3's half ulp, 2^-4
+#: relative (the per-slot scale puts a slot's largest element at 448, in
+#: the normal range); the expert FFN multiplies two linear maps of its
+#: input (SiLU-gated), so a slot's output moves by at most about twice
+#: that, 2^-3; the gate-weighted combine, the residual sum, the final norm
+#: and the head carry a relative perturbation of their input through at
+#: most unchanged in L2, and the MoE output is only part of the residual
+MOE_FP8_LOGITS_REL_TOL = 2 * 2.0 ** -4
+#: the quantize's timing: CUDA-event mean over this many calls
+MOE_FP8_QUANTIZE_REPS = 20
+#: qwen2-vl-7b at its published widths and all 28 layers (M-RoPE; ~15 GB
+#: of bf16 weights), its vision stub fed 4 requests of 1024 random
+#: embeddings, 16 new tokens, greedy and at temperature 0.8 from
+#: PRNGKey(0) (the serving example's draws)
+VL_ARCH = "qwen2-vl-7b"
+VL_LAYERS = 28
+VL_REQUESTS, VL_PROMPT, VL_NEW = 4, 1024, 16
+VL_TEMPERATURE = 0.8
+#: the decode steps (and always the last) whose Gumbel draws and samples
+#: are recomputed on the host: ~2 s a step there for 4 x 152,064 draws
+VL_HOST_CHECKED_STEPS = (0,)
+#: the hill-climb's variant, traced on the card's device type at kimi-k2's
+#: full depth beside DRYRUN_CELLS' bf16 kimi-k2 cell, within this budget
+HILLCLIMB_FP8 = ("kimi-k2-1t-a32b", "train_4k", "fp8_dispatch",
+                 {"moe_dispatch_dtype": "float8_e4m3fn"})
+HILLCLIMB_BUDGET_S = 90
 
 #: the training phase (slice 10): qwen2-7b at its published widths, 12 of
 #: its 28 layers, one sequence of the reference's train_4k length (4096),
@@ -1462,8 +1511,9 @@ def lm_kernel_checks(torch, dev) -> list:
     bf, f32 = torch.bfloat16, torch.float32
     shard_rows, shard_attn = sharded_kernel_shapes()
 
-    # K5: prefill rows (B*S, D), decode rows (jamba, then qwen2-7b's width),
-    # f32, ragged rows and widths, the sharded_train ranks' rows
+    # K5: prefill rows (B*S, D), decode rows (jamba, then qwen2-7b's and
+    # kimi-k2's widths, the moe_fp8 phase's), f32, ragged rows and widths,
+    # the sharded_train ranks' rows
     # (the three bf16 forms of the redesign's targets also time K5's first
     # design, a warp or a block a row reading it twice, on the same inputs)
     first_design = ("prefill (4096, 4096) bf16",
@@ -1474,6 +1524,9 @@ def lm_kernel_checks(torch, dev) -> list:
                              ("qwen prefill (4096, 3584) bf16", (4096, 3584),
                               bf),
                              ("qwen decode (4, 3584) bf16", (4, 3584), bf),
+                             ("kimi prefill (4096, 7168) bf16", (4096, 7168),
+                              bf),
+                             ("kimi decode (4, 7168) bf16", (4, 7168), bf),
                              ("prefill (4096, 4096) f32", (4096, 4096), f32),
                              ("ragged rows (1001, 1024) bf16", (1001, 1024), bf),
                              ("ragged width (37, 4095) f32", (37, 4095), f32),
@@ -1492,8 +1545,10 @@ def lm_kernel_checks(torch, dev) -> list:
                         if form in first_design else None)))
 
     # K3: the serving prefill (B 4, S 1024, H 32, Kv 8, hd 128), then the
-    # qwen2-7b phase's prefill (G = 7), gemma-2b's MQA hd 256, an hd 64
-    # form, the training phases' forms and a sharded_train rank's: each of these holds more work tiles than the card has SMs, so
+    # qwen2-7b phase's prefill (G = 7), the moe_fp8 phase's kimi-k2 prefill
+    # (G = 8, hd 112: zero-filled to the compiled 128), gemma-2b's MQA hd
+    # 256, an hd 64 form, the training phases' forms and a sharded_train
+    # rank's: each of these holds more work tiles than the card has SMs, so
     # the persistent bf16 blocks take several tiles at every compiled width
     def attn_pairs(S, causal):
         return S * (S + 1) // 2 if causal else S * S
@@ -1520,6 +1575,7 @@ def lm_kernel_checks(torch, dev) -> list:
             ("ragged S=1000 non-causal f32", (2, 1000, 32, 8, 128), False,
              f32),
             ("qwen prefill causal bf16", (4, 1024, 28, 4, 128), True, bf),
+            ("kimi prefill causal bf16", (4, 1024, 64, 8, 112), True, bf),
             ("gemma-2b prefill causal bf16", (4, 1024, 8, 1, 256), True, bf),
             ("hd 64 non-causal bf16", (4, 1024, 16, 2, 64), False, bf),
             ("qwen train causal bf16", (1, 4096, 28, 4, 128), True, bf),
@@ -2066,6 +2122,359 @@ def qwen_phase(torch, dev) -> dict:
         tokens_head=toks.tolist())
 
 
+@contextlib.contextmanager
+def _captured_quantize(out: dict):
+    """Inside the block each ``moe.quantize_slots`` call's input slots and
+    its payload and scales are kept (clones on the card) in ``out``."""
+    from repro_torch.models import moe as MOE
+
+    orig = MOE.quantize_slots
+
+    def quantize(xe):
+        q, scale = orig(xe)
+        out.setdefault("calls", []).append(
+            (xe.detach().clone(), q.clone(), scale.clone()))
+        return q, scale
+
+    MOE.quantize_slots = quantize
+    try:
+        yield out
+    finally:
+        MOE.quantize_slots = orig
+
+
+def _event_ms(torch, fn, reps: int) -> float:
+    """Mean CUDA-event ms of ``fn()`` over ``reps`` calls after one
+    warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def moe_fp8_phase(torch, dev) -> dict:
+    """Slice 14: kimi-k2 at its published widths, MOE_FP8_LAYERS layer,
+    served through ``generate`` with the bf16 dispatch and then with the
+    e4m3 dispatch on the same weights and prompts: exact K3 / K5 launch
+    counts in both runs; the e4m3 run's payload and scales of group 0 of
+    the prefill's slots bit for bit against the host's quantize of the same
+    slots; its prefill logits within MOE_FP8_LOGITS_REL_TOL of the bf16
+    run's; the dispatch bytes a layer (D + 4 a slot against 2 D) and the
+    quantize's time at the prefill's slot shape."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve import generate, serving_config
+
+    cfg16 = serving_config(MOE_FP8_ARCH, layers=MOE_FP8_LAYERS)
+    cfg8 = dataclasses.replace(cfg16, moe_dispatch_dtype="float8_e4m3fn")
+    D, E, k, F_ = (cfg16.d_model, cfg16.n_experts, cfg16.experts_per_token,
+                   cfg16.moe_d_ff)
+    assert (D, E, k, F_, cfg16.compute_dtype) == (7168, 384, 8, 2048,
+                                                  "bfloat16"), cfg16
+    C = MOE.capacity(MOE_FP8_PROMPT, E, k, cfg16.capacity_factor)
+    n_attn = sum(s.kind == "attn" for s in cfg16.pattern) * cfg16.n_repeats
+    max_len = MOE_FP8_PROMPT + MOE_FP8_NEW
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init_params(cfg16, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = weight_bytes = expert_bytes = 0
+    for t in _leaves(params):
+        n_params += t.numel()
+        weight_bytes += t.numel() * t.element_size()
+        if t.dim() == 4:                        # (layers, E, D, F) experts
+            expert_bytes += t.numel() * t.element_size()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg16.vocab_size,
+                            (MOE_FP8_REQUESTS, MOE_FP8_PROMPT),
+                            generator=gen, device=dev)
+    # warm-up at the served shapes (cuBLAS picks its kernels per shape),
+    # not counted
+    for cfg in (cfg16, cfg8):
+        generate(params, cfg, prompts, 2)
+    counters = _lm_counters()
+    runs, turns = {}, []
+    # in turns, bf16, e4m3, e4m3, bf16: the first run of each is counted
+    for name in ("bfloat16", "float8_e4m3fn", "float8_e4m3fn", "bfloat16"):
+        cfg = cfg8 if name == "float8_e4m3fn" else cfg16
+        for mod in counters.values():
+            mod.reset_launches()
+        res = generate(params, cfg, prompts, MOE_FP8_NEW)
+        turns.append(dict(dispatch=name, prefill_ms=res.prefill_s * 1e3,
+                          decode_ms_per_step=(res.decode_s
+                                              / (MOE_FP8_NEW - 1) * 1e3)))
+        if name not in runs:
+            runs[name] = dict(res=res, launches={
+                n: mod.launches() for n, mod in counters.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = MOE_FP8_NEW - 1
+    want = {"rmsnorm": (2 * cfg16.n_layers + 1) * (1 + steps),
+            "flash_attention": n_attn, "flash_attention_backward": 0,
+            "mamba_scan": 0}
+    for name, r in runs.items():
+        assert r["launches"] == want, (name, r["launches"], want)
+        lg, toks = r["res"].prefill_logits, r["res"].tokens
+        assert lg.shape == (MOE_FP8_REQUESTS, cfg16.vocab_size), lg.shape
+        assert torch.isfinite(lg).all(), name
+        assert toks.shape == (MOE_FP8_REQUESTS, MOE_FP8_NEW), toks.shape
+        assert int(toks.min()) >= 0 and int(toks.max()) < cfg16.vocab_size
+    rel = _rel_l2(runs["float8_e4m3fn"]["res"].prefill_logits,
+                  runs["bfloat16"]["res"].prefill_logits)
+    assert rel <= MOE_FP8_LOGITS_REL_TOL, (rel, MOE_FP8_LOGITS_REL_TOL)
+
+    # the prefill's slots once more, untimed, with the quantize's operands
+    # kept: group 0's payload and scales against the host's quantize
+    seen = {}
+    with _captured_quantize(seen), torch.no_grad():
+        again, _ = M.prefill(params, {"tokens": prompts}, cfg8, max_len)
+    (xe, q, scale), = seen["calls"]
+    assert xe.shape == (MOE_FP8_REQUESTS, E, C, D), xe.shape
+    assert q.dtype == torch.float8_e4m3fn and scale.shape == (
+        MOE_FP8_REQUESTS, E, C, 1)
+    q_h, s_h = MOE.quantize_slots(xe[0].cpu())
+    payload_differ = int((q[0].cpu().view(torch.uint8)
+                          != q_h.view(torch.uint8)).sum())
+    scale_differ = int((scale[0].cpu().view(torch.int32)
+                        != s_h.view(torch.int32)).sum())
+    assert payload_differ == 0 and scale_differ == 0, (payload_differ,
+                                                       scale_differ)
+    filled = int((scale[..., 0] > 1e-12).sum())
+    slots = MOE_FP8_REQUESTS * E * C
+    fp8_bytes = q.numel() * q.element_size() + scale.numel() * 4
+    bf16_bytes = xe.numel() * xe.element_size()
+    assert fp8_bytes == slots * (D + 4) and bf16_bytes == slots * 2 * D
+    quantize_ms = _event_ms(torch, lambda: MOE.quantize_slots(xe),
+                            MOE_FP8_QUANTIZE_REPS)
+    dequantize_ms = _event_ms(
+        torch, lambda: MOE.dequantize_slots(q, scale, xe.dtype),
+        MOE_FP8_QUANTIZE_REPS)
+    r16, r8 = (runs[n]["res"] for n in ("bfloat16", "float8_e4m3fn"))
+    del params, seen, xe, q, scale, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        arch=MOE_FP8_ARCH, n_layers=cfg16.n_layers,
+        reduced=[f"layers {cfg16.n_layers} of "
+                 f"{get_config(MOE_FP8_ARCH).n_layers}: the whole model "
+                 "(~1 T parameters) does not fit one 80 GB card"],
+        params=n_params, weight_bytes=weight_bytes,
+        expert_weight_bytes=expert_bytes,
+        d_model=D, experts=E, k=k, d_ff=F_, capacity=C, seed=0,
+        init_seconds=init_s, requests=MOE_FP8_REQUESTS,
+        prompt_len=MOE_FP8_PROMPT, max_new=MOE_FP8_NEW,
+        prefill_ms={n: sum(t["prefill_ms"] for t in turns
+                           if t["dispatch"] == n) / 2 for n in runs},
+        decode_ms_per_step={n: sum(t["decode_ms_per_step"] for t in turns
+                                   if t["dispatch"] == n) / 2 for n in runs},
+        turns=turns,
+        peak_memory_gb=peak_gb,
+        launches={n: r["launches"] for n, r in runs.items()},
+        launches_expected=want,
+        slots_per_layer=slots, filled_slots=filled,
+        dispatch_bytes_per_layer={"bfloat16": bf16_bytes,
+                                  "float8_e4m3fn": fp8_bytes},
+        dispatch_bytes_per_slot={"bfloat16": 2 * D,
+                                 "float8_e4m3fn": D + 4},
+        payload_bits_differ=payload_differ, scale_bits_differ=scale_differ,
+        payload_checked_elements=E * C * D,
+        quantize_ms=quantize_ms, dequantize_ms=dequantize_ms,
+        logits_rel_l2_fp8_vs_bf16=rel, logits_rel_tol=MOE_FP8_LOGITS_REL_TOL,
+        first_token_agree=int((r8.tokens[:, 0] == r16.tokens[:, 0]).sum()),
+        tokens_head={"bfloat16": r16.tokens.tolist(),
+                     "float8_e4m3fn": r8.tokens.tolist()})
+
+
+@contextlib.contextmanager
+def _recorded_categorical(out: list):
+    """Inside the block each ``threefry.categorical`` call's key, logits
+    (on the host) and samples are kept in ``out``."""
+    from repro_torch.core import threefry as TF
+
+    orig = TF.categorical
+
+    def categorical(key, logits):
+        tok = orig(key, logits)
+        out.append((key, logits.cpu().numpy(), tok.cpu().numpy()))
+        return tok
+
+    TF.categorical = categorical
+    try:
+        yield out
+    finally:
+        TF.categorical = orig
+
+
+def vl_phase(torch, np, dev) -> dict:
+    """Slice 14: qwen2-vl-7b at its published widths and depth through
+    ``generate``, its vision stub fed the serving example's embeddings
+    (``normal(PRNGKey(0), (B, S, D))``, each decode step
+    ``normal(fold_in(key, i), (B, D))``), greedy and then sampled at
+    VL_TEMPERATURE: exact K3 / K5 launch counts; the first token the
+    prefill's argmax in both; then the sampled run once more, untimed,
+    recording each step's logits: its tokens equal the timed run's, and in
+    VL_HOST_CHECKED_STEPS and the last step the Gumbel draws on the card
+    equal the host's bit for bit and each sample equals the host's
+    categorical of the same logits."""
+    from repro_torch.core import threefry as TF
+    from repro_torch.models import model as M
+    from repro_torch.serve import (SAMPLE_FOLD, generate, serving_config,
+                                   serving_prompts)
+
+    cfg = serving_config(VL_ARCH)
+    assert cfg.n_layers == VL_LAYERS and cfg.frontend == "vision_stub", cfg
+    assert cfg.mrope_sections is not None, cfg
+    n_attn = sum(s.kind == "attn" for s in cfg.pattern) * cfg.n_repeats
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    key = TF.prng_key(0)
+    prompts = serving_prompts(cfg, VL_REQUESTS, VL_PROMPT, key, dev)
+    assert prompts.shape == (VL_REQUESTS, VL_PROMPT, cfg.d_model)
+    generate(params, cfg, prompts[:, :64], 2, temperature=VL_TEMPERATURE,
+             key=key)                           # warm-up, not counted
+    counters = _lm_counters()
+    runs = {}
+    for name, temp in (("greedy", 0.0), ("sampled", VL_TEMPERATURE)):
+        for mod in counters.values():
+            mod.reset_launches()
+        res = generate(params, cfg, prompts, VL_NEW, temperature=temp,
+                       key=key)
+        runs[name] = dict(res=res, launches={n: mod.launches() for n, mod
+                                             in counters.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = VL_NEW - 1
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * (1 + steps),
+            "flash_attention": n_attn, "flash_attention_backward": 0,
+            "mamba_scan": 0}
+    for name, r in runs.items():
+        assert r["launches"] == want, (name, r["launches"], want)
+        toks, lg = r["res"].tokens, r["res"].prefill_logits
+        assert torch.isfinite(lg).all(), name
+        assert toks.shape == (VL_REQUESTS, VL_NEW), toks.shape
+        assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    greedy, sampled = runs["greedy"]["res"], runs["sampled"]["res"]
+    assert torch.equal(greedy.tokens[:, 0], sampled.tokens[:, 0])
+    recorded = []
+    with _recorded_categorical(recorded):
+        again = generate(params, cfg, prompts, VL_NEW,
+                         temperature=VL_TEMPERATURE, key=key)
+    assert torch.equal(again.tokens, sampled.tokens)
+    assert len(recorded) == steps, len(recorded)
+    draws_differ = samples_differ = 0
+    t0 = time.time()
+    for i, (k_i, logits, tok) in enumerate(recorded):
+        assert np.array_equal(k_i, TF.fold_in(key, SAMPLE_FOLD + i))
+        if i not in VL_HOST_CHECKED_STEPS and i != steps - 1:
+            continue
+        g_card = TF.gumbel(k_i, logits.shape, dev).cpu().numpy()
+        g_host = TF.gumbel_host(k_i, logits.shape)
+        draws_differ += int((g_card.view(np.uint32)
+                             != g_host.view(np.uint32)).sum())
+        samples_differ += int((TF.categorical_host(k_i, logits)
+                               != tok).sum())
+    host_check_s = time.time() - t0
+    checked = len({*VL_HOST_CHECKED_STEPS, steps - 1})
+    assert draws_differ == 0 and samples_differ == 0, (draws_differ,
+                                                       samples_differ)
+    del params, prompts, recorded
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(arch=VL_ARCH, n_layers=cfg.n_layers, reduced=[],
+               frontend=cfg.frontend, params=n_params,
+               dtype=cfg.compute_dtype, seed=0, init_seconds=init_s,
+               requests=VL_REQUESTS, prompt_len=VL_PROMPT, max_new=VL_NEW,
+               temperature=VL_TEMPERATURE, peak_memory_gb=peak_gb,
+               launches={n: r["launches"] for n, r in runs.items()},
+               launches_expected=want,
+               host_checked_steps=sorted({*VL_HOST_CHECKED_STEPS,
+                                          steps - 1}),
+               draws_checked=checked * VL_REQUESTS * cfg.vocab_size,
+               draws_bits_differ=draws_differ,
+               samples_checked=checked * VL_REQUESTS,
+               samples_differ=samples_differ,
+               host_check_seconds=host_check_s,
+               tokens_differ_greedy_vs_sampled=int(
+                   (greedy.tokens != sampled.tokens).sum()))
+    for name, r in runs.items():
+        res = r["res"]
+        row[name] = dict(
+            prefill_ms=res.prefill_s * 1e3,
+            prefill_tokens_per_s=VL_REQUESTS * VL_PROMPT / res.prefill_s,
+            decode_ms_per_step=res.decode_s / steps * 1e3,
+            decode_tokens_per_s=VL_REQUESTS * steps / res.decode_s,
+            tokens=res.tokens.tolist())
+    return row
+
+
+def hillclimb_phase(torch, dev, smi: str, dry: dict) -> dict:
+    """Slice 14: ``python -m repro_torch.launch.hillclimb``'s
+    HILLCLIMB_FP8 variant on the card's device type (fake tensors, no card
+    memory), its artifact read back, beside the dry run's bf16 cell of the
+    same arch and shape: per-device FLOPs, all-to-all and other collective
+    bytes, HBM bytes and peak."""
+    from repro_torch.launch import hillclimb
+    from repro_torch.launch.dryrun import cell_tag
+
+    arch, shape, variant, overrides = HILLCLIMB_FP8
+    out = ROOT / "build" / "hillclimb"
+    t0 = time.time()
+    line = hillclimb.main(["--arch", arch, "--shape", shape, "--variant",
+                           variant, "--overrides", json.dumps(overrides),
+                           "--out", str(out), "--device", str(dev.type)])
+    seconds = time.time() - t0
+    tag = cell_tag(arch, shape, False)
+    got = json.loads((out / f"{tag}__{variant}.json").read_text())
+    assert got["device"] == "cuda" and got["overrides"] == overrides, got
+    base = next(c for c in dry["cells"] if c["tag"] == tag)
+
+    def gb(res):
+        return {k: v / 1e9 for k, v in
+                res["collectives"]["bytes_by_kind"].items()}
+
+    fp8 = dict(flops_per_device=got["cost"]["flops_per_device"],
+               bytes_per_device=got["cost"]["bytes_per_device"],
+               collective_gb_by_kind=gb(got),
+               peak_gb=got["memory"]["peak_bytes"] / 1e9,
+               trace_seconds=got["compile_seconds"])
+    bf16 = dict(flops_per_device=base["flops_per_device"],
+                bytes_per_device=base["bytes_per_device"],
+                collective_gb_by_kind={
+                    k: base["collective_gb_by_kind"].get(k, 0.0)
+                    for k in fp8["collective_gb_by_kind"]},
+                peak_gb=base["peak_gb"], trace_seconds=base["trace_seconds"])
+    assert fp8["flops_per_device"] == bf16["flops_per_device"], (fp8, bf16)
+    assert seconds <= HILLCLIMB_BUDGET_S, seconds
+    print(f"hillclimb {tag} {variant}: all-to-all "
+          f"{fp8['collective_gb_by_kind']['all-to-all']:.3f} GB a device "
+          f"(bf16 cell {bf16['collective_gb_by_kind']['all-to-all']:.3f}); "
+          f"collectives {sum(fp8['collective_gb_by_kind'].values()):.2f} GB "
+          f"(bf16 {sum(bf16['collective_gb_by_kind'].values()):.2f}); "
+          f"HBM {fp8['bytes_per_device']:.4e} bytes (bf16 "
+          f"{bf16['bytes_per_device']:.4e}); traced in "
+          f"{fp8['trace_seconds']:.1f} s ({smi})", flush=True)
+    return dict(tag=tag, variant=variant, overrides=overrides, line=line,
+                n_layers=base["n_layers"], fp8=fp8, bf16=bf16,
+                seconds=seconds, budget_seconds=HILLCLIMB_BUDGET_S)
+
+
 def reduced_cpu_check(torch, dev) -> dict:
     """The reduced jamba (f32) served on the card through the kernels and on
     the CPU through the plain versions, on the same weights and prompts."""
@@ -2607,7 +3016,9 @@ def _ep_single(torch, np, dev) -> tuple:
     """kimi-k2's expert widths, one MoE layer, all 384 experts on the card:
     the single-device ``moe_forward`` and its dispatch table (run first
     and freed: 33.8 GB of experts beside four ranks' shards would not
-    fit)."""
+    fit); and the same layer's forward with the e4m3 dispatch."""
+    import dataclasses
+
     from repro_torch.models.moe import _route_group, capacity, moe_forward
     from repro_torch.parallel.ranks import moe_inputs
     from repro_torch.serve import serving_config
@@ -2634,11 +3045,15 @@ def _ep_single(torch, np, dev) -> tuple:
         single_ms = (time.perf_counter() - t1) * 1e3
         logits = x @ inp["router"].to(x.dtype)
         dispatch_one = _route_group(logits, k, C, E)[0]
+        # the same layer with the e4m3 dispatch (slice 14)
+        y_fp8, _ = moe_forward(inp, x, dataclasses.replace(
+            cfg, moe_dispatch_dtype="float8_e4m3fn"))
     single = dict(y=y_one.float().cpu().numpy(),
+                  y_fp8=y_fp8.float().cpu().numpy(),
                   dispatch=dispatch_one.cpu().numpy(),
                   forward_ms=single_ms, expert_bytes=expert_bytes,
                   peak=torch.cuda.max_memory_allocated())
-    del inp, x, logits, y_one, dispatch_one
+    del inp, x, logits, y_one, y_fp8, dispatch_one
     gc.collect()
     torch.cuda.empty_cache()
     single["seconds"] = time.time() - t0
@@ -2682,6 +3097,51 @@ def _ep_check(torch, np, cfg, C, single, ranks) -> dict:
                 single_forward_ms=single["forward_ms"],
                 single_peak_memory_bytes=single["peak"],
                 single_seconds=single["seconds"])
+
+
+def _dispatch_check(torch, np, cfg, C, single, ranks) -> dict:
+    """The DTensor ``moe_forward`` on the EP mesh (groups on every rank)
+    against the single-device layer, with the bf16 and with the e4m3
+    dispatch: equal dispatch tables, outputs within EP_REL_TOL; the bytes
+    of the staged all-to-alls that carry the dispatch (the slots' local
+    shape before the exchange holds all E experts), a rank, beside the
+    bf16 dispatch's."""
+    E, D = cfg.n_experts, cfg.d_model
+    r0 = ranks[0]
+    dispatch_differ = {dt: int(np.sum(r0[dt]["dispatch"]
+                                      != single["dispatch"]))
+                       for dt in ("bfloat16", "float8_e4m3fn")}
+    assert not any(dispatch_differ.values()), dispatch_differ
+    out = dict(mesh=dict(data=EP_MESH[0], model=EP_MESH[1]),
+               groups=EP_GROUPS, tokens=EP_TOKENS, capacity=C,
+               dispatch_differ=dispatch_differ, tol=EP_REL_TOL)
+    for dt, want in (("bfloat16", single["y"]),
+                     ("float8_e4m3fn", single["y_fp8"])):
+        y = r0[dt]["y"]
+        rel = _rel_l2(torch.from_numpy(y), torch.from_numpy(want))
+        assert np.all(np.isfinite(y)) and rel <= EP_REL_TOL, (dt, rel)
+        per_rank = []
+        for r in ranks:
+            moved = [b for kind, b, shape in r[dt]["collectives"]
+                     if kind == "all-to-all" and shape[1] == E]
+            assert moved, (dt, r[dt]["collectives"])
+            per_rank.append(sum(moved))
+        out[dt] = dict(rel_l2_vs_single=rel,
+                       dispatch_all_to_all_bytes_per_rank=per_rank,
+                       staged_bytes_per_rank=[r[dt]["staged"]["bytes"]
+                                              for r in ranks],
+                       forward_seconds_per_rank=[r[dt]["seconds"]
+                                                 for r in ranks],
+                       peak_memory_bytes_per_rank=[r[dt]["peak_memory_bytes"]
+                                                   for r in ranks])
+    slots = EP_GROUPS * E * C // SHARDED_RANKS        # a rank's, sent
+    b16 = out["bfloat16"]["dispatch_all_to_all_bytes_per_rank"]
+    b8 = out["float8_e4m3fn"]["dispatch_all_to_all_bytes_per_rank"]
+    assert all(b == slots * 2 * D for b in b16), (b16, slots)
+    assert all(b == slots * (D + 4) for b in b8), (b8, slots)
+    out["dispatch_bytes_per_slot"] = {"bfloat16": 2 * D,
+                                      "float8_e4m3fn": D + 4}
+    return out
 
 
 def _train_single(torch, dev) -> tuple:
@@ -2897,6 +3357,8 @@ def sharded_phase(torch, np, dev) -> tuple:
     """Slice 11 on SHARDED_RANKS ranks of the one card, in one launch:
     ``ep_moe`` (kimi-k2's expert widths, data 1 x model 4, each rank
     drawing its 96 experts from the same per-expert seeds) and
+    the DTensor ``moe_forward`` of the same layer with the groups on every
+    rank, with the bf16 and the e4m3 dispatch (slice 14);
     ``sharded_train`` (qwen2-7b, SHARDED_LAYERS layers, data 2 x model 2,
     parameters, AdamW state and batch placed by the sharding rules, the
     step inside ``activation_mesh``), each held to its single-device run on
@@ -2910,8 +3372,8 @@ def sharded_phase(torch, np, dev) -> tuple:
     phases' rows and the launch's seconds."""
     from repro_torch.launch.dryrun import accounted_train_step
     from repro_torch.launch.mesh import run_ranks
-    from repro_torch.parallel.ranks import (ep_moe_rank, run_jobs,
-                                            sharded_train_steps)
+    from repro_torch.parallel.ranks import (ep_moe_rank, moe_forward_rank,
+                                            run_jobs, sharded_train_steps)
 
     ep_cfg, C, ep_single = _ep_single(torch, np, dev)
     train_cfg, opt_cfg, train_single = _train_single(torch, dev)
@@ -2930,6 +3392,10 @@ def sharded_phase(torch, np, dev) -> tuple:
     ranks = run_ranks(run_jobs, SHARDED_RANKS, [
         (ep_moe_rank, (dict(seed=EP_SEED, G=EP_GROUPS, S=EP_TOKENS), ep_cfg,
                        EP_MESH, str(dev))),
+        # slice 14: the DTensor layer, bf16 then e4m3 dispatch
+        (moe_forward_rank, (dict(seed=EP_SEED, G=EP_GROUPS, S=EP_TOKENS),
+                            ep_cfg, EP_MESH, str(dev),
+                            ("bfloat16", "float8_e4m3fn"))),
         (sharded_train_steps, ([train_cfg], opt_cfg, SHARDED_BATCH,
                                SHARDED_SEQ, SHARDED_MESH, str(dev),
                                SHARDED_STEPS, SHARDED_LEAF_ELEMENTS)),
@@ -2939,8 +3405,10 @@ def sharded_phase(torch, np, dev) -> tuple:
         device=str(dev), stage_through_host=True)
     ranks_s = time.time() - t0
     ep = _ep_check(torch, np, ep_cfg, C, ep_single, [r[0] for r in ranks])
-    train = _train_check(train_cfg, train_single, [r[1][0] for r in ranks])
-    train["accounting_per_rank"] = [r[2] for r in ranks]
+    ep["dtensor_dispatch"] = _dispatch_check(torch, np, ep_cfg, C, ep_single,
+                                             [r[1] for r in ranks])
+    train = _train_check(train_cfg, train_single, [r[2][0] for r in ranks])
+    train["accounting_per_rank"] = [r[3] for r in ranks]
     ep.update(memory)
     train.update(memory)
     return ep, train, ranks_s
@@ -3882,6 +4350,35 @@ def run(torch, dev) -> int:
     qwen["seconds"] = time.time() - t0
     emit(dict(phase="qwen_serving", **qwen))
 
+    # -- phase 9c: slice 14, kimi-k2 with the bf16 and e4m3 dispatch -----
+    t0 = time.time()
+    moe_fp8 = moe_fp8_phase(torch, dev)
+    moe_fp8["seconds"] = time.time() - t0
+    emit(dict(phase="moe_fp8", nvidia_smi=smi, **moe_fp8))
+    print(f"moe_fp8: {MOE_FP8_ARCH} {moe_fp8['n_layers']} layer at published "
+          f"widths, {moe_fp8['weight_bytes'] / 1e9:.2f} GB of weights: "
+          f"prefill {moe_fp8['prefill_ms']['bfloat16']:.1f} ms (bf16 "
+          f"dispatch) / {moe_fp8['prefill_ms']['float8_e4m3fn']:.1f} ms "
+          f"(e4m3); dispatch {moe_fp8['dispatch_bytes_per_layer']['bfloat16']}"
+          f" / {moe_fp8['dispatch_bytes_per_layer']['float8_e4m3fn']} bytes a "
+          f"layer; quantize {moe_fp8['quantize_ms'] * 1e3:.1f} us; payload "
+          f"bits equal the host's; logits rel L2 "
+          f"{moe_fp8['logits_rel_l2_fp8_vs_bf16']:.4f} (tol "
+          f"{MOE_FP8_LOGITS_REL_TOL}) ({smi})", flush=True)
+
+    # -- phase 9d: slice 14, qwen2-vl-7b's vision stub, greedy and sampled
+    t0 = time.time()
+    vl = vl_phase(torch, np, dev)
+    vl["seconds"] = time.time() - t0
+    emit(dict(phase="vl_serving", nvidia_smi=smi, **vl))
+    print(f"vl_serving: {VL_ARCH} {vl['n_layers']} layers, "
+          f"{VL_REQUESTS} x {VL_PROMPT} stub embeddings: prefill "
+          f"{vl['greedy']['prefill_tokens_per_s']:.0f} tokens/s, decode "
+          f"{vl['greedy']['decode_ms_per_step']:.2f} ms a step greedy, "
+          f"{vl['sampled']['decode_ms_per_step']:.2f} ms at T "
+          f"{VL_TEMPERATURE}; {vl['draws_checked']} Gumbel draws bit for bit "
+          f"the host's ({smi})", flush=True)
+
     # -- phase 10: the reduced model, card against CPU -------------------
     emit(dict(phase="reduced_card_vs_cpu", **reduced_cpu_check(torch, dev)))
 
@@ -3921,6 +4418,16 @@ def run(torch, dev) -> int:
           f"per rank; forward {max(ep['forward_seconds_per_rank']):.3f} s; "
           f"dispatch equal; rel L2 {ep['rel_l2_vs_single']:.2e} "
           f"(tol {EP_REL_TOL:.2e}) ({smi})", flush=True)
+    dd = ep["dtensor_dispatch"]
+    print(f"dtensor dispatch: {EP_ARCH} experts, groups on every rank: "
+          f"dispatch all-to-all "
+          f"{dd['float8_e4m3fn']['dispatch_all_to_all_bytes_per_rank'][0]} "
+          f"bytes a rank in e4m3 against "
+          f"{dd['bfloat16']['dispatch_all_to_all_bytes_per_rank'][0]} in "
+          f"bf16; rel L2 to one device "
+          f"{dd['float8_e4m3fn']['rel_l2_vs_single']:.2e} / "
+          f"{dd['bfloat16']['rel_l2_vs_single']:.2e} (tol {EP_REL_TOL:.2e}); "
+          f"dispatch tables equal ({smi})", flush=True)
     emit(dict(phase="sharded_train", nvidia_smi=smi, **sharded))
     emit(dict(phase="sharded", seconds=sharded_s, ranks_seconds=ranks_s))
     print(f"sharded_train: {SHARDED_ARCH} {sharded['n_layers']} layers, "
@@ -3939,6 +4446,10 @@ def run(torch, dev) -> int:
     # -- phase 10f: slice 12, the dry run on the card's device type -----
     dry = dryrun_phase(torch, dev, smi, sharded)
     emit(dict(phase="dryrun", nvidia_smi=smi, **dry))
+
+    # -- phase 10g: slice 14, the hill-climb's fp8_dispatch variant ------
+    emit(dict(phase="hillclimb_fp8", nvidia_smi=smi,
+              **hillclimb_phase(torch, dev, smi, dry)))
 
     # -- phase 11: slice 8, the evaluation path's reference benchmarks --
     # (the routing-scheme bench's MCF LPs run in worker processes on the
@@ -4031,6 +4542,8 @@ def run(torch, dev) -> int:
         mine = [r for r in lm_rows if r["kernel"] == name]
         first = mine[0]               # the serving path's (table) case
         path_launches = (lm_launches[name] + qwen["launches"][name]
+                         + sum(r[name] for r in moe_fp8["launches"].values())
+                         + sum(r[name] for r in vl["launches"].values())
                          + train["launches"][name]
                          + train_small["launches"][name]
                          + sharded["launches"][name])

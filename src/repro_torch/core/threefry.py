@@ -29,13 +29,14 @@ from __future__ import annotations
 
 from typing import Tuple, Union
 
-import math
-
 import numpy as np
 import torch
 
-__all__ = ["threefry2x32", "prng_key", "split", "random_bits", "randint",
-           "uniform", "normal", "normal_host"]
+from repro_torch.numerics import div32_t, fma32, fma32_t, sqrt32_t
+
+__all__ = ["threefry2x32", "prng_key", "split", "fold_in", "random_bits",
+           "randint", "uniform", "normal", "normal_host", "gumbel",
+           "gumbel_host", "categorical", "categorical_host"]
 
 #: a key pair (k0, k1) of uint32 words, or a seed standing for PRNGKey(seed)
 Key = Union[int, Tuple[int, int], np.ndarray]
@@ -124,6 +125,17 @@ def split(key: Key, num: int = 2) -> np.ndarray:
     return np.stack([b0, b1], axis=1)
 
 
+def fold_in(key: Key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` for ``data`` in [0, 2^32): both
+    output words of Threefry at the counter (0, data) under ``key``."""
+    data = int(data)
+    if not 0 <= data < 2 ** 32:
+        raise ValueError(f"fold_in data must lie in [0, 2**32), got {data}")
+    b0, b1 = threefry2x32(tuple(_key(key)), np.zeros(1, np.uint32),
+                          np.array([data], dtype=np.uint32))
+    return np.array([b0[0], b1[0]], dtype=np.uint32)
+
+
 def random_bits(key: Key, shape: Tuple[int, ...]) -> np.ndarray:
     """uint32 draws of ``jax.random.bits(key, shape)``."""
     b0, b1 = threefry2x32(tuple(_key(key)), *_counters(shape))
@@ -165,30 +177,15 @@ def uniform(key: Key, shape: Tuple[int, ...], minval: float = 0.0,
     return np.maximum(lo, scaled.astype(f32))
 
 
-def _fma32(a, b, c) -> np.ndarray:
-    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
-    product is exact in float64, the sum is rounded to odd there (TwoSum
-    error term), and the rounding to float32 is then correct."""
-    a, b, c = (np.asarray(v, dtype=np.float32).astype(np.float64)
-               for v in (a, b, c))
-    s = a * b
-    t = s + c
-    bb = t - s
-    err = (s - (t - bb)) + (c - bb)
-    even = (t.view(np.int64) & 1) == 0
-    t = np.where((err != 0) & even,
-                 np.nextafter(t, np.where(err > 0, np.inf, -np.inf)), t)
-    return t.astype(np.float32)
-
-
-def _log1p32(x: np.ndarray) -> np.ndarray:
-    """XLA's float32 ``log1p`` as its CPU backend compiles it for x in
-    (-1, 0]: Cephes' rational form for |x| < sqrt(2) - 1, else ``log(1 +
-    x)`` from the exponent and a polynomial in the mantissa; each
-    ``fadd(fmul)`` that codegen contracts is one :func:`_fma32`."""
+def _log32(y: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``log`` as its CPU backend compiles it (Cephes'
+    ``logf``): the exponent and a polynomial in the mantissa, each
+    ``fadd(fmul)`` that codegen contracts one
+    :func:`~repro_torch.numerics.fma32`; ``y`` is clamped to the
+    smallest normal float first."""
     f32, one = np.float32, np.float32(1.0)
     with np.errstate(all="ignore"):
-        y = np.maximum(x + one, np.finfo(f32).tiny).astype(f32)
+        y = np.maximum(y, np.finfo(f32).tiny).astype(f32)
         bits = y.view(np.int32)
         mant = ((bits & 0x7FFFFF) | 0x3F000000).view(f32)       # [0.5, 1)
         expo = ((bits >> 23) - 127).astype(f32) + one
@@ -198,21 +195,31 @@ def _log1p32(x: np.ndarray) -> np.ndarray:
         z2 = z * z
         z3 = z2 * z
         a0, a1, a2, b0, b1, b2, c0, c1, c2 = _LOG_POLY
-        pa = _fma32(_fma32(z, a0, a1), z, a2)
-        pb = _fma32(_fma32(z, b0, b1), z, b2)
-        pc = _fma32(_fma32(z, c0, c1), z, c2)
-        poly = _fma32(z3, _fma32(z3, pa, pb), pc)
-        tail = _fma32(z3, poly, expo * _LOG_LN2_LO)
-        large = _fma32(expo, _LOG_LN2_HI, _fma32(f32(-0.5), z2, z) + tail)
+        pa = fma32(fma32(z, a0, a1), z, a2)
+        pb = fma32(fma32(z, b0, b1), z, b2)
+        pc = fma32(fma32(z, c0, c1), z, c2)
+        poly = fma32(z3, fma32(z3, pa, pb), pc)
+        tail = fma32(z3, poly, expo * _LOG_LN2_LO)
+        return fma32(expo, _LOG_LN2_HI, fma32(f32(-0.5), z2, z) + tail)
+
+
+def _log1p32(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``log1p`` as its CPU backend compiles it for x in
+    (-1, 0]: Cephes' rational form for |x| < sqrt(2) - 1, else
+    :func:`_log32` of ``1 + x``; each ``fadd(fmul)`` that codegen
+    contracts is one :func:`~repro_torch.numerics.fma32`."""
+    f32, one = np.float32, np.float32(1.0)
+    with np.errstate(all="ignore"):
+        large = _log32(x + one)
         x2 = x * x
         zero = x * f32(0.0)
         num = zero + _LOG1P_NUM[0]
         for c in _LOG1P_NUM[1:]:
-            num = _fma32(num, x, c)
+            num = fma32(num, x, c)
         den = zero + one
         for c in _LOG1P_DEN:
-            den = _fma32(den, x, c)
-        small = x + _fma32(x2, f32(-0.5), (x * x2) * (num / den))
+            den = fma32(den, x, c)
+        small = x + fma32(x2, f32(-0.5), (x * x2) * (num / den))
     return np.where(np.abs(x) < _LOG1P_SMALL, small, large).astype(f32)
 
 
@@ -225,7 +232,7 @@ def _erfinv32(u: np.ndarray) -> np.ndarray:
     w = np.where(small, w - f32(2.5), np.sqrt(w) - f32(3)).astype(f32)
     p = np.where(small, _ERFINV_W_LT5[0], _ERFINV_W_GE5[0])
     for lt5, ge5 in zip(_ERFINV_W_LT5[1:], _ERFINV_W_GE5[1:]):
-        p = _fma32(p, w, np.where(small, lt5, ge5))
+        p = fma32(p, w, np.where(small, lt5, ge5))
     return p * u
 
 
@@ -236,6 +243,28 @@ def normal_host(key: Key, shape: Tuple[int, ...]) -> np.ndarray:
     f32 = np.float32
     u = uniform(key, shape, np.nextafter(f32(-1.0), f32(0.0)), 1.0)
     return f32(np.sqrt(2.0)) * _erfinv32(u)
+
+
+def gumbel_host(key: Key, shape: Tuple[int, ...]) -> np.ndarray:
+    """float32 draws of ``jax.random.gumbel(key, shape, float32)`` (the
+    default "low" mode) on the CPU: ``-log(-log(u))`` of uniforms in
+    [tiny, 1), with XLA's float32 ``log``; the plain version of
+    :func:`gumbel`."""
+    f32 = np.float32
+    u = uniform(key, shape, np.finfo(f32).tiny, 1.0)
+    return -_log32(-_log32(u))
+
+
+def categorical_host(key: Key, logits: np.ndarray) -> np.ndarray:
+    """``jax.random.categorical(key, logits)`` over the last axis of
+    float32 ``logits``: the argmax of Gumbel draws plus the logits (the
+    first index of a tie, as ``jnp.argmax``); the plain version of
+    :func:`categorical`."""
+    logits = np.asarray(logits)
+    if logits.dtype != np.float32:
+        raise ValueError(f"categorical takes float32 logits, got "
+                         f"{logits.dtype}")
+    return np.argmax(gumbel_host(key, logits.shape) + logits, axis=-1)
 
 
 # --------------------------------------------------------------------------
@@ -281,50 +310,21 @@ def _uniform_t(key: Key, shape: Tuple[int, ...], minval: float,
     return torch.clamp(scaled, min=float(lo)).reshape(shape)
 
 
-def _fma32_t(a: torch.Tensor, b, c) -> torch.Tensor:
-    """:func:`_fma32` as torch ops: ``a * b + c`` of float32 values rounded
-    once (exact float64 product, round-to-odd sum, rounding to float32)."""
-    a = a.to(torch.float64)
-    b = b.to(torch.float64) if isinstance(b, torch.Tensor) else float(b)
-    c = c.to(torch.float64) if isinstance(c, torch.Tensor) else float(c)
-    s = a * b
-    t = s + c
-    bb = t - s
-    err = (s - (t - bb)) + (c - bb)
-    even = (t.view(torch.int64) & 1) == 0
-    away = torch.where(err > 0, math.inf, -math.inf)
-    t = torch.where((err != 0) & even, torch.nextafter(t, away), t)
-    return t.to(torch.float32)
-
-
-def _div32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """float32 ``a / b`` correctly rounded: the float64 quotient rounded to
-    float32 (the double rounding is exact for division)."""
-    return (a.to(torch.float64) / b.to(torch.float64)).to(torch.float32)
-
-
-def _sqrt32(a: torch.Tensor) -> torch.Tensor:
-    """float32 ``sqrt`` correctly rounded, as numpy's and XLA's are (the
-    CPU's vectorized float32 sqrt in torch may miss by an ulp); the float64
-    root rounded to float32 is exact."""
-    return torch.sqrt(a.to(torch.float64)).to(torch.float32)
-
-
 def _log1p32_small_t(x: torch.Tensor) -> torch.Tensor:
     """:func:`_log1p32`'s rational branch (|x| < sqrt(2) - 1)."""
     x2 = x * x
     num = x * 0.0 + float(_LOG1P_NUM[0])
     for c in _LOG1P_NUM[1:]:
-        num = _fma32_t(num, x, c)
+        num = fma32_t(num, x, c)
     den = x * 0.0 + 1.0
     for c in _LOG1P_DEN:
-        den = _fma32_t(den, x, c)
-    return x + _fma32_t(x2, -0.5, (x * x2) * _div32(num, den))
+        den = fma32_t(den, x, c)
+    return x + fma32_t(x2, -0.5, (x * x2) * div32_t(num, den))
 
 
-def _log1p32_large_t(x: torch.Tensor) -> torch.Tensor:
-    """:func:`_log1p32`'s ``log(1 + x)`` branch (exponent and mantissa)."""
-    y = torch.clamp(x + 1.0, min=float(np.finfo(np.float32).tiny))
+def _log32_t(y: torch.Tensor) -> torch.Tensor:
+    """:func:`_log32` as torch ops."""
+    y = torch.clamp(y, min=float(np.finfo(np.float32).tiny))
     bits = y.view(torch.int32)
     mant = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
     expo = ((bits >> 23) - 127).to(torch.float32) + 1.0
@@ -334,12 +334,12 @@ def _log1p32_large_t(x: torch.Tensor) -> torch.Tensor:
     z2 = z * z
     z3 = z2 * z
     a0, a1, a2, b0, b1, b2, c0, c1, c2 = _LOG_POLY
-    pa = _fma32_t(_fma32_t(z, a0, a1), z, a2)
-    pb = _fma32_t(_fma32_t(z, b0, b1), z, b2)
-    pc = _fma32_t(_fma32_t(z, c0, c1), z, c2)
-    poly = _fma32_t(z3, _fma32_t(z3, pa, pb), pc)
-    tail = _fma32_t(z3, poly, expo * float(_LOG_LN2_LO))
-    return _fma32_t(expo, _LOG_LN2_HI, _fma32_t(z2, -0.5, z) + tail)
+    pa = fma32_t(fma32_t(z, a0, a1), z, a2)
+    pb = fma32_t(fma32_t(z, b0, b1), z, b2)
+    pc = fma32_t(fma32_t(z, c0, c1), z, c2)
+    poly = fma32_t(z3, fma32_t(z3, pa, pb), pc)
+    tail = fma32_t(z3, poly, expo * float(_LOG_LN2_LO))
+    return fma32_t(expo, _LOG_LN2_HI, fma32_t(z2, -0.5, z) + tail)
 
 
 def _log1p32_t(x: torch.Tensor) -> torch.Tensor:
@@ -348,7 +348,7 @@ def _log1p32_t(x: torch.Tensor) -> torch.Tensor:
     small = torch.abs(x) < float(_LOG1P_SMALL)
     out = torch.empty_like(x)
     out[small] = _log1p32_small_t(x[small])
-    out[~small] = _log1p32_large_t(x[~small])
+    out[~small] = _log32_t(x[~small] + 1.0)
     return out
 
 
@@ -356,12 +356,12 @@ def _erfinv32_t(u: torch.Tensor) -> torch.Tensor:
     """:func:`_erfinv32` as torch ops."""
     w = -_log1p32_t(-(u * u))
     small = w < 5.0
-    w = torch.where(small, w - 2.5, _sqrt32(w) - 3.0)
+    w = torch.where(small, w - 2.5, sqrt32_t(w) - 3.0)
     lt5 = torch.from_numpy(_ERFINV_W_LT5).to(u.device)
     ge5 = torch.from_numpy(_ERFINV_W_GE5).to(u.device)
     p = torch.where(small, lt5[0], ge5[0])
     for i in range(1, len(_ERFINV_W_LT5)):
-        p = _fma32_t(p, w, torch.where(small, lt5[i], ge5[i]))
+        p = fma32_t(p, w, torch.where(small, lt5[i], ge5[i]))
     return p * u
 
 
@@ -374,3 +374,24 @@ def normal(key: Key, shape: Tuple[int, ...],
     u = _uniform_t(key, shape, np.nextafter(f32(-1.0), f32(0.0)), 1.0,
                    torch.device(device))
     return float(f32(np.sqrt(2.0))) * _erfinv32_t(u)
+
+
+def gumbel(key: Key, shape: Tuple[int, ...],
+           device: torch.device) -> torch.Tensor:
+    """float32 draws equal to ``jax.random.gumbel(key, shape, float32)``
+    on the CPU, computed by torch ops on ``device`` (the same bits as
+    :func:`gumbel_host`)."""
+    tiny = np.finfo(np.float32).tiny
+    u = _uniform_t(key, shape, tiny, 1.0, torch.device(device))
+    return -_log32_t(-_log32_t(u))
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis of
+    float32 ``logits``, on their device: int64 indices, those of
+    :func:`categorical_host` for the same key and logits."""
+    if logits.dtype != torch.float32:
+        raise ValueError(f"categorical takes float32 logits, got "
+                         f"{logits.dtype}")
+    g = gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(g + logits, dim=-1)

@@ -39,14 +39,22 @@ def to_device(array: np.ndarray,
                            device=resolve_device(device))
 
 
+#: ml_dtypes' extension types (numpy has none of them natively) -> the
+#: torch type and the integer type their raw bit patterns move as
+_RAW_TYPES = {"bfloat16": (torch.bfloat16, np.int16),
+              "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8),
+              "float8_e5m2": (torch.float8_e5m2, np.uint8)}
+
+
 def _tensor_from_numpy(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A copy of ``a`` on ``dev`` in the same dtype; bfloat16 arrays (numpy
-    has no native bfloat16: they arrive as ml_dtypes' extension type) move
-    as their raw 16-bit patterns."""
+    """A copy of ``a`` on ``dev`` in the same dtype; bfloat16 and float8
+    arrays (numpy has no native such types: they arrive as ml_dtypes'
+    extension types) move as their raw bit patterns."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        raw = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
-        return raw.view(torch.bfloat16).to(dev)
+    if a.dtype.name in _RAW_TYPES:
+        dt, raw = _RAW_TYPES[a.dtype.name]
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(raw).copy())
+        return bits.view(dt).to(dev)
     return torch.from_numpy(np.array(a)).to(dev)
 
 

@@ -8,9 +8,15 @@ The port of the reference's ``launch/hillclimb.py``: the cell is traced by
 :func:`repro_torch.launch.dryrun.lower_cell` with the overrides applied by
 ``dataclasses.replace``, written to ``{out}/{tag}__{variant}.json``, and one
 line is printed with the baseline of ``experiments/dryrun/{tag}.json`` when
-that exists.  An override the port does not carry (``moe_dispatch_dtype``
-other than bf16) raises.  ``--device cpu`` traces the plain path; without it
-the card's program is traced, and the tool raises where there is no card.
+that exists.  The reference's documented variant, the float8 expert
+dispatch::
+
+    PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
+        --arch kimi-k2-1t-a32b --shape train_4k --variant fp8_dispatch \\
+        --overrides '{"moe_dispatch_dtype": "float8_e4m3fn"}'
+
+``--device cpu`` traces the plain path; without it the card's program is
+traced, and the tool raises where there is no card.
 """
 from __future__ import annotations
 

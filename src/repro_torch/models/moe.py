@@ -8,6 +8,15 @@ scatters over the (G, E, C, D) slot tensor, and the expert FFN is one
 batched matmul per projection over the E axis.  The reference's per-group
 ``vmap`` is written out as a leading group axis.
 
+With ``cfg.moe_dispatch_dtype = "float8_e4m3fn"`` the slots cross the
+expert-parallel boundary as the reference's DeepSeek-V3-style payload: each
+slot scaled by its own max (``amax(|slot|) / 448 + 1e-12``, 448 being
+e4m3's largest finite value), cast to e4m3, and dequantized after the
+boundary (:func:`quantize_slots`, :func:`dequantize_slots`): D + 4 bytes a
+slot against 2 D in bfloat16.  Plain torch ops, as the reference's are
+plain ``jnp``; autograd runs through the casts as JAX's VJP does (the
+cotangent is cast to e4m3 too).
+
 ``moe_ref`` is the capacity-unbounded dense oracle used by tests.
 
 Sharded execution (DTensor inputs inside an ``activation_mesh``): the slot
@@ -24,12 +33,24 @@ from __future__ import annotations
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.numerics import fma32_t
 from repro_torch.parallel.act import BATCH, TP, constrain, per_shard
 
-__all__ = ["moe_params_shapes", "moe_forward", "moe_ref", "capacity"]
+__all__ = ["moe_params_shapes", "moe_forward", "moe_ref", "capacity",
+           "quantize_slots", "dequantize_slots", "E4M3_MAX"]
+
+#: e4m3's largest finite value, the top of each slot's scaled range
+E4M3_MAX = 448.0
+#: its float32 reciprocal: the reference's compiled program divides by the
+#: constant 448 as XLA rewrites it, a product with this reciprocal (an
+#: eager division rounds differently in about half the slots)
+_E4M3_INV_MAX = float(np.float32(1.0) / np.float32(E4M3_MAX))
+#: the slot tensor's dims, as ``per_shard`` names them
+_SLOT_DIMS = ("g", "e", "c")
 
 
 def capacity(tokens_per_group: int, n_experts: int, k: int, cf: float) -> int:
@@ -132,17 +153,67 @@ def _top1_one_hot(flat_expert: torch.Tensor, *, k: int, E: int
     return F.one_hot(flat_expert.reshape(G, -1, k)[..., 0], E).float()
 
 
-def moe_forward(params: Dict, x: torch.Tensor, cfg
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (G, S, D) grouped tokens -> (y, aux_loss)."""
+def _slot_scale(xf: torch.Tensor) -> torch.Tensor:
+    """Each slot's scale, ``amax(|slot|) / 448 + 1e-12`` in float32, with
+    the reference's compiled bits: XLA turns the division by the constant
+    into a product with its reciprocal and fuses that product and the sum
+    into one multiply-add, rounded once.  The value is that fused result
+    (:func:`repro_torch.numerics.fma32_t`, exact); the gradient is
+    the product's and the sum's, ``1 / 448`` to the max, as JAX's."""
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = amax * _E4M3_INV_MAX + 1e-12
+    with torch.no_grad():
+        fused = fma32_t(amax, _E4M3_INV_MAX, 1e-12)
+        # within an ulp of the two-rounding value: the difference is exact
+        step = fused - scale
+    return scale + step
+
+
+def _quantize_local(xe: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    xf = xe.float()
+    scale = _slot_scale(xf)
+    return (xf / scale).to(torch.float8_e4m3fn), scale
+
+
+def quantize_slots(xe: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slots (G, E, C, D) -> (e4m3 payload (G, E, C, D), float32 scale (G,
+    E, C, 1)): the scale is the slot's largest magnitude over 448 (plus
+    1e-12, so an empty slot quantizes to zeros), the payload the slot over
+    its scale, rounded to nearest even; ``|payload| <= 448`` by
+    construction.  A DTensor is quantized shard by shard with each D row
+    whole (a D shard is gathered first), so the max spans the row."""
+    return per_shard(_quantize_local, (xe,), (_SLOT_DIMS + ("d",),),
+                     (_SLOT_DIMS + ("d",), _SLOT_DIMS + ("one",)),
+                     frozenset(_SLOT_DIMS))
+
+
+def _dequantize_local(xq: torch.Tensor, scale: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    return (xq.float() * scale).to(dtype)
+
+
+def dequantize_slots(xq: torch.Tensor, scale: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The payload times its scale in float32, rounded to ``dtype``.  A
+    DTensor runs shard by shard, so a gradient that arrives as a partial
+    sum over the mesh is summed in ``dtype`` before its cast to e4m3, as
+    GSPMD sums it, never as float8 partials."""
+    return per_shard(_dequantize_local, (xq, scale),
+                     (_SLOT_DIMS + ("d",), _SLOT_DIMS + ("one",)),
+                     (_SLOT_DIMS + ("d",),), frozenset(_SLOT_DIMS),
+                     dtype=dtype)
+
+
+def moe_forward(params: Dict, x: torch.Tensor, cfg, *,
+                return_dispatch: bool = False):
+    """x: (G, S, D) grouped tokens -> (y, aux_loss), and with
+    ``return_dispatch`` the (G, E, C) dispatch table the forward routed by
+    (each slot's assignment index, as ``ep_moe_forward``'s) as well."""
     G, S, D = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     C = capacity(S, E, k, cfg.capacity_factor)
-    if getattr(cfg, "moe_dispatch_dtype", "bfloat16").startswith("float8"):
-        raise NotImplementedError(
-            "moe_forward: the float8 dispatch payload is not ported")
     logits = x @ params["router"].to(x.dtype)                     # (G, S, E)
-    slots = ("g", "e", "c")
+    slots = _SLOT_DIMS
     groups = frozenset({"g"})
     dispatch, gate, flat_expert, valid, token_idx = per_shard(
         _route, (logits,), (("g", "s", "e"),),
@@ -152,8 +223,15 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg
     # gather tokens into expert slots: token of assignment a is a // k
     xe = per_shard(_gather_slots, (x, token_idx), (("g", "s", "d"), slots),
                    (slots + ("d",),), groups)
-    # EP boundary: groups on the batch axis, experts on the model axis
-    xe = constrain(xe, BATCH, TP, None, None)
+    # EP boundary: groups on the batch axis, experts on the model axis;
+    # the optional fp8 payload crosses it quantized, with its scales
+    if getattr(cfg, "moe_dispatch_dtype", "bfloat16").startswith("float8"):
+        xq, scale = quantize_slots(xe)
+        xq = constrain(xq, BATCH, TP, None, None)
+        scale = constrain(scale, BATCH, TP, None, None)
+        xe = dequantize_slots(xq, scale, x.dtype)
+    else:
+        xe = constrain(xe, BATCH, TP, None, None)
 
     # expert FFN: (E, G*C, D) @ (E, D, F) per projection
     act = _act(cfg)
@@ -176,6 +254,8 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg
                         (("g", "s", "e"),), groups, k=k, E=E)
     ce = one_hot.reshape(-1, E).mean(dim=0)
     aux = E * torch.sum(me * ce)
+    if return_dispatch:
+        return y, aux, dispatch
     return y, aux
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["activation_mesh", "constrain", "BATCH", "TP",
            "batch_axes", "pick_tp_dim", "mesh_axes", "clean_spec",
@@ -116,14 +117,53 @@ def placements_for(spec: tuple, mesh: Any) -> tuple:
 def constrain(x, *spec):
     """Redistribute the DTensor ``x`` to ``spec`` (cleaned against the
     context mesh, as the reference cleans it); ``x`` itself outside an
-    :class:`activation_mesh`, for ``None`` and for a plain tensor."""
+    :class:`activation_mesh`, for ``None`` and for a plain tensor.  A
+    float8 DTensor moves as the bytes of its uint8 view (gloo carries no
+    float8 type), its gradient likewise."""
     mesh = _ACT_MESH
     if mesh is None or x is None or not is_sharded(x):
         return x
     want = placements_for(clean_spec(tuple(x.shape), spec, mesh), mesh)
     if tuple(x.placements) == want:
         return x
+    if x.dtype in _FLOAT8:
+        return _RedistributeBytes.apply(x, mesh, want)
     return x.redistribute(mesh, want)
+
+
+_FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2, torch.float8_e4m3fnuz,
+           torch.float8_e5m2fnuz)
+
+
+def _redistribute_bytes(x, mesh, placements):
+    """``x.redistribute(mesh, placements)`` done on the uint8 view of a
+    float8 DTensor's local shard, viewed back: the same bytes move.  A
+    ``Partial`` sum cannot move as bytes, and is refused."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if any(isinstance(p, Partial) for p in (*x.placements, *placements)):
+        raise ValueError(f"constrain: a float8 DTensor moves as bytes and "
+                         f"cannot be reduced ({x.placements} -> "
+                         f"{placements})")
+    b = DTensor.from_local(x.to_local().view(torch.uint8), x.device_mesh,
+                           x.placements, shape=x.shape, stride=x.stride())
+    b = b.redistribute(mesh, placements)
+    return DTensor.from_local(b.to_local().view(x.dtype), mesh, placements,
+                              shape=b.shape, stride=b.stride())
+
+
+class _RedistributeBytes(torch.autograd.Function):
+    """:func:`_redistribute_bytes` forward, and its inverse on the float8
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.source = (x.device_mesh, tuple(x.placements))
+        return _redistribute_bytes(x, mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _redistribute_bytes(grad, *ctx.source), None, None
 
 
 def batch_axes(mesh: Any):

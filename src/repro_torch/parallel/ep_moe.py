@@ -22,9 +22,10 @@ assignment``, so a capacity drop drops the same assignments as the
 single-device path).  Exchange-shape contract: each exchange moves the
 padded (G/d, E, C, D) slot tensor of a rank, ``C = capacity(S, E, k,
 capacity_factor)``; capacity padding travels even when slots are empty.
-The payload travels in the activations' dtype, as the reference's does
-(every registered config computes in bfloat16, its ``moe_dispatch_dtype``);
-the float8 dispatch is not ported (:mod:`repro_torch.models.moe`).
+The payload travels in the activations' dtype, as the reference's does:
+its explicit-EP forward never reads ``moe_dispatch_dtype``, so a config
+with the float8 dispatch (which :func:`repro_torch.models.moe.moe_forward`
+quantizes) exchanges its slots here in the compute dtype.
 """
 from __future__ import annotations
 
@@ -89,8 +90,7 @@ def ep_moe_forward(mesh, params: Dict, x: torch.Tensor, cfg, *,
         tensors, of which each rank keeps its shard.
       x: token groups (G, S, D), a DTensor or the whole tensor; sharded on
         'data'.
-      cfg: reads n_experts, experts_per_token, capacity_factor, mlp_act,
-        moe_dispatch_dtype.
+      cfg: reads n_experts, experts_per_token, capacity_factor, mlp_act.
 
     Returns y (G, S, D) as a DTensor sharded on 'data' (and, with
     ``return_dispatch``, the (G, E, C) dispatch table likewise).  All
@@ -99,9 +99,6 @@ def ep_moe_forward(mesh, params: Dict, x: torch.Tensor, cfg, *,
     """
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    if getattr(cfg, "moe_dispatch_dtype", "bfloat16").startswith("float8"):
-        raise NotImplementedError(
-            "ep_moe_forward: the float8 dispatch payload is not ported")
     axes = mesh_axes(mesh)
     E, k = cfg.n_experts, cfg.experts_per_token
     M = axes["model"]

@@ -13,6 +13,10 @@ live in the package.
   caches.
 * :func:`ep_moe_rank` -- :func:`repro_torch.parallel.ep_moe.ep_moe_forward`
   on a (data, model) mesh; returns the whole output and the routing.
+* :func:`moe_forward_rank` -- the DTensor ``moe_forward`` with the groups
+  on every rank, so that DTensor's all-to-alls carry the dispatch (float8
+  under the float8 dispatch); returns the whole output, the routing and
+  the staged collectives.
 * :func:`local_shards` -- arrays placed by partition specs on a named
   mesh; returns this rank's shards.
 * :func:`with_host_staging` -- one of the above with DTensor's
@@ -22,6 +26,7 @@ live in the package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 from typing import Any, Dict, List, Optional
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 __all__ = ["sharded_train_steps", "sharded_serving_steps", "ep_moe_rank",
-           "moe_inputs",
+           "moe_forward_rank", "moe_inputs",
            "local_shards", "with_host_staging", "run_jobs", "train_batch",
            "whole_leaves"]
 
@@ -253,60 +258,136 @@ def moe_inputs(cfg, G: int, S: int, seed: int, device, experts=None
     return out
 
 
-def ep_moe_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
-                mesh_shape, device: str) -> Dict[str, Any]:
-    """``ep_moe_forward`` on a ('data', 'model') mesh of ``mesh_shape``.
-
-    ``inputs`` holds either the whole ``router``, ``wg``, ``wu``, ``wd``
-    and ``x`` as numpy arrays (every rank keeps its shards), or ``seed``,
-    ``G`` and ``S``: then each rank draws x, the router and only its own
-    experts by :func:`moe_inputs`.  Returns the all-to-alls this rank
-    issued and their bytes, the seconds of the forward, its peak device
-    memory, allocated and reserved (CUDA), and on rank 0 the whole output (float32 numpy) and the
-    whole dispatch table."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    from repro_torch.launch.mesh import make_local_mesh
+def _moe_rank_inputs(mesh, inputs: Dict[str, Any], cfg, dev):
+    """This rank's MoE-layer inputs: x (G, S, D) and the router (D, E)
+    whole, and the experts ``wg``, ``wu``, ``wd`` as DTensors sharded on
+    'model'.  ``inputs`` holds either the whole ``router``, ``wg``, ``wu``,
+    ``wd`` and ``x`` as numpy arrays (the rank keeps its shards), or
+    ``seed``, ``G`` and ``S``: then the rank draws x, the router and only
+    its own experts by :func:`moe_inputs`."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
 
     from .act import mesh_axes
+
+    axes = mesh_axes(mesh)
+    on_model = [Shard(0) if a == "model" else Replicate() for a in axes]
+    if "seed" in inputs:
+        m, per = mesh.get_local_rank("model"), cfg.n_experts // axes["model"]
+        drawn = moe_inputs(cfg, inputs["G"], inputs["S"], inputs["seed"],
+                           dev, range(m * per, (m + 1) * per))
+        experts = {n: DTensor.from_local(drawn[n], mesh, on_model)
+                   for n in ("wg", "wu", "wd")}
+    else:
+        drawn = {k: torch.from_numpy(inputs[k]).to(dev)
+                 for k in ("router", "wg", "wu", "wd", "x")}
+        experts = {n: distribute_tensor(drawn[n], mesh, on_model,
+                                        src_data_rank=None)
+                   for n in ("wg", "wu", "wd")}
+    return drawn["x"], drawn["router"], experts
+
+
+def _timed_on(dev: torch.device, fn):
+    """``fn()`` and what it cost on ``dev``: its seconds (to the device's
+    end) and, on a card, its peak device memory allocated and reserved."""
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    return res, dict(
+        seconds=time.perf_counter() - t0,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if cuda
+        else None,
+        peak_reserved_bytes=torch.cuda.max_memory_reserved(dev) if cuda
+        else None)
+
+
+def ep_moe_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
+                mesh_shape, device: str) -> Dict[str, Any]:
+    """``ep_moe_forward`` on a ('data', 'model') mesh of ``mesh_shape``,
+    ``inputs`` as :func:`_moe_rank_inputs` takes them.  Returns the
+    all-to-alls this rank issued and their bytes, the seconds of the
+    forward, its peak device memory, allocated and reserved (CUDA), and on
+    rank 0 the whole output (float32 numpy) and the whole dispatch
+    table."""
+    from repro_torch.launch.mesh import make_local_mesh
+
     from .ep_moe import ep_moe_forward, exchange_stats, reset_exchange_stats
 
     dev = torch.device(device)
     mesh = make_local_mesh(*mesh_shape, device=dev.type)
-    if "seed" in inputs:
-        M = mesh_axes(mesh)["model"]
-        m = mesh.get_local_rank("model")
-        per = cfg.n_experts // M
-        drawn = moe_inputs(cfg, inputs["G"], inputs["S"], inputs["seed"],
-                           dev, range(m * per, (m + 1) * per))
-        x = drawn.pop("x")
-        on_model = [Shard(0) if a == "model" else Replicate()
-                    for a in mesh_axes(mesh)]
-        params = dict(router=drawn["router"],
-                      **{n: DTensor.from_local(drawn[n], mesh, on_model)
-                         for n in ("wg", "wu", "wd")})
-    else:
-        params = {k: torch.from_numpy(inputs[k]).to(dev)
-                  for k in ("router", "wg", "wu", "wd")}
-        x = torch.from_numpy(inputs["x"]).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+    x, router, experts = _moe_rank_inputs(mesh, inputs, cfg, dev)
     reset_exchange_stats()
-    t0 = time.perf_counter()
-    y, dispatch = ep_moe_forward(mesh, params, x, cfg, return_dispatch=True)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
+    (y, dispatch), cost = _timed_on(dev, lambda: ep_moe_forward(
+        mesh, dict(router=router, **experts), x, cfg, return_dispatch=True))
     y, dispatch = y.full_tensor(), dispatch.full_tensor()
-    cuda = dev.type == "cuda"
-    out = dict(seconds=seconds, **exchange_stats(),
-               peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
-                                  if cuda else None),
-               peak_reserved_bytes=(torch.cuda.max_memory_reserved(dev)
-                                    if cuda else None))
+    out = dict(**cost, **exchange_stats())
     if rank == 0:
         out.update(y=y.float().cpu().numpy(), dispatch=dispatch.cpu().numpy())
+    return out
+
+
+def moe_forward_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
+                     mesh_shape, device: str,
+                     dispatch_dtypes=("bfloat16",)) -> Dict[str, Any]:
+    """The DTensor ``moe_forward`` on a ('data', 'model') mesh of
+    ``mesh_shape``, inside ``activation_mesh``: token groups spread over
+    every rank (G sharded on both axes), the experts on 'model', so the
+    slots cross the model axis at the EP constraint by DTensor's
+    all-to-all (the dispatch, float8 with its scales under the float8
+    dispatch) and come back by another (the combine).  ``inputs`` as
+    :func:`_moe_rank_inputs` takes them.  Runs once for each
+    ``moe_dispatch_dtype`` in ``dispatch_dtypes`` on the same inputs.
+    Returns per dtype the seconds, the peak device memory (CUDA), the
+    bytes the host staging copied (when it is installed) and each staged
+    collective a card rank's forward stands in for (kind, payload bytes,
+    local shape); on rank 0 also the whole output (float32 numpy) and the
+    whole dispatch table that forward routed by."""
+    import dataclasses
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.moe import capacity, moe_forward
+
+    from .act import activation_mesh
+
+    dev = torch.device(device)
+    mesh = mesh_mod.make_local_mesh(*mesh_shape, device=dev.type)
+    x, router, experts = _moe_rank_inputs(mesh, inputs, cfg, dev)
+    n_axes = len(mesh.mesh_dim_names)
+    x = distribute_tensor(x, mesh, [Shard(0)] * n_axes, src_data_rank=None)
+    router = distribute_tensor(router, mesh, [Replicate()] * n_axes,
+                               src_data_rank=None)
+    params = dict(router=router, **experts)
+    cuda = dev.type == "cuda"
+    out: Dict[str, Any] = {}
+    with activation_mesh(mesh):
+        for dt in dispatch_dtypes:
+            c = dataclasses.replace(cfg, moe_dispatch_dtype=dt)
+            seen: List[tuple] = []
+            observe = (mesh_mod.observe_staged(
+                lambda kind, nbytes, shape: seen.append(
+                    (kind, nbytes, shape)), dev.type)
+                       if cuda else contextlib.nullcontext())
+            mesh_mod.reset_staged_bytes()
+            with observe, torch.no_grad():
+                (y, _, dispatch), cost = _timed_on(dev, lambda: moe_forward(
+                    params, x, c, return_dispatch=True))
+            row = dict(**cost, staged=mesh_mod.staged_bytes(),
+                       collectives=seen)
+            y, dispatch = y.full_tensor(), dispatch.full_tensor()
+            if rank == 0:
+                row.update(y=y.float().cpu().numpy(),
+                           dispatch=dispatch.cpu().numpy())
+            del y, dispatch
+            out[dt] = row
+    out["capacity"] = capacity(x.shape[1], cfg.n_experts, cfg.experts_per_token,
+                               cfg.capacity_factor)
     return out
 
 

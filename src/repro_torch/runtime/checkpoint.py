@@ -9,9 +9,10 @@ The port of the reference's ``runtime/checkpoint.py``.  Layout::
     <dir>/LATEST               # atomic pointer (rename), written LAST
 
 Leaf ``i`` is the i-th leaf in ``jax.tree.flatten``'s order (dict keys
-sorted, lists in order; :mod:`repro_torch.tree`), bfloat16 leaves are
-stored as float32 (lossless) and cast back on restore, and the manifest's
-``dtypes`` are the reference's names (``"bfloat16"``, ``"float32"``,
+sorted, lists in order; :mod:`repro_torch.tree`), bfloat16, float16 and
+float8 (``float8_e4m3fn``, ``float8_e5m2``) leaves are stored as float32
+(lossless) and cast back on restore, and the manifest's ``dtypes`` are the
+reference's names (``"bfloat16"``, ``"float8_e4m3fn"``, ``"float32"``,
 ``"int32"``).  So a checkpoint written by either package restores in the
 other; only the manifest's ``treedef`` string differs.  Writes are
 crash-safe: the step directory is written under a tmp name and renamed,
@@ -42,12 +43,17 @@ def _dtype_name(x) -> str:
     return str(np.asarray(x).dtype)
 
 
+#: leaf types stored as float32, which holds each of their values exactly
+_AS_FLOAT32 = (torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+               torch.float8_e5m2)
+
+
 def _storable(x) -> np.ndarray:
-    """A leaf as a host numpy array; bfloat16 (and other types numpy lacks)
-    as float32, which holds them exactly."""
+    """A leaf as a host numpy array; bfloat16, float16 and float8 (types
+    numpy lacks or stores as the reference does) as float32."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
-        if x.dtype in (torch.bfloat16, torch.float16):
+        if x.dtype in _AS_FLOAT32:
             x = x.to(torch.float32)
         return x.cpu().numpy()
     return np.asarray(x)

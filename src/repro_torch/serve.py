@@ -1,4 +1,4 @@
-"""Serving loop of the LM stack: batched prefill, then greedy decode.
+"""Serving loop of the LM stack: batched prefill, then decode.
 
 The port of ``examples/serve_lm.py``'s loop as a function, :func:`generate`,
 plus a command-line entry point::
@@ -9,12 +9,21 @@ plus a command-line entry point::
     PYTHONPATH=src python -m repro_torch.serve --arch jamba-v0.1-52b \\
         --reduced --device cpu
 
+    PYTHONPATH=src python -m repro_torch.serve --arch qwen2-vl-7b \\
+        --reduced --device cpu --temperature 0.8
+
 On the card (the default device) the model runs at the config's published
 widths, with random weights drawn from ``--seed``; ``--layers`` cuts the
 depth to a multiple of the config's pattern and is listed in the output
 (``reduced`` says what was cut).  ``--reduced`` serves the reference's
-``reduced`` config (tiny widths) instead, which runs on the CPU.  The output
-is one JSON object: the cut, the prefill and decode times and the generated
+``reduced`` config (tiny widths) instead, which runs on the CPU.  As in the
+example, one key, ``PRNGKey(--seed)`` (:mod:`repro_torch.core.threefry`,
+the reference's ``jax.random`` draws bit for bit), draws the prompts: token
+ids, or for a stub-frontend config (a vision or audio stub, such as
+qwen2-vl-7b's) (B, S, D) embeddings, and each decode step's embedding of
+such a config; ``--temperature`` above 0 samples each decode step's token
+from the logits over the temperature, else the argmax.  The output is one
+JSON object: the cut, the prefill and decode times and the generated
 tokens.
 """
 from __future__ import annotations
@@ -25,18 +34,25 @@ import json
 import time
 from typing import Any, Dict, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import threefry
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import model as M
 
-__all__ = ["ServeResult", "generate", "serving_config", "main"]
+__all__ = ["ServeResult", "generate", "serving_config", "serving_prompts",
+           "main"]
+
+#: the example's fold-in offset of the sampling keys: step i samples with
+#: ``fold_in(key, SAMPLE_FOLD + i)``, its embedding uses ``fold_in(key, i)``
+SAMPLE_FOLD = 100
 
 
 @dataclasses.dataclass
 class ServeResult:
-    tokens: torch.Tensor          # (B, max_new) greedy tokens
+    tokens: torch.Tensor          # (B, max_new) tokens
     prefill_logits: torch.Tensor  # (B, V) f32 logits of the last prompt position
     prefill_s: float
     decode_s: float               # all max_new - 1 decode steps
@@ -53,38 +69,68 @@ def _sync(dev: torch.device) -> None:
 
 @torch.no_grad()
 def generate(params: Dict[str, Any], cfg, prompts: torch.Tensor,
-             max_new: int) -> ServeResult:
-    """Prefill ``prompts`` (B, S) as one batch, then ``max_new - 1`` greedy
-    decode steps: ``max_new`` new tokens per request, as the reference's
-    serving example makes them.  Runs under ``torch.no_grad()``, so each
-    kernel call is one launch that saves nothing, whatever the parameters'
-    ``requires_grad``.  Times are host seconds around work that ends in a
-    device synchronize."""
+             max_new: int, *, temperature: float = 0.0,
+             key: threefry.Key = 0) -> ServeResult:
+    """Prefill ``prompts`` as one batch -- token ids (B, S), or (B, S, D)
+    embeddings for a stub-frontend config -- then ``max_new - 1`` decode
+    steps: ``max_new`` new tokens per request, as the reference's serving
+    example makes them.  The first token is the prefill's argmax.  Decode
+    step i of a stub-frontend config is fed ``normal(fold_in(key, i), (B,
+    D))`` (never the sampled token); with ``temperature > 0`` its token
+    is ``categorical(fold_in(key, 100 + i), logits / temperature)``, else
+    the argmax.  Runs under ``torch.no_grad()``, so each kernel call is one
+    launch that saves nothing, whatever the parameters' ``requires_grad``.
+    Times are host seconds around work that ends in a device
+    synchronize."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    if cfg.frontend != "none":
-        raise ValueError(f"{cfg.name} takes stub-frontend embeddings; "
-                         "generate serves token prompts only")
     if max_new < 1:
         raise ValueError("max_new must be >= 1")
+    if temperature < 0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    stub = cfg.frontend != "none"
+    if prompts.dim() != (3 if stub else 2):
+        want = "(B, S, D) embeddings" if stub else "(B, S) token ids"
+        raise ValueError(f"{cfg.name} takes {want}, got shape "
+                         f"{tuple(prompts.shape)}")
     dev = prompts.device
-    B, S = prompts.shape
+    B, S = prompts.shape[:2]
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = M.prefill(params, {"tokens": prompts}, cfg,
-                               max_len=S + max_new)
+    batch = {"embeds" if stub else "tokens": prompts}
+    logits, caches = M.prefill(params, batch, cfg, max_len=S + max_new)
     tok = torch.argmax(logits, dim=-1)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     outs = [tok]
     t0 = time.perf_counter()
     for i in range(max_new - 1):
-        step_logits, caches = M.decode_step(params, tok, caches, S + i, cfg)
-        tok = torch.argmax(step_logits, dim=-1)
+        feed = (threefry.normal(threefry.fold_in(key, i), (B, cfg.d_model),
+                                dev) if stub else tok)
+        step_logits, caches = M.decode_step(params, feed, caches, S + i, cfg)
+        if temperature > 0:
+            # a division by a device scalar: the card's division by a host
+            # scalar multiplies by its reciprocal, which rounds otherwise
+            scaled = step_logits / step_logits.new_full((), temperature)
+            tok = threefry.categorical(
+                threefry.fold_in(key, SAMPLE_FOLD + i), scaled)
+        else:
+            tok = torch.argmax(step_logits, dim=-1)
         outs.append(tok)
     _sync(dev)
     decode_s = time.perf_counter() - t0
     return ServeResult(torch.stack(outs, dim=1), logits, prefill_s, decode_s)
+
+
+def serving_prompts(cfg, B: int, S: int, key: threefry.Key,
+                    device) -> torch.Tensor:
+    """The example's prompts from ``key``: ``randint(key, (B, S), 0, V)``
+    token ids, or ``normal(key, (B, S, D))`` embeddings for a
+    stub-frontend config."""
+    if cfg.frontend != "none":
+        return threefry.normal(key, (B, S, cfg.d_model), device)
+    return torch.from_numpy(threefry.randint(
+        key, (B, S), 0, cfg.vocab_size).astype(np.int64)).to(device)
 
 
 def serving_config(arch: str, layers: Union[int, None] = None,
@@ -113,19 +159,25 @@ def main(argv=None) -> Dict[str, Any]:
                     help="cut depth to this many layers (pattern multiple)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced config (tiny widths)")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sample decode tokens at this temperature "
+                         "(0: greedy)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weights, and PRNGKey(seed) for the prompts, "
+                         "stub embeddings and samples")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     full = get_config(args.arch)
     cfg = serving_config(args.arch, args.layers, args.reduced)
+    if not cfg.causal:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode step")
     params = M.init_params(cfg, seed=args.seed, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed + 1)
-    prompts = torch.randint(0, cfg.vocab_size, (args.requests, args.prompt_len),
-                            generator=gen, device=dev)
-    res = generate(params, cfg, prompts, args.max_new)
+    key = threefry.prng_key(args.seed)
+    prompts = serving_prompts(cfg, args.requests, args.prompt_len, key, dev)
+    res = generate(params, cfg, prompts, args.max_new,
+                   temperature=args.temperature, key=key)
     base = reduced(full) if args.reduced else full
     cut = ["reduced config (tiny widths, experts, vocab)"] if args.reduced else []
     if cfg.n_layers != base.n_layers:
@@ -137,7 +189,8 @@ def main(argv=None) -> Dict[str, Any]:
         device_name=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu"),
         requests=args.requests, prompt_len=args.prompt_len,
-        max_new=args.max_new, seed=args.seed,
+        max_new=args.max_new, seed=args.seed, temperature=args.temperature,
+        frontend=cfg.frontend,
         prefill_ms=res.prefill_s * 1e3,
         prefill_tokens_per_s=args.requests * args.prompt_len / res.prefill_s,
         decode_ms_per_step=(res.decode_s / res.decode_steps * 1e3

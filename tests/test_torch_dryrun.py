@@ -23,7 +23,12 @@
 * The cell list and tags equal the reference's; cells leave no process
   group and no tensors behind; the uneven-heads train steps of qwen2-7b and
   gemma-2b complete at 16 x 16; the hill-climb writes its artifact and
-  line, and refuses an override the port does not carry.
+  line, the float8 dispatch's variant too.
+* The float8 expert dispatch: 1-layer ``grok-1-314b`` ``train_4k`` with
+  the dispatch in bf16 and in e4m3, held to the reference's own lowering
+  of the same overrides: per-device FLOPs within 1 %, and the e4m3
+  dispatch changing each collective kind's bytes by the same ratio in
+  both packages (1: no dispatch exchange at 16 x 16, see the test).
 """
 import dataclasses
 import gc
@@ -55,6 +60,12 @@ PARITY_FLOPS_REL = 1e-2
 #: gathered
 GATHER_PARITY = ("falcon-mamba-7b", "decode_32k")
 GATHER_ELEMENTS_REL = 5e-2
+#: the float8 expert dispatch's cell: one MoE layer of grok-1-314b
+#: train_4k, with the dispatch in the compute dtype and in e4m3
+#: (kimi-k2's 1-layer FLOPs part from the reference's by 1.7 %, beyond
+#: PARITY_FLOPS_REL, with either dispatch)
+FP8_CELL = ("grok-1-314b", "train_4k")
+DISPATCH_DTYPES = ("bfloat16", "float8_e4m3fn")
 PARITY_ARGS_REL = 1e-2
 #: the fake-against-real config: reduced qwen2-7b, one layer, B 4, S 16
 REAL_MESH = (2, 2)
@@ -96,15 +107,18 @@ def analyze(hlo):
 
 RD.H.analyze_hlo = analyze
 out = {}
-for arch, shape in json.loads(sys.argv[1]):
-    result, _ = RD.lower_cell(arch, shape, False, overrides={"n_layers": 1})
+for arch, shape, *extra in json.loads(sys.argv[1]):
+    extra = extra[0] if extra else {}
+    result, _ = RD.lower_cell(arch, shape, False,
+                              overrides={"n_layers": 1, **extra})
     gathered = 0
     for m in re.finditer(r"= \w+\[([\d,]*)\]\S* all-gather\(", texts[-1]):
         n = 1
         for d in filter(None, m.group(1).split(",")):
             n *= int(d)
         gathered += n
-    out[f"{arch}/{shape}"] = dict(result=result, all_gather_elements=gathered)
+    key = "/".join([arch, shape, *extra.values()])
+    out[key] = dict(result=result, all_gather_elements=gathered)
 print(json.dumps(out))
 """
 
@@ -122,8 +136,10 @@ def reference_cells():
     """The reference's dry run of the parity cells, started at once in its
     subprocess; the result is read when a test first needs it."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    fp8 = [(*FP8_CELL, {"moe_dispatch_dtype": dt}) for dt in DISPATCH_DTYPES]
     proc = subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
-                             json.dumps(PARITY + [GATHER_PARITY])], env=env,
+                             json.dumps(PARITY + [GATHER_PARITY] + fp8)],
+                            env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     result = {}
@@ -261,6 +277,58 @@ def test_decode_all_gathers_match_the_references_dry_run(reference_cells,
     got = mine["collectives"]["bytes_by_kind"]["all-gather"]
     assert want > 0 and abs(got / want - 1) < GATHER_ELEMENTS_REL, (got,
                                                                     want)
+
+
+@pytest.fixture(scope="module")
+def fp8_cells():
+    """The port's 1-layer trace of FP8_CELL with each dispatch dtype."""
+    arch, shape = FP8_CELL
+    return {dt: D.lower_cell(arch, shape, False, overrides={
+        "n_layers": 1, "moe_dispatch_dtype": dt}, device="cpu")[0]
+            for dt in DISPATCH_DTYPES}
+
+
+@pytest.mark.parametrize("dispatch", DISPATCH_DTYPES)
+def test_fp8_dispatch_cell_matches_the_references_dry_run(
+        reference_cells, fp8_cells, dispatch):
+    """grok-1-314b train_4k, one layer, 16 x 16, with the dispatch in the
+    compute dtype and in e4m3: the port's trace (no longer refused) within
+    PARITY_FLOPS_REL of the reference's per-device FLOPs, with the same
+    model FLOPs and parameter counts."""
+    mine = fp8_cells[dispatch]
+    ref = reference_cells()["/".join((*FP8_CELL, dispatch))]["result"]
+    gap = mine["cost"]["flops_per_device"] / ref["cost"]["flops_per_device"] - 1
+    assert abs(gap) < PARITY_FLOPS_REL, gap
+    for k in ("model_flops", "params", "active_params", "chips"):
+        assert mine[k] == ref[k], k
+
+
+def test_fp8_dispatch_changes_the_collectives_as_the_reference_does(
+        reference_cells, fp8_cells):
+    """Each collective kind's bytes and calls with the e4m3 dispatch, over
+    those with the compute dtype's, are the same ratio in both packages:
+    1.  The cell's token groups lie on 'data' only, so the EP constraint
+    (groups on 'data', experts on 'model') is a local slice in both
+    GSPMD's lowering and the port's: no dispatch exchange to shrink, and
+    the port's backward sums the slots' partial gradients in the compute
+    dtype before their cast to e4m3, as GSPMD does, never as float8
+    partials.  The FLOPs do not change either (the quantize is
+    elementwise)."""
+    ref = {dt: reference_cells()["/".join((*FP8_CELL, dt))]["result"]
+           for dt in DISPATCH_DTYPES}
+    for cells in (ref, fp8_cells):
+        bf, f8 = (cells[dt]["collectives"] for dt in DISPATCH_DTYPES)
+        assert f8["bytes_by_kind"] == bf["bytes_by_kind"]
+        assert f8["count_by_kind"] == bf["count_by_kind"]
+        assert (cells[DISPATCH_DTYPES[1]]["cost"]["flops_per_device"]
+                == cells[DISPATCH_DTYPES[0]]["cost"]["flops_per_device"])
+
+
+def test_float8_elements_count_one_byte():
+    """The accounting's bytes of a float8 tensor: one an element."""
+    t = torch.zeros(3, 5, dtype=torch.float8_e4m3fn)
+    assert D._nbytes(t) == 15
+    assert D._nbytes(t.float()) == 60
 
 
 # --------------------------------------------------------------------------
@@ -426,6 +494,9 @@ def test_the_cli_needs_a_card_unless_asked(tmp_path):
 
 def test_hillclimb_writes_its_variant_and_refuses_fp8(tmp_path, monkeypatch,
                                                       capsys):
+    """The hill-climb writes its artifact and line beside the baseline; the
+    reference's documented variant, the float8 dispatch, which the port
+    refused before it carried it, now traces and writes its JSON too."""
     from repro_torch.launch import hillclimb
 
     monkeypatch.chdir(tmp_path)
@@ -446,8 +517,15 @@ def test_hillclimb_writes_its_variant_and_refuses_fp8(tmp_path, monkeypatch,
                      .read_text())
     assert got["variant"] == "one_layer"
     assert got["overrides"] == {"n_layers": 1}
-    with pytest.raises(NotImplementedError, match="moe_dispatch_dtype"):
-        hillclimb.main(["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
-                        "--variant", "fp8_dispatch", "--overrides",
-                        '{"moe_dispatch_dtype": "float8_e4m3fn"}',
-                        "--device", "cpu", "--out", "perf"])
+    fp8 = {"moe_dispatch_dtype": "float8_e4m3fn", "n_layers": 1}
+    line = hillclimb.main(["--arch", "grok-1-314b", "--shape", "train_4k",
+                           "--variant", "fp8_dispatch", "--overrides",
+                           json.dumps(fp8), "--device", "cpu", "--out",
+                           "perf"])
+    assert line.startswith("fp8_dispatch: compute=")
+    got = json.loads((tmp_path / "perf" /
+                      "grok-1-314b__train_4k__16x16__fp8_dispatch.json")
+                     .read_text())
+    assert got["variant"] == "fp8_dispatch" and got["overrides"] == fp8
+    assert got["arch"] == "grok-1-314b" and got["cost"][
+        "flops_per_device"] > 0

@@ -9,10 +9,13 @@ step, and MoE with capacity drops are compared at the reference's
 tolerances; ``prefill`` logits and caches, then four ``decode_step``s, for
 the reduced jamba-v0.1-52b, qwen2-7b and falcon-mamba-7b at the reference's
 own 2e-4 (tests/test_models_smoke.py); ``repro_torch.serve``'s greedy tokens
-against ``examples/serve_lm.py``'s.  Tests marked ``cuda`` run the reduced
+against ``examples/serve_lm.py``'s, and its sampled ones at temperature 0.8
+(reduced qwen2-vl-7b's stub embeddings and reduced jamba's tokens, token
+for token).  Tests marked ``cuda`` run the reduced
 jamba on the card through the kernels; they skip elsewhere.
 """
 import importlib.util
+import json
 import sys
 
 import numpy as np
@@ -288,13 +291,27 @@ def test_moe_matches_reference_with_capacity_drops(ref, cf, G, S):
     assert PMO.capacity(4096, 384, 8, 1.25) == 107
 
 
-def test_moe_float8_dispatch_is_not_ported():
+def test_moe_float8_dispatch_is_not_ported(ref):
+    """The float8 dispatch, refused until the port carried it, now runs:
+    all-zero inputs give zeros (empty slots scale to 1e-12, no NaN), and
+    drawn inputs the reference's output (compiled, f32) within 1e-5
+    (tests/test_torch_moe_fp8.py holds it further)."""
     cfg = _MoeCfg(8, 2, 1, 4, 2.0)
     cfg.moe_dispatch_dtype = "float8_e4m3fn"
     p = dict(router=torch.zeros(8, 2), wg=torch.zeros(2, 8, 4),
              wu=torch.zeros(2, 8, 4), wd=torch.zeros(2, 4, 8))
-    with pytest.raises(NotImplementedError):
-        PMO.moe_forward(p, torch.zeros(1, 3, 8), cfg)
+    y, aux = PMO.moe_forward(p, torch.zeros(1, 3, 8), cfg)
+    assert not y.any() and torch.isfinite(aux)
+    rng = np.random.default_rng(8)
+    w = {n: (rng.standard_normal(t.shape) * 0.3).astype(np.float32)
+         for n, t in p.items()}
+    x = rng.standard_normal((2, 6, 8)).astype(np.float32)
+    want, _ = ref.jax.jit(lambda pp, xx: ref.moe.moe_forward(pp, xx, cfg))(
+        {n: ref.jnp.asarray(a) for n, a in w.items()}, ref.jnp.asarray(x))
+    got, _ = PMO.moe_forward({n: torch.from_numpy(a) for n, a in w.items()},
+                             torch.from_numpy(x), cfg)
+    want = np.asarray(want, np.float64)
+    assert np.linalg.norm(got.numpy() - want) <= 1e-5 * np.linalg.norm(want)
 
 
 # --------------------------------------------------------------------------
@@ -418,6 +435,97 @@ def test_serve_matches_the_reference_serving_example(ref, monkeypatch, capsys):
     res = generate(p, cfg, torch.as_tensor(np.array(prompts)), NEW)
     assert res.tokens.tolist() == want
     assert res.decode_steps == NEW - 1 and res.prefill_s > 0
+
+
+#: the sampled serving runs: the example's stub-frontend config and a
+#: token config with MoE and Mamba layers
+SAMPLED_ARCHS = ["qwen2-vl-7b", "jamba-v0.1-52b"]
+
+
+@pytest.mark.parametrize("arch", SAMPLED_ARCHS)
+def test_sampled_serving_matches_the_reference_serving_example(
+        ref, monkeypatch, capsys, arch):
+    """``generate(temperature=0.8, key=0)`` makes the tokens of
+    ``examples/serve_lm.py --temperature 0.8`` token for token on the same
+    weights: reduced qwen2-vl-7b (a vision stub: prompts as
+    ``normal(key, (B, S, D))`` embeddings, each decode step fed
+    ``normal(fold_in(key, i), (B, D))``) and reduced jamba (token
+    prompts).  Each decode step samples ``categorical(fold_in(key, 100 +
+    i), logits / 0.8)``; the first token is the prefill's argmax.  The
+    port's own prompts (``serving_prompts``) are the example's bits."""
+    from repro_torch.serve import serving_prompts
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_lm_example", ROOT / "examples" / "serve_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    B, S, NEW = 2, 16, 6
+    monkeypatch.setattr(sys, "argv", [
+        "serve_lm.py", "--arch", arch, "--requests", str(B),
+        "--prompt-len", str(S), "--max-new", str(NEW), "--temperature",
+        "0.8"])
+    example.main()
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("request ")]
+    want = [eval(ln.split(":", 1)[1]) for ln in lines]
+    jax = ref.jax
+    rcfg = ref.config_base.reduced(ref.configs.get_config(arch))
+    key = jax.random.PRNGKey(0)
+    rp = ref.model.init_params(rcfg, key)
+    cfg = reduced(get_config(arch))
+    p = params_from_reference(jax.tree.map(np.asarray, rp), cfg, "cpu")
+    prompts = serving_prompts(cfg, B, S, 0, "cpu")
+    if cfg.frontend != "none":
+        embeds = np.asarray(jax.random.normal(key, (B, S, cfg.d_model)))
+        np.testing.assert_array_equal(prompts.numpy().view(np.uint32),
+                                      embeds.view(np.uint32))
+    else:
+        np.testing.assert_array_equal(prompts.numpy(), np.asarray(
+            jax.random.randint(key, (B, S), 0, rcfg.vocab_size)))
+    res = generate(p, cfg, prompts, NEW, temperature=0.8, key=0)
+    assert res.tokens.tolist() == want
+    greedy = generate(p, cfg, prompts, NEW)
+    assert greedy.tokens[:, 0].tolist() == res.tokens[:, 0].tolist()
+    assert greedy.tokens.tolist() != res.tokens.tolist()
+
+
+def test_generate_refuses_what_the_reference_cannot_serve():
+    """An encoder-only config has no decode step (the CLI exits, as the
+    example does); a stub-frontend config takes (B, S, D) embeddings, a
+    token config (B, S) ids; the temperature is not negative."""
+    from repro_torch import serve
+
+    enc = reduced(get_config("hubert-xlarge"))
+    with pytest.raises(ValueError, match="encoder-only"):
+        generate({}, enc, torch.zeros(1, 4, enc.d_model), 2)
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve.main(["--arch", "hubert-xlarge", "--reduced", "--device",
+                    "cpu"])
+    vl = reduced(get_config("qwen2-vl-7b"))
+    with pytest.raises(ValueError, match="embeddings"):
+        generate({}, vl, torch.zeros(1, 4, dtype=torch.long), 2)
+    lm = reduced(get_config("qwen2-7b"))
+    with pytest.raises(ValueError, match="token ids"):
+        generate({}, lm, torch.zeros(1, 4, lm.d_model), 2)
+    with pytest.raises(ValueError, match="temperature"):
+        generate({}, lm, torch.zeros(1, 4, dtype=torch.long), 2,
+                 temperature=-1.0)
+
+
+def test_serve_cli_samples_a_stub_frontend_config(capsys):
+    """``python -m repro_torch.serve --arch qwen2-vl-7b --reduced --device
+    cpu --temperature 0.8``: one JSON line with the sampled tokens of the
+    vision-stub config, the same on a second run (one key)."""
+    from repro_torch import serve
+
+    argv = ["--arch", "qwen2-vl-7b", "--reduced", "--device", "cpu",
+            "--temperature", "0.8", "--requests", "2", "--prompt-len", "8",
+            "--max-new", "4"]
+    out = serve.main(argv)
+    assert json.loads(capsys.readouterr().out.strip()) == out
+    assert out["frontend"] == "vision_stub" and out["temperature"] == 0.8
+    assert np.array(out["tokens"]).shape == (2, 4)
+    assert serve.main(argv)["tokens"] == out["tokens"]
 
 
 def test_smoke_routing_replay_reproduces_the_recorded_run():

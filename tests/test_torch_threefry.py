@@ -107,3 +107,119 @@ def test_anneal_draws_are_the_reference_annealers_draws(ref, seed, batch, n,
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**32 - 1])
+def test_fold_in_is_jax_bit_for_bit(ref, seed):
+    """``fold_in`` of PRNGKey(seed) and of a split key, for the serving
+    example's data (0, 1, ..., and 100 + i) and the ends of uint32, equals
+    ``jax.random.fold_in``; data outside uint32 is refused."""
+    from repro_torch.core import threefry as TF
+
+    jax = ref.jax
+    key = jax.random.PRNGKey(seed)
+    for k_np, k_jax in ((seed, key),
+                        (np.asarray(jax.random.split(key)[1]),
+                         jax.random.split(key)[1])):
+        for data in (0, 1, 5, 100, 115, 2**31, 2**32 - 1):
+            np.testing.assert_array_equal(
+                TF.fold_in(k_np, data),
+                np.asarray(jax.random.fold_in(k_jax, data)))
+    with pytest.raises(ValueError, match="fold_in"):
+        TF.fold_in(seed, -1)
+
+
+def test_xla_float32_log_is_bit_for_bit(ref):
+    """``_log32`` (numpy) and ``_log32_t`` (torch ops) against ``jnp.log``
+    on float32 values from the smallest normal to 1e30, and the uniforms'
+    whole range [tiny, 1): the Gumbel draws' two logs."""
+    from repro_torch.core import threefry as TF
+
+    jnp = ref.jnp
+    rng = np.random.default_rng(3)
+    tiny = np.finfo(np.float32).tiny
+    x = np.concatenate([
+        rng.uniform(tiny, 1.0, 200_000),
+        np.exp(rng.uniform(np.log(tiny), np.log(1e30), 200_000)),
+        [tiny, 1.0, np.nextafter(np.float32(1), np.float32(0)), 88.0]]
+    ).astype(np.float32)
+    want = np.asarray(ref.jax.jit(jnp.log)(x)).view(np.uint32)
+    np.testing.assert_array_equal(TF._log32(x).view(np.uint32), want)
+    np.testing.assert_array_equal(
+        TF._log32_t(torch.from_numpy(x)).numpy().view(np.uint32), want)
+
+
+def test_float32_fused_multiply_add_is_xla_bit_for_bit(ref):
+    """``numerics.fma32`` (numpy) and ``fma32_t`` (torch ops) against the
+    float8 dispatch's slot scale as XLA compiles it, ``amax / 448 +
+    1e-12`` (one fused multiply-add by the reciprocal), on maxima from 0
+    up: near 1e-12 * 448 the two operands meet, where adding the float64
+    1e-12 instead of the program's float32 constant rounds differently."""
+    from repro_torch import numerics as NU
+
+    rng = np.random.default_rng(5)
+    a = np.concatenate([
+        np.exp(rng.uniform(np.log(1e-14), np.log(1e-8), 200_000)),
+        np.exp(rng.uniform(np.log(1e-8), np.log(1e4), 50_000)),
+        [0.0, 1e-12, 448e-12, 1.0, 448.0]]).astype(np.float32)
+    want = np.asarray(ref.jax.jit(lambda v: v / 448.0 + 1e-12)(a)).view(
+        np.uint32)
+    inv = np.float32(1.0) / np.float32(448.0)
+    np.testing.assert_array_equal(NU.fma32(a, inv, 1e-12).view(np.uint32),
+                                  want)
+    np.testing.assert_array_equal(
+        NU.fma32_t(torch.from_numpy(a), float(inv), 1e-12).numpy().view(
+            np.uint32), want)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_gumbel_and_categorical_are_jax_bit_for_bit(ref, seed):
+    """``gumbel`` (torch ops) and ``gumbel_host`` equal
+    ``jax.random.gumbel``'s float32 draws bit for bit, and ``categorical``
+    / ``categorical_host`` ``jax.random.categorical``'s indices, on the
+    serving example's keys (``fold_in(key, 100 + i)``) and (B, V) logits
+    over a temperature of 0.8, near-ties included."""
+    from repro_torch.core import threefry as TF
+
+    jax, jnp = ref.jax, ref.jnp
+    key = jax.random.PRNGKey(seed)
+    rng = np.random.default_rng(seed)
+    for i in range(4):
+        k_jax = jax.random.fold_in(key, 100 + i)
+        k_np = TF.fold_in(seed, 100 + i)
+        shape = (4, 3001)
+        want = np.asarray(jax.random.gumbel(k_jax, shape)).view(np.uint32)
+        np.testing.assert_array_equal(TF.gumbel_host(k_np, shape).view(
+            np.uint32), want)
+        np.testing.assert_array_equal(TF.gumbel(k_np, shape, "cpu").numpy()
+                                      .view(np.uint32), want)
+        logits = (rng.standard_normal(shape) * 4).astype(np.float32)
+        logits[:, 1::2] = logits[:, ::2][:, :1500]        # exact ties
+        scaled = np.asarray(jnp.asarray(logits) / 0.8)
+        np.testing.assert_array_equal(scaled, logits / np.float32(0.8))
+        want = np.asarray(jax.random.categorical(k_jax, scaled))
+        np.testing.assert_array_equal(TF.categorical_host(k_np, scaled), want)
+        got = TF.categorical(k_np, torch.from_numpy(scaled))
+        np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="float32"):
+        TF.categorical(0, torch.zeros(2, 3, dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_gumbel_and_categorical_on_the_card_are_the_hosts():
+    """The card's Gumbel draws and categorical samples of the serving
+    shape (4 requests over qwen2-vl-7b's 152,064-word vocabulary) equal the
+    host's plain versions bit for bit."""
+    from repro_torch.core import threefry as TF
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA is not available here")
+    key = TF.fold_in(0, 100)
+    shape = (4, 152064)
+    g = TF.gumbel(key, shape, "cuda").cpu().numpy()
+    np.testing.assert_array_equal(g.view(np.uint32),
+                                  TF.gumbel_host(key, shape).view(np.uint32))
+    logits = (np.random.default_rng(0).standard_normal(shape) * 4).astype(
+        np.float32)
+    got = TF.categorical(key, torch.from_numpy(logits).cuda()).cpu().numpy()
+    np.testing.assert_array_equal(got, TF.categorical_host(key, logits))
