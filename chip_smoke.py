@@ -95,6 +95,14 @@ drives every main path:
   qwen2-vl-7b (a vision stub: prompts and decode inputs are embeddings)
   at full width and depth, served greedy and sampled at temperature 0.8,
   the card's Gumbel draws and samples bit for bit against the host's.
+* slice 15, the sharded MoE lowered as the reference's partitioner lowers
+  it (the router's logits whole on each rank, the slots of each rank's
+  own experts, the combine summed over the ranks): the DTensor layer's
+  staged collectives listed by kind, none an all-gather of slots, and its
+  forward timed by part (route and gather, quantize, exchange,
+  dequantize, products, combine) with either dispatch; the dry run's
+  kimi-k2 cell and its ``fp8_dispatch`` variant under the new lowering,
+  their collectives equal by kind.
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -2461,14 +2469,19 @@ def hillclimb_phase(torch, dev, smi: str, dry: dict) -> dict:
                     for k in fp8["collective_gb_by_kind"]},
                 peak_gb=base["peak_gb"], trace_seconds=base["trace_seconds"])
     assert fp8["flops_per_device"] == bf16["flops_per_device"], (fp8, bf16)
+    # the slots never cross ranks (each gathers and quantizes its own
+    # experts' slots), so the dispatch's dtype moves no collective
+    assert fp8["collective_gb_by_kind"] == bf16["collective_gb_by_kind"], (
+        fp8, bf16)
     assert seconds <= HILLCLIMB_BUDGET_S, seconds
-    print(f"hillclimb {tag} {variant}: all-to-all "
-          f"{fp8['collective_gb_by_kind']['all-to-all']:.3f} GB a device "
-          f"(bf16 cell {bf16['collective_gb_by_kind']['all-to-all']:.3f}); "
-          f"collectives {sum(fp8['collective_gb_by_kind'].values()):.2f} GB "
-          f"(bf16 {sum(bf16['collective_gb_by_kind'].values()):.2f}); "
+    print(f"hillclimb {tag} {variant}: {fp8['flops_per_device']:.4e} FLOPs "
+          f"a device; collectives "
+          f"{ {k: round(v, 3) for k, v in fp8['collective_gb_by_kind'].items() if v} } "
+          f"GB (bf16 cell "
+          f"{ {k: round(v, 3) for k, v in bf16['collective_gb_by_kind'].items() if v} }); "
           f"HBM {fp8['bytes_per_device']:.4e} bytes (bf16 "
-          f"{bf16['bytes_per_device']:.4e}); traced in "
+          f"{bf16['bytes_per_device']:.4e}); peak {fp8['peak_gb']:.2f} GB "
+          f"(bf16 {bf16['peak_gb']:.2f}); traced in "
           f"{fp8['trace_seconds']:.1f} s ({smi})", flush=True)
     return dict(tag=tag, variant=variant, overrides=overrides, line=line,
                 n_layers=base["n_layers"], fp8=fp8, bf16=bf16,
@@ -3105,7 +3118,10 @@ def _dispatch_check(torch, np, cfg, C, single, ranks) -> dict:
     dispatch: equal dispatch tables, outputs within EP_REL_TOL; the bytes
     of the staged all-to-alls that carry the dispatch (the slots' local
     shape before the exchange holds all E experts), a rank, beside the
-    bf16 dispatch's."""
+    bf16 dispatch's; each rank's staged collectives by kind, none of them
+    an all-gather of slots (the combine scatters each rank's own experts'
+    slots and sums the result over the ranks); the forward's seconds by
+    part (``models.moe.timed_parts``, CUDA events), a rank."""
     E, D = cfg.n_experts, cfg.d_model
     r0 = ranks[0]
     dispatch_differ = {dt: int(np.sum(r0[dt]["dispatch"]
@@ -3120,13 +3136,27 @@ def _dispatch_check(torch, np, cfg, C, single, ranks) -> dict:
         y = r0[dt]["y"]
         rel = _rel_l2(torch.from_numpy(y), torch.from_numpy(want))
         assert np.all(np.isfinite(y)) and rel <= EP_REL_TOL, (dt, rel)
-        per_rank = []
+        per_rank, by_kind = [], []
         for r in ranks:
-            moved = [b for kind, b, shape in r[dt]["collectives"]
-                     if kind == "all-to-all" and shape[1] == E]
-            assert moved, (dt, r[dt]["collectives"])
+            seen = r[dt]["collectives"]
+            moved = [b for kind, b, shape in seen
+                     if kind == "all-to-all" and len(shape) == 4
+                     and shape[1] == E]
+            assert moved, (dt, seen)
             per_rank.append(sum(moved))
+            slots = [c for c in seen if c[0] == "all-gather"
+                     and len(c[2]) == 4]
+            assert not slots, (dt, slots)
+            kinds = {}
+            for kind, b, _ in seen:
+                calls, total = kinds.get(kind, (0, 0))
+                kinds[kind] = (calls + 1, total + b)
+            by_kind.append({k: dict(calls=n, bytes=b)
+                            for k, (n, b) in sorted(kinds.items())})
         out[dt] = dict(rel_l2_vs_single=rel,
+                       staged_collectives_by_kind_per_rank=by_kind,
+                       forward_parts_seconds_per_rank=[r[dt]["parts"]
+                                                       for r in ranks],
                        dispatch_all_to_all_bytes_per_rank=per_rank,
                        staged_bytes_per_rank=[r[dt]["staged"]["bytes"]
                                               for r in ranks],
@@ -4428,6 +4458,13 @@ def run(torch, dev) -> int:
           f"{dd['float8_e4m3fn']['rel_l2_vs_single']:.2e} / "
           f"{dd['bfloat16']['rel_l2_vs_single']:.2e} (tol {EP_REL_TOL:.2e}); "
           f"dispatch tables equal ({smi})", flush=True)
+    for dt in ("bfloat16", "float8_e4m3fn"):
+        parts = dd[dt]["forward_parts_seconds_per_rank"]
+        print(f"dtensor dispatch {dt}: forward s a rank by part "
+              f"{ {k: [round(p[k], 4) for p in parts] for k in parts[0]} }; "
+              f"rank 0's staged collectives "
+              f"{dd[dt]['staged_collectives_by_kind_per_rank'][0]} ({smi})",
+              flush=True)
     emit(dict(phase="sharded_train", nvidia_smi=smi, **sharded))
     emit(dict(phase="sharded", seconds=sharded_s, ranks_seconds=ranks_s))
     print(f"sharded_train: {SHARDED_ARCH} {sharded['n_layers']} layers, "

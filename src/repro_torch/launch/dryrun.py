@@ -30,7 +30,9 @@ rank 0:
   only: ``torch.utils.flop_counter``'s formulas, which K3's op joins);
 * collective bytes by the reference's kinds, read at the dispatcher as
   ``CommDebugMode`` reads them: an all-gather counts its gathered output,
-  every other collective its operand;
+  every other collective its operand (DTensor's all-to-all on a CPU mesh,
+  an all-gather and a chunk there, counts as the all-to-all it stands in
+  for);
 * HBM bytes: the inputs plus outputs of every local op that is not a view.
   The eager program on the card runs each op as its own kernel, which
   reads its inputs and writes its outputs, so this is what it moves, and
@@ -208,22 +210,58 @@ class Accounting(TorchDispatchMode):
         self._storages: Dict[int, list] = {}     # key -> [tensors, bytes]
         self._skip = _wrappers()
         self._observing = None
+        self._patched: List[tuple] = []
+        self._quiet = 0
 
     # -- collectives the host staging stands in for ----------------------
     def __enter__(self):
         self._observing = mesh_mod.observe_staged(self._staged,
                                                   self.device_type)
         self._observing.__enter__()
+        self._patch_all_to_all()
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            for module, name, original in self._patched:
+                setattr(module, name, original)
+            self._patched = []
             self._observing.__exit__(*exc)
 
     def _staged(self, kind: str, nbytes: int, shape) -> None:
         self._collective(kind, nbytes, "staged " + kind, [shape])
+
+    # -- DTensor's all-to-all on a CPU mesh --------------------------------
+    def _patch_all_to_all(self) -> None:
+        """While entered, count DTensor's shard-to-shard all-to-all on a
+        CPU mesh (which it runs as an all-gather of the whole dim and a
+        chunk: gloo has no all-to-all) as the all-to-all it stands in for,
+        its operand's bytes, as the card's program counts it; the
+        all-gather inside is not counted."""
+        import torch.distributed.tensor._collective_utils as cu
+        import torch.distributed.tensor.placement_types as pt
+
+        for module in (cu, pt):
+            original = module.shard_dim_alltoall
+            self._patched.append((module, "shard_dim_alltoall", original))
+            module.shard_dim_alltoall = self._all_to_all(original)
+
+    def _all_to_all(self, original):
+        def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+            if mesh.device_type != "cpu" or self._quiet:
+                return original(input, gather_dim, shard_dim, mesh, mesh_dim)
+            if input.device.type == self.device_type:
+                self._collective("all-to-all", _nbytes(input),
+                                 "all-to-all (gathered on a CPU mesh)",
+                                 [tuple(input.shape)])
+            self._quiet += 1
+            try:
+                return original(input, gather_dim, shard_dim, mesh, mesh_dim)
+            finally:
+                self._quiet -= 1
+        return shard_dim_alltoall
 
     def _collective(self, kind: str, nbytes: int, op: str, shapes) -> None:
         self.collective_bytes[kind] += nbytes
@@ -245,7 +283,8 @@ class Accounting(TorchDispatchMode):
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         if name in _COLLECTIVE_OPS:
-            if all(t.device.type == self.device_type for t in ins):
+            if not self._quiet and all(t.device.type == self.device_type
+                                       for t in ins):
                 kind, where = _COLLECTIVE_OPS[name]
                 payload = outs if where == "out" else _tensors(args[where])
                 self._collective(kind, sum(map(_nbytes, payload)), name,

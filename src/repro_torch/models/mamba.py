@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import mamba_scan as K4
 from repro_torch.parallel.act import (BATCH, TP, constrain,
-                                      contract_shards, per_shard)
+                                      contract_shards, gathered_product,
+                                      per_shard)
 
 __all__ = ["mamba_params_shapes", "mamba_forward", "mamba_prefill",
            "mamba_decode_step", "selective_scan_chunked", "selective_scan_ref"]
@@ -237,7 +238,7 @@ def mamba_decode_step(params: Dict, x: torch.Tensor, cache: Dict, cfg
                       ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, 1, D); cache: {conv: (B, K-1, Di), ssm: (B, Di, N)}."""
     Di = cfg.d_inner
-    xz = x @ params["in_proj"]
+    xz = gathered_product(x, params["in_proj"])
     u, z = torch.split(xz, [Di, Di], dim=-1)
     conv_in = torch.cat([cache["conv"], u], dim=1)               # (B, K, Di)
     w = params["conv_w"]

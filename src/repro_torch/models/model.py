@@ -17,12 +17,13 @@ each loss chunk's logits are constrained where the reference constrains
 them; the embedding lookup looks up each model rank's own rows of the table
 (:func:`repro_torch.parallel.act.embed_rows`: zeros for the others' rows,
 then one all-reduce), and the per-position loss runs shard by shard
-(:func:`repro_torch.parallel.act.per_shard`; its vocabulary dim is
-gathered whole first).
+(:func:`repro_torch.parallel.act.per_shard`); where the vocabulary is
+sharded, each rank reduces its own block and three all-reduces of (B, c)
+complete the log-sum-exp and the label's logit, as the reference's
+partitioner does (the logits are never gathered).
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
@@ -32,8 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.parallel.act import (BATCH, TP, constrain, embed_rows,
-                                      is_sharded, mesh_axes, model_axis_size,
-                                      per_shard)
+                                      gathered_product, is_sharded,
+                                      per_shard, shard_start)
 
 from .layers import init_linear, mrope_positions, rms_norm, rope_angles
 from .transformer import (block_param_shapes, blocks_decode, blocks_forward,
@@ -180,66 +181,11 @@ def _head_weight(params, cfg):
     return params["head"]
 
 
-def _project(h, hw):
-    return h @ hw.to(h.dtype)
-
-
-class _RowGradProduct(torch.autograd.Function):
-    """``h @ hw`` whose weight gradient is computed for hw's rows [lo, hi)
-    alone (zeros elsewhere); the output and the input gradient are
-    whole."""
-
-    @staticmethod
-    def forward(ctx, h, hw, lo: int, hi: int):
-        ctx.save_for_backward(h, hw)
-        ctx.rows = (lo, hi)
-        return h @ hw
-
-    @staticmethod
-    def backward(ctx, g):
-        h, hw = ctx.saved_tensors
-        lo, hi = ctx.rows
-        dh = g @ hw.T if ctx.needs_input_grad[0] else None
-        dw = None
-        if ctx.needs_input_grad[1]:
-            dw = torch.zeros_like(hw)
-            dw[lo:hi] = (h[..., lo:hi].reshape(-1, hi - lo).T
-                         @ g.reshape(-1, g.shape[-1]))
-        return dh, dw, None, None
-
-
-def _project_rows(h, hw, *, lo: int, hi: int):
-    """:func:`_project` whose weight gradient covers rows [lo, hi) only."""
-    return _RowGradProduct.apply(h, hw.to(h.dtype), lo, hi)
-
-
 def _head_logits(h, hw):
-    """``(h @ hw).float()``; on a mesh shard by shard: the batch and
-    position shards, and the vocabulary's where the head is sharded on it,
-    each compute their block, the head's d_model (FSDP) shard gathered
-    first, as the reference's partitioner does (DTensor's own choice for
-    the product gathers the activations instead, or shards an indivisible
-    vocabulary unevenly).  Where the model axis does not shard the
-    vocabulary, its ranks would each compute the same whole weight
-    gradient: each computes its own share of d_model's rows instead (a
-    partial sum over the axis), as the reference's per-device count
-    shows."""
-    lead = tuple(f"x{i}" for i in range(h.dim() - 1))
-    fn, split = _project, None
-    M = model_axis_size(hw)
-    if M > 1:
-        from torch.distributed.tensor import Replicate
-
-        mesh = hw.device_mesh
-        if hw.placements[list(mesh_axes(mesh)).index(TP)] == Replicate():
-            rows = -(-hw.shape[0] // M)
-            lo = min(hw.shape[0], mesh.get_local_rank(TP) * rows)
-            fn = functools.partial(_project_rows, lo=lo,
-                                   hi=min(hw.shape[0], lo + rows))
-            split = {1: TP}
-    return per_shard(fn, (h, hw), (lead + ("d",), ("d", "v")),
-                     (lead + ("v",),), frozenset(lead + ("v",)),
-                     grad_partial=split).float()
+    """``(h @ hw).float()``; on a mesh shard by shard, the head's d_model
+    (FSDP) shard gathered first (:func:`~repro_torch.parallel.act.
+    gathered_product`)."""
+    return gathered_product(h, hw).float()
 
 
 def _logits(params, h, cfg):
@@ -256,13 +202,52 @@ def _token_nll(logits, ls):
     return torch.where(valid, lse - tgt, torch.zeros_like(lse)), valid
 
 
+def _label_logit(logits, ls, *, first: int = 0):
+    """Each position's logit of its label where the label lies in this
+    block of the vocabulary (columns ``first`` on), else 0."""
+    V = logits.shape[-1]
+    idx = ls.long() - first
+    own = (idx >= 0) & (idx < V)
+    got = torch.gather(logits, -1, idx.clamp(0, V - 1)[..., None])[..., 0]
+    return torch.where(own, got, torch.zeros_like(got))
+
+
+def _sharded_token_nll(logits, ls):
+    """:func:`_token_nll` of logits whose vocabulary is sharded, as the
+    reference's partitioner runs it: each rank's block gives its max, its
+    sum of exponentials and its label logits, and an all-reduce of each
+    (B, c) completes them; the logits are never gathered."""
+    m = constrain(logits.detach().amax(-1), BATCH, None)
+    z = constrain(torch.exp(logits - m[..., None]).sum(-1), BATCH, None)
+    tgt = per_shard(_label_logit, (logits, ls), (("b", "c", "v"),
+                                                 ("b", "c")),
+                    (("b", "c"),), frozenset({"b", "c"}),
+                    summed=frozenset({"v"}), first=shard_start(logits, -1))
+    lse = m + torch.log(z)
+    valid = ls >= 0
+    nll = torch.where(valid, lse - constrain(tgt, BATCH, None),
+                      torch.zeros_like(lse))
+    return nll, valid
+
+
+def _vocab_sharded(logits) -> bool:
+    from torch.distributed.tensor import Shard
+
+    return is_sharded(logits) and Shard(logits.dim() - 1) in \
+        logits.placements
+
+
 def _chunk_nll(hs, ls, hw):
     """One loss chunk: (sum of the valid positions' -log p(label) in f32,
     count of valid positions).  hs (B, c, D); ls (B, c), -1 = no label."""
     logits = constrain(_head_logits(hs, hw), BATCH, None, TP)
-    nll, valid = per_shard(_token_nll, (logits, ls),
-                           (("b", "c", "v"), ("b", "c")),
-                           (("b", "c"), ("b", "c")), frozenset({"b", "c"}))
+    if _vocab_sharded(logits):
+        nll, valid = _sharded_token_nll(logits, ls)
+    else:
+        nll, valid = per_shard(_token_nll, (logits, ls),
+                               (("b", "c", "v"), ("b", "c")),
+                               (("b", "c"), ("b", "c")),
+                               frozenset({"b", "c"}))
     return nll.sum(), valid.sum(dtype=torch.int32)
 
 

@@ -19,29 +19,43 @@ cotangent is cast to e4m3 too).
 
 ``moe_ref`` is the capacity-unbounded dense oracle used by tests.
 
-Sharded execution (DTensor inputs inside an ``activation_mesh``): the slot
-tensor is constrained to (groups, experts) as in the reference, DTensor
-runs the expert products, and the routing, the gather into slots and the
-combine run group by group (:func:`repro_torch.parallel.act.per_shard`):
-DTensor has no sharding rule for their sorts and indexed scatters
-(``index_put_`` with ``accumulate``), and a group's routing is local to it
-anyway.  The explicit expert-parallel forward with its two all-to-alls is
+Sharded execution (DTensor inputs inside an ``activation_mesh``), as the
+reference's partitioner lowers it: the router's logits are computed whole
+on each rank for its own groups (its d_model shard gathered,
+:func:`repro_torch.parallel.act.gathered_product`); the routing, the
+gather into slots and the combine run group by group
+(:func:`repro_torch.parallel.act.per_shard`: DTensor has no sharding rule
+for their sorts and indexed scatters, ``index_put_`` with ``accumulate``,
+and a group's routing is local to it anyway); the slot tensor is
+constrained to (groups, experts); the expert products run on each rank's
+own slots with the weights' FSDP shard gathered, their gradients
+reduce-scattered.  Where the experts are sharded (expert parallelism),
+the slots never cross ranks: each rank gathers the slots of its own
+experts, and scatters its own (groups, experts) shard of the outputs
+into a whole-batch result (zeros outside its groups), a partial sum that
+an all-reduce over each mesh axis completes, as GSPMD replicates the
+reference's scatter; the slots' gradients stay on their shard.  The
+explicit expert-parallel forward with its two all-to-alls is
 :mod:`repro_torch.parallel.ep_moe`.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Tuple
+import time
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.numerics import fma32_t
-from repro_torch.parallel.act import BATCH, TP, constrain, per_shard
+from repro_torch.parallel.act import (BATCH, TP, constrain, gathered_product,
+                                      is_sharded, mesh_axes, per_shard,
+                                      shard_start, slice_to)
 
 __all__ = ["moe_params_shapes", "moe_forward", "moe_ref", "capacity",
-           "quantize_slots", "dequantize_slots", "E4M3_MAX"]
+           "quantize_slots", "dequantize_slots", "E4M3_MAX", "timed_parts"]
 
 #: e4m3's largest finite value, the top of each slot's scaled range
 E4M3_MAX = 448.0
@@ -51,6 +65,52 @@ E4M3_MAX = 448.0
 _E4M3_INV_MAX = float(np.float32(1.0) / np.float32(E4M3_MAX))
 #: the slot tensor's dims, as ``per_shard`` names them
 _SLOT_DIMS = ("g", "e", "c")
+
+
+#: the stamp taker of :func:`timed_parts`, while one is entered
+_STAMP: List = [None]
+
+
+def _mark(part: str) -> None:
+    """Stamp the end of ``moe_forward``'s part ``part`` (nothing unless
+    :func:`timed_parts` is entered)."""
+    if _STAMP[0] is not None:
+        _STAMP[0](part)
+
+
+@contextlib.contextmanager
+def timed_parts(device):
+    """Within the block, time the parts of each ``moe_forward``: route
+    and gather (``route``), ``quantize`` (e4m3), the EP boundary
+    (``exchange``), ``dequantize``, the expert ``products`` and the
+    ``combine``.  On a card by CUDA events on the current stream, else by
+    the host's clock.  Yields a dict part -> seconds, summed over the
+    forwards and filled at the block's end."""
+    dev = torch.device(device)
+    stamps: List[tuple] = []
+    if dev.type == "cuda":
+        def stamp(part):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            stamps.append((part, event))
+    else:
+        def stamp(part):
+            stamps.append((part, time.perf_counter()))
+    parts: Dict[str, float] = {}
+    if _STAMP[0] is not None:
+        raise RuntimeError("timed_parts: already entered")
+    _STAMP[0] = stamp
+    try:
+        yield parts
+    finally:
+        _STAMP[0] = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    for (_, a), (part, b) in zip(stamps, stamps[1:]):
+        if part == "start":
+            continue
+        took = (a.elapsed_time(b) / 1e3 if dev.type == "cuda" else b - a)
+        parts[part] = parts.get(part, 0.0) + took
 
 
 def capacity(tokens_per_group: int, n_experts: int, k: int, cf: float) -> int:
@@ -128,22 +188,49 @@ def _gather_slots(x: torch.Tensor, token_idx: torch.Tensor) -> torch.Tensor:
 
 
 def _combine(ye: torch.Tensor, gate: torch.Tensor, dispatch: torch.Tensor,
-             valid: torch.Tensor, token_idx: torch.Tensor) -> torch.Tensor:
+             valid: torch.Tensor, token_idx: torch.Tensor, *,
+             groups: int = 0, first: int = 0) -> torch.Tensor:
     """Expert outputs (G, E, C, D) back to tokens (G, S, D), weighted by
-    each assignment's gate."""
+    each assignment's gate.  With ``groups``, the result has that many
+    groups, these G written from group ``first`` on and zeros elsewhere."""
     G, E, C, D = ye.shape
     S, k = gate.shape[1], gate.shape[2]
-    gidx = torch.arange(G, device=ye.device)[:, None]
+    gidx = torch.arange(first, first + G, device=ye.device)[:, None]
     gate_flat = torch.cat([gate.reshape(G, S * k),
                            torch.zeros((G, 1), device=ye.device)], dim=1)
     assign_gate = torch.gather(
         gate_flat, 1, torch.where(valid, dispatch, torch.full_like(
             dispatch, S * k)).reshape(G, E * C)).reshape(G, E, C)
     # bf16 accumulation, as the reference: each token sums <= k outputs
-    y = torch.zeros((G, S + 1, D), dtype=ye.dtype, device=ye.device)
+    y = torch.zeros((groups or G, S + 1, D), dtype=ye.dtype, device=ye.device)
     y.index_put_((gidx[:, :, None].expand(G, E, C), token_idx),
                  ye * assign_gate[..., None].to(ye.dtype), accumulate=True)
     return y[:, :S]
+
+
+def _experts_sharded(t) -> bool:
+    """True where a mesh dim shards the slot tensor's experts (dim 1)."""
+    from torch.distributed.tensor import Shard
+
+    return is_sharded(t) and Shard(1) in t.placements
+
+
+def _fsdp_gathered(w):
+    """An expert weight with its FSDP (batch-axes) shard gathered, its
+    other placements kept: the reference's partitioner gathers the weight
+    and keeps each rank's slots where they are, and the gradient is
+    reduce-scattered back (DTensor's own choice for the product gathers
+    the slots of every group instead)."""
+    if not is_sharded(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    mesh = w.device_mesh
+    want = [Replicate() if a in BATCH else p
+            for a, p in zip(mesh_axes(mesh), w.placements)]
+    if want == list(w.placements):
+        return w
+    return w.redistribute(mesh, want)
 
 
 def _top1_one_hot(flat_expert: torch.Tensor, *, k: int, E: int
@@ -212,7 +299,8 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg, *,
     G, S, D = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     C = capacity(S, E, k, cfg.capacity_factor)
-    logits = x @ params["router"].to(x.dtype)                     # (G, S, E)
+    _mark("start")
+    logits = gathered_product(x, params["router"])                # (G, S, E)
     slots = _SLOT_DIMS
     groups = frozenset({"g"})
     dispatch, gate, flat_expert, valid, token_idx = per_shard(
@@ -220,40 +308,68 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg, *,
         (slots, ("g", "s", "k"), ("g", "a"), slots, slots), groups,
         k=k, C=C, E=E)
 
-    # gather tokens into expert slots: token of assignment a is a // k
-    xe = per_shard(_gather_slots, (x, token_idx), (("g", "s", "d"), slots),
-                   (slots + ("d",),), groups)
-    # EP boundary: groups on the batch axis, experts on the model axis;
-    # the optional fp8 payload crosses it quantized, with its scales
-    if getattr(cfg, "moe_dispatch_dtype", "bfloat16").startswith("float8"):
-        xq, scale = quantize_slots(xe)
-        xq = constrain(xq, BATCH, TP, None, None)
-        scale = constrain(scale, BATCH, TP, None, None)
-        xe = dequantize_slots(xq, scale, x.dtype)
-    else:
-        xe = constrain(xe, BATCH, TP, None, None)
-
-    # expert FFN: (E, G*C, D) @ (E, D, F) per projection
-    act = _act(cfg)
-    xe_e = xe.permute(1, 0, 2, 3).reshape(E, G * C, D)
-    g = xe_e @ params["wg"].to(x.dtype)
-    u = xe_e @ params["wu"].to(x.dtype)
-    ye = (act(g) * u) @ params["wd"].to(x.dtype)                  # (E, G*C, D)
-    ye = ye.reshape(E, G, C, D).permute(1, 0, 2, 3)               # (G, E, C, D)
-    ye = constrain(ye, BATCH, TP, None, None)
-
-    # combine: scatter expert outputs back to tokens with gate weights
-    y = per_shard(_combine, (ye, gate, dispatch, valid, token_idx),
-                  (slots + ("d",), ("g", "s", "k"), slots, slots, slots),
-                  (("g", "s", "d"),), groups)
-
-    # switch-style load-balance aux loss
+    # switch-style load-balance aux loss (ahead of the combine, whose
+    # reductions then end the layer: a checkpoint's recompute stops at the
+    # combine's last saved tensor, before them, as XLA's remat does)
     probs = torch.softmax(logits.float(), dim=-1)
     me = probs.mean(dim=(0, 1))                                   # (E,)
     one_hot = per_shard(_top1_one_hot, (flat_expert,), (("g", "a"),),
                         (("g", "s", "e"),), groups, k=k, E=E)
     ce = one_hot.reshape(-1, E).mean(dim=0)
     aux = E * torch.sum(me * ce)
+
+    # gather tokens into expert slots: token of assignment a is a // k;
+    # where the slots' EP layout is a slice of the table's (the groups not
+    # on 'model'), each rank gathers its own experts' slots, so the EP
+    # boundary below moves nothing and the slots' gradient stays on its rank
+    token_idx = slice_to(token_idx, BATCH, TP, None)
+    xe = per_shard(_gather_slots, (x, token_idx), (("g", "s", "d"), slots),
+                   (slots + ("d",),), frozenset({"g", "e"}))
+    _mark("route")
+    # EP boundary: groups on the batch axis, experts on the model axis;
+    # the optional fp8 payload crosses it quantized, with its scales
+    if getattr(cfg, "moe_dispatch_dtype", "bfloat16").startswith("float8"):
+        xq, scale = quantize_slots(xe)
+        _mark("quantize")
+        xq = constrain(xq, BATCH, TP, None, None)
+        scale = constrain(scale, BATCH, TP, None, None)
+        _mark("exchange")
+        xe = dequantize_slots(xq, scale, x.dtype)
+        _mark("dequantize")
+    else:
+        xe = constrain(xe, BATCH, TP, None, None)
+        _mark("exchange")
+
+    # expert FFN: (E, G*C, D) @ (E, D, F) per projection
+    act = _act(cfg)
+    wg, wu, wd = (_fsdp_gathered(params[n]).to(x.dtype)
+                  for n in ("wg", "wu", "wd"))
+    xe_e = xe.permute(1, 0, 2, 3).reshape(E, G * C, D)
+    g = xe_e @ wg
+    u = xe_e @ wu
+    ye = (act(g) * u) @ wd                                        # (E, G*C, D)
+    ye = ye.reshape(E, G, C, D).permute(1, 0, 2, 3)               # (G, E, C, D)
+    ye = constrain(ye, BATCH, TP, None, None)
+    _mark("products")
+
+    # combine: scatter expert outputs back to tokens with gate weights
+    args = (ye, gate, dispatch, valid, token_idx)
+    arg_dims = (slots + ("d",), ("g", "s", "k"), slots, slots, slots)
+    if _experts_sharded(ye):
+        # each rank its own (groups, experts) shard into the whole batch,
+        # summed by an all-reduce over each mesh axis, then its groups
+        # kept; the tables move to the slots' layout (a slice, or a small
+        # exchange where the groups also lie on 'model'), never the slots
+        args = (ye, constrain(gate, BATCH, None, None),
+                *(constrain(t, BATCH, TP, None)
+                  for t in (dispatch, valid, token_idx)))
+        y = per_shard(_combine, args, arg_dims, (("all", "s", "d"),),
+                      frozenset(), summed=frozenset({"g", "e"}), groups=G,
+                      first=shard_start(ye, 0))
+        y = constrain(constrain(y, None, None, None), BATCH, None, None)
+    else:
+        y = per_shard(_combine, args, arg_dims, (("g", "s", "d"),), groups)
+    _mark("combine")
     if return_dispatch:
         return y, aux, dispatch
     return y, aux

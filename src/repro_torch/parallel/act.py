@@ -13,6 +13,7 @@ duck-typed mesh the rules accept (:func:`mesh_axes` reads both).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -22,7 +23,8 @@ __all__ = ["activation_mesh", "constrain", "BATCH", "TP",
            "batch_axes", "pick_tp_dim", "mesh_axes", "clean_spec",
            "placements_for", "per_shard", "split_dim", "split_last",
            "merge_last", "is_sharded", "model_axis_size", "padded_heads",
-           "contract_shards", "embed_rows"]
+           "contract_shards", "embed_rows", "shard_start",
+           "gathered_product", "slice_to"]
 
 # logical activation axes used by model code (resolved against the live mesh)
 BATCH = ("pod", "data")
@@ -129,6 +131,21 @@ def constrain(x, *spec):
     if x.dtype in _FLOAT8:
         return _RedistributeBytes.apply(x, mesh, want)
     return x.redistribute(mesh, want)
+
+
+def slice_to(x, *spec):
+    """:func:`constrain` where it only slices ``x``: every mesh dim whose
+    placement it changes is replicated in ``x``, so each rank keeps a slice
+    of its own and nothing moves; else ``x`` as it is."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = _ACT_MESH
+    if mesh is None or x is None or not is_sharded(x):
+        return x
+    want = placements_for(clean_spec(tuple(x.shape), spec, mesh), mesh)
+    if all(p == w or p == Replicate() for p, w in zip(x.placements, want)):
+        return constrain(x, *spec)
+    return x
 
 
 _FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2, torch.float8_e4m3fnuz,
@@ -365,19 +382,23 @@ def is_sharded(x) -> bool:
 
 
 def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
-              grad_partial: Optional[Dict[int, str]] = None, **kwargs):
+              grad_partial: Optional[Dict[int, str]] = None,
+              summed: frozenset = frozenset(), **kwargs):
     """``fn(*args, **kwargs)`` run shard by shard where ``args`` hold
     DTensors, through ``torch.distributed.tensor.experimental.local_map``.
 
     ``dims`` names each argument's tensor dims (a tuple of labels per
     argument, ``None`` for an argument passed as it is), ``outs`` each
     output's.  A mesh dim stays sharded only on a label in ``free`` (the
-    dims ``fn`` treats independently: batch, heads, channels): the one
-    free label some argument is sharded on there, where it divides every
-    argument carrying it evenly; those arguments are sharded on it (a
-    replicated one keeps its slice, no exchange).  Every other mesh dim is
-    redistributed to ``Replicate`` first (a shard on a kernel dim is
-    gathered, a ``Partial`` reduced).  ``grad_partial`` maps an argument's
+    dims ``fn`` treats independently: batch, heads, channels) or in
+    ``summed`` (the dims ``fn`` sums its results over): the one such label
+    some argument is sharded on there, where it divides every argument
+    carrying it evenly; those arguments are sharded on it (a replicated one
+    keeps its slice, no exchange).  Every other mesh dim is redistributed
+    to ``Replicate`` first (a shard on a kernel dim is gathered, a
+    ``Partial`` reduced).  An output without a ``summed`` label that the
+    mesh dim keeps is a ``Partial`` sum over that mesh dim: each shard
+    computes its own share of it.  ``grad_partial`` maps an argument's
     index to a mesh axis over which ``fn`` computes a different share of
     that argument's gradient on each rank: its gradient is ``Partial``
     there.  So a kernel's own dims reach it
@@ -395,11 +416,12 @@ def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
     mesh = lead.device_mesh
     tensors = [(a, d) for a, d in zip(args, dims)
                if d is not None and is_sharded(a)]
-    # per mesh dim, the one free label some argument is sharded on there
+    kept = free | summed
+    # per mesh dim, the one kept label some argument is sharded on there
     label_of: Dict[int, str] = {}
     for i in range(mesh.ndim):
         labels = {d[a.placements[i].dim] for a, d in tensors
-                  if isinstance(a.placements[i], Shard)} & free
+                  if isinstance(a.placements[i], Shard)} & kept
         if len(labels) == 1:
             label_of[i] = labels.pop()
     # keep a label only where every argument carrying it divides evenly
@@ -415,6 +437,11 @@ def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
         return [Shard(d.index(label_of[i]))
                 if i in label_of and label_of[i] in d else Replicate()
                 for i in range(mesh.ndim)]
+
+    def out_target(d):
+        return [Partial() if i in label_of and label_of[i] in summed
+                and label_of[i] not in d else p
+                for i, p in enumerate(target(d))]
 
     placed = []
     for a, d in zip(args, dims):
@@ -438,10 +465,90 @@ def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
                           for d, sh in zip(dims, sharded))
     in_grads = tuple(grad_target(d, i) if sh else None
                      for i, (d, sh) in enumerate(zip(dims, sharded)))
-    out_placements = tuple(target(d) for d in outs)
+    out_placements = tuple(out_target(d) for d in outs)
     run = local_map(lambda *xs: fn(*xs, **kwargs),
                     out_placements=(out_placements if len(outs) > 1
                                     else out_placements[0]),
                     in_placements=in_placements,
                     in_grad_placements=in_grads, device_mesh=mesh)
     return run(*placed)
+
+
+def shard_start(x, dim: int) -> int:
+    """Where this rank's shard of the DTensor ``x``'s dim ``dim`` begins
+    in the whole dim (0 for a plain tensor or a dim no mesh dim shards).
+    Shards are even; several mesh dims on one tensor dim split it in
+    mesh-dim order, the first outermost."""
+    if not is_sharded(x):
+        return 0
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    idx, n = 0, 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim % x.dim():
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+            n *= mesh.size(i)
+    return idx * (x.shape[dim] // n)
+
+
+def _project(h, w):
+    return h @ w.to(h.dtype)
+
+
+class _RowGradProduct(torch.autograd.Function):
+    """``h @ w`` whose weight gradient is computed for w's rows [lo, hi)
+    alone (zeros elsewhere); the output and the input gradient are
+    whole."""
+
+    @staticmethod
+    def forward(ctx, h, w, lo: int, hi: int):
+        ctx.save_for_backward(h, w)
+        ctx.rows = (lo, hi)
+        return h @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        lo, hi = ctx.rows
+        dh = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = torch.zeros_like(w)
+            dw[lo:hi] = (h[..., lo:hi].reshape(-1, hi - lo).T
+                         @ g.reshape(-1, g.shape[-1]))
+        return dh, dw, None, None
+
+
+def _project_rows(h, w, *, lo: int, hi: int):
+    """:func:`_project` whose weight gradient covers rows [lo, hi) only."""
+    return _RowGradProduct.apply(h, w.to(h.dtype), lo, hi)
+
+
+def gathered_product(h, w):
+    """``h @ w.to(h.dtype)`` for a (D, N) weight; on a mesh shard by shard,
+    as the reference's partitioner runs a head or a router: ``h``'s leading
+    shards and ``w``'s N shard each compute their block, ``w``'s d_model
+    (FSDP) shard is gathered first and ``h``'s D is whole (DTensor's own
+    choice for the product gathers the activations instead, contracts D
+    into a partial sum, or splits N over the model axis).  Where the model
+    axis shards neither operand, its ranks would each compute the same
+    whole weight gradient: each computes its own share of D's rows instead
+    (a partial sum over the axis), as the reference's per-device count
+    shows."""
+    lead = tuple(f"x{i}" for i in range(h.dim() - 1))
+    fn, split = _project, None
+    M = model_axis_size(w)
+    if M > 1:
+        from torch.distributed.tensor import Replicate
+
+        mesh = w.device_mesh
+        if w.placements[list(mesh_axes(mesh)).index(TP)] == Replicate():
+            rows = -(-w.shape[0] // M)
+            lo = min(w.shape[0], mesh.get_local_rank(TP) * rows)
+            fn = functools.partial(_project_rows, lo=lo,
+                                   hi=min(w.shape[0], lo + rows))
+            split = {1: TP}
+    return per_shard(fn, (h, w), (lead + ("d",), ("d", "v")),
+                     (lead + ("v",),), frozenset(lead + ("v",)),
+                     grad_partial=split)

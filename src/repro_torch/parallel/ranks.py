@@ -19,6 +19,8 @@ live in the package.
   the staged collectives.
 * :func:`local_shards` -- arrays placed by partition specs on a named
   mesh; returns this rank's shards.
+* :func:`summed_shards_rank` -- ``act.per_shard`` with a summed label on
+  a CPU mesh; returns the partial result and the input's gradient.
 * :func:`with_host_staging` -- one of the above with DTensor's
   collectives staged through the host on this device type too
   (:func:`repro_torch.launch.mesh.stage_collectives_through_host`).
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 __all__ = ["sharded_train_steps", "sharded_serving_steps", "ep_moe_rank",
-           "moe_forward_rank", "moe_inputs",
+           "moe_forward_rank", "moe_inputs", "summed_shards_rank",
            "local_shards", "with_host_staging", "run_jobs", "train_batch",
            "whole_leaves"]
 
@@ -339,20 +341,23 @@ def moe_forward_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
     every rank (G sharded on both axes), the experts on 'model', so the
     slots cross the model axis at the EP constraint by DTensor's
     all-to-all (the dispatch, float8 with its scales under the float8
-    dispatch) and come back by another (the combine).  ``inputs`` as
+    dispatch); the combine scatters each rank's own slots and sums the
+    result over the ranks.  ``inputs`` as
     :func:`_moe_rank_inputs` takes them.  Runs once for each
     ``moe_dispatch_dtype`` in ``dispatch_dtypes`` on the same inputs.
     Returns per dtype the seconds, the peak device memory (CUDA), the
-    bytes the host staging copied (when it is installed) and each staged
+    bytes the host staging copied (when it is installed), each staged
     collective a card rank's forward stands in for (kind, payload bytes,
-    local shape); on rank 0 also the whole output (float32 numpy) and the
-    whole dispatch table that forward routed by."""
+    local shape) and the forward's seconds by part
+    (:func:`repro_torch.models.moe.timed_parts`: CUDA events on a card);
+    on rank 0 also the whole output (float32 numpy) and the whole dispatch
+    table that forward routed by."""
     import dataclasses
 
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.models.moe import capacity, moe_forward
+    from repro_torch.models.moe import capacity, moe_forward, timed_parts
 
     from .act import activation_mesh
 
@@ -375,11 +380,11 @@ def moe_forward_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
                     (kind, nbytes, shape)), dev.type)
                        if cuda else contextlib.nullcontext())
             mesh_mod.reset_staged_bytes()
-            with observe, torch.no_grad():
+            with observe, torch.no_grad(), timed_parts(dev) as parts:
                 (y, _, dispatch), cost = _timed_on(dev, lambda: moe_forward(
                     params, x, c, return_dispatch=True))
             row = dict(**cost, staged=mesh_mod.staged_bytes(),
-                       collectives=seen)
+                       collectives=seen, parts=parts)
             y, dispatch = y.full_tensor(), dispatch.full_tensor()
             if rank == 0:
                 row.update(y=y.float().cpu().numpy(),
@@ -389,6 +394,39 @@ def moe_forward_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
     out["capacity"] = capacity(x.shape[1], cfg.n_experts, cfg.experts_per_token,
                                cfg.capacity_factor)
     return out
+
+
+def summed_shards_rank(rank: int, world: int, mesh_shape) -> Dict[str, Any]:
+    """``act.per_shard`` with a summed label on a CPU ('data', 'model')
+    mesh of ``mesh_shape``: x (4, 8) of small integers (sums exact), rows
+    on 'data' and columns on 'model', summed over its columns with the
+    columns' label summed.  Returns the result's placements and whole
+    value, and the gradient of ``sum(w * y)`` (w = 1, 2, 3, 4 by row):
+    its placements, this rank's local shape and whole value."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    from .act import per_shard
+
+    del rank, world
+    mesh = mesh_mod.make_local_mesh(*mesh_shape, device="cpu")
+    whole = (torch.arange(32, dtype=torch.float32).reshape(4, 8) % 7) - 3
+    x = distribute_tensor(whole, mesh, [Shard(0), Shard(1)],
+                          src_data_rank=None).requires_grad_(True)
+    y = per_shard(lambda t: t.sum(-1), (x,), (("b", "n"),), (("b",),),
+                  frozenset({"b"}), summed=frozenset({"n"}))
+    w = torch.arange(1, 5, dtype=torch.float32)
+    (y.full_tensor() * w).sum().backward()
+    def kinds(t):
+        return [(type(p).__name__, getattr(p, "dim", None))
+                for p in t.placements]
+
+    return dict(placements=kinds(y), y=y.full_tensor().detach().numpy(),
+                grad_placements=kinds(x.grad), x_placements=kinds(x),
+                grad_local_shape=tuple(x.grad.to_local().shape),
+                x_local_shape=tuple(x.to_local().shape),
+                grad=x.grad.full_tensor().numpy())
 
 
 def local_shards(rank: int, world: int, mesh_shape, axis_names,

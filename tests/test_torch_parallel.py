@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from repro_torch.configs.base import SHAPES, get_config, list_configs
-from repro_torch.launch.mesh import LogicalMesh, make_production_mesh
+from repro_torch.launch.mesh import (LogicalMesh, make_production_mesh,
+                                     run_ranks)
 from repro_torch.parallel import act as A
 from repro_torch.parallel import sharding as PSH
+from repro_torch.parallel.ranks import summed_shards_rank
 from test_torch_harness import load_reference
 
 MESHES = [((16, 16), ("data", "model")),
@@ -162,3 +164,27 @@ def test_per_shard_runs_plain_tensors_directly():
     got = A.per_shard(lambda a, *, s: a * s, (x,), (("b", "d"),),
                       (("b", "d"),), frozenset({"b"}), s=2.0)
     assert torch.equal(got, x * 2.0)
+
+
+def test_per_shard_summed_labels_give_a_partial_sum():
+    """On 4 gloo CPU ranks (data 2 x model 2): x (4, 8), rows on 'data'
+    and columns on 'model', summed over its columns with the columns'
+    label summed.  Each rank sums its own block: the result is sharded on
+    'data' and a Partial sum over 'model', whose whole value is the
+    one-device sum (small integers: exact); the input's gradient keeps
+    x's placements, each rank its own (2, 4) block, and is the one-device
+    gradient.  Off a mesh the same call runs the function directly."""
+    whole = (torch.arange(32, dtype=torch.float32).reshape(4, 8) % 7) - 3
+    w = torch.arange(1, 5, dtype=torch.float32)
+    for r in run_ranks(summed_shards_rank, 4, (2, 2)):
+        assert r["placements"] == [("Shard", 0), ("Partial", None)]
+        assert torch.equal(torch.from_numpy(r["y"]), whole.sum(-1))
+        assert r["grad_placements"] == r["x_placements"] == [
+            ("Shard", 0), ("Shard", 1)]
+        assert r["grad_local_shape"] == r["x_local_shape"] == (2, 4)
+        assert torch.equal(torch.from_numpy(r["grad"]),
+                           w[:, None].expand(4, 8))
+    got = A.per_shard(lambda t: t.sum(-1), (whole,), (("b", "n"),),
+                      (("b",),), frozenset({"b"}),
+                      summed=frozenset({"n"}))
+    assert torch.equal(got, whole.sum(-1))
