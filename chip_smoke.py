@@ -103,6 +103,20 @@ drives every main path:
   dequantize, products, combine) with either dispatch; the dry run's
   kimi-k2 cell and its ``fp8_dispatch`` variant under the new lowering,
   their collectives equal by kind.
+* slice 16, one collective over several mesh axes
+  (``parallel.act.redistribute``), Mamba's in_proj halves moved by one
+  all-to-all, attention on kv heads the model axis does not divide: the
+  dry run's cross-check also holds the count of collectives over several
+  axes at once (the four ranks' flattened groups against the fake
+  trace's), and each DRYRUN_CELLS cell prints its collectives by the mesh
+  axes their groups span; jamba's 2 x 16 x 16 prefill reads its
+  all-reduces below DRYRUN_ALL_REDUCE_GB.  On the rig's ranks (CUDA
+  tensors, collectives staged through the host), each lowering runs at
+  published widths and is held to one device (LOWERING_TRAIN: a
+  falcon-mamba-7b and a gemma-2b layer at data 1 x model 4, falcon-mamba
+  at pod 2 x data 2 x model 1, each counted against its fake trace; and
+  jamba's MoE layer at pod 2 x data 2 x model 2 on 8 ranks, its combine
+  summed over ('pod', 'data') in one all-reduce).
 
 Every phase asserts or raises.  Output is one JSON object per line; the line
 before the last lists each kernel with its launches, error and times, and
@@ -527,6 +541,35 @@ SHARDED_GNORM_REL_TOL = 2e-2
 #: off by ~0.7
 SHARDED_LEAF_ELEMENTS = 1 << 20
 SHARDED_LEAF_REL_TOL = 2e-2
+#: slice 16's lowerings on the rig's ranks, each at its config's published
+#: widths, 1 layer, bf16, one train step on the sharded_train batch (B 4,
+#: S 1024), held to one device's step on the same card from the same seed at
+#: the sharded_train bounds (one layer has fewer split products on a token's
+#: path than their two), and counted by the dry run's Accounting against
+#: its fake trace of the same step:
+#: - falcon-mamba-7b at data 1 x model 4: in_proj's product stays on its
+#:   'model' columns; one all-to-all a pass (forward, remat's recompute,
+#:   backward) moves its halves (``models.mamba._HalvesExchange``, staged
+#:   through the host), and no all-gather makes the whole (B, S, 2 Di);
+#: - gemma-2b at data 1 x model 4: its 8 query heads divide the axis, its
+#:   one kv head does not, so q and the output stay on their heads and only
+#:   k and v move (``models.transformer._kv_whole_attention``);
+#: - falcon-mamba-7b at pod 2 x data 2 x model 1: the sums over ('pod',
+#:   'data') run one collective over both, none one axis at a time
+LOWERING_TRAIN = (("falcon-mamba-7b", (1, 4)), ("gemma-2b", (1, 4)),
+                  ("falcon-mamba-7b", (2, 2, 1)))
+#: and, on LOWERING_MOE_RANKS ranks of their own (the combine sums over
+#: ('pod', 'data') only where 'model' shards the experts), the DTensor
+#: moe_forward of one MoE layer at jamba-v0.1-52b's widths (E 16, k 2, D
+#: 4096, F 14336, bf16) at pod 2 x data 2 x model 2, one group of 1,024
+#: tokens a rank, 8 experts a rank, seed 0: the combine's whole-batch (8,
+#: 1024, 4096) sum run as one all-reduce over 'model' (2 ranks) and one
+#: over ('pod', 'data') (4 ranks), three one axis at a time before, against
+#: the single-device layer at EP_REL_TOL (the same products; each rank's
+#: sums add the others' zeros and one bf16 rounding of the 'model' pair)
+LOWERING_MOE_ARCH, LOWERING_MOE_MESH = "jamba-v0.1-52b", (2, 2, 2)
+LOWERING_MOE_RANKS = 8
+LOWERING_MOE_GROUPS, LOWERING_MOE_TOKENS = 8, 1024
 #: a rank's device memory budget: its allocator's reserved peak, 15.37 GB
 #: (12.59 GB of it allocated by the ep_moe forward), plus its CUDA context
 #: and cuBLAS workspace, ~0.6 GB, and slack; the card must have this free
@@ -554,6 +597,11 @@ DRYRUN_CELLS = (("qwen2-7b", "train_4k", False),
                 ("falcon-mamba-7b", "decode_32k", False),
                 ("jamba-v0.1-52b", "prefill_32k", True))
 DRYRUN_BUDGET_S = 120
+#: a cell's all-reduce GB a device that its trace must stay below: jamba's
+#: 2 x 16 x 16 prefill read 426.27 with the combine summed one axis at a
+#: time (three whole-batch all-reduces a MoE layer); with ('pod', 'data')
+#: summed at once, two (~293 predicted from the 8-layer CPU trace)
+DRYRUN_ALL_REDUCE_GB = {"jamba-v0.1-52b__prefill_32k__2x16x16": 300.0}
 #: the threefry phase: the scale row's start-vector draw, (24, 65536)
 THREEFRY_SHAPE = (24, 65536)
 
@@ -3139,7 +3187,7 @@ def _dispatch_check(torch, np, cfg, C, single, ranks) -> dict:
         per_rank, by_kind = [], []
         for r in ranks:
             seen = r[dt]["collectives"]
-            moved = [b for kind, b, shape in seen
+            moved = [b for kind, b, shape, _ in seen
                      if kind == "all-to-all" and len(shape) == 4
                      and shape[1] == E]
             assert moved, (dt, seen)
@@ -3148,7 +3196,7 @@ def _dispatch_check(torch, np, cfg, C, single, ranks) -> dict:
                      and len(c[2]) == 4]
             assert not slots, (dt, slots)
             kinds = {}
-            for kind, b, _ in seen:
+            for kind, b, _, _ in seen:
                 calls, total = kinds.get(kind, (0, 0))
                 kinds[kind] = (calls + 1, total + b)
             by_kind.append({k: dict(calls=n, bytes=b)
@@ -3174,8 +3222,10 @@ def _dispatch_check(torch, np, cfg, C, single, ranks) -> dict:
     return out
 
 
-def _train_single(torch, dev) -> tuple:
-    """qwen2-7b at published widths, SHARDED_LAYERS layers: SHARDED_STEPS
+def _train_single(torch, dev, arch: str = SHARDED_ARCH,
+                  layers: int = SHARDED_LAYERS,
+                  steps: int = SHARDED_STEPS) -> tuple:
+    """``arch`` (qwen2-7b) at published widths, ``layers`` layers: ``steps``
     single-device steps on the card from seed 0 (run first and freed),
     with step 1's gradients of the small leaves on the host."""
     from repro_torch import tree as TR
@@ -3184,7 +3234,7 @@ def _train_single(torch, dev) -> tuple:
     from repro_torch.serve import serving_config
     from repro_torch.train.steps import init_train_state, make_train_step
 
-    cfg = serving_config(SHARDED_ARCH, layers=SHARDED_LAYERS)
+    cfg = serving_config(arch, layers=layers)
     assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == \
         ("bfloat16", "bfloat16", True), cfg
     opt_cfg = AdamWConfig(**SHARDED_OPT)
@@ -3198,7 +3248,7 @@ def _train_single(torch, dev) -> tuple:
     step = make_train_step(cfg, opt_cfg, on_grads=lambda g: grads.append(
         whole_leaves(g, SHARDED_LEAF_ELEMENTS)))
     metrics, step_ms = [], []
-    for i in range(SHARDED_STEPS):
+    for i in range(steps):
         batch = train_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, dev, i)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -3294,11 +3344,12 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
     hand = DR.check_hand_counts(str(dev))
     print(f"dryrun hand counts on {dev.type}: {hand} ({smi})", flush=True)
     cfg = serving_config(SHARDED_ARCH, layers=SHARDED_LAYERS)
-    pred, _ = DR.trace_step(
+    pred, pred_rows = DR.trace_step(
         cfg, ShapeSpec("sharded_train", SHARDED_SEQ, SHARDED_BATCH, "train"),
         dict(data=SHARDED_MESH[0], model=SHARDED_MESH[1]), device=str(dev))
     p_flops = pred["cost"]["flops_per_device"]
     p_peak = pred["memory"]["peak_bytes"]
+    p_flat = _flattened(DR.collective_axes(pred_rows))
     ranks = []
     for acc, peak, base in zip(sharded["accounting_per_rank"],
                                sharded["peak_memory_bytes_per_rank"],
@@ -3308,6 +3359,7 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
         ranks.append(dict(flops=acc["flops"], flops_rel=flops_rel,
                           collective_bytes=acc["collective_bytes"],
                           collective_counts=acc["collective_counts"],
+                          flattened=sum(acc["flattened_counts"].values()),
                           peak_memory_bytes=peak, peak_rel=peak_rel,
                           allocated_at_reset_bytes=base,
                           temp_bytes=acc["temp_bytes"]))
@@ -3319,6 +3371,7 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
                                     "bytes_by_kind"],
                                 collective_counts=pred["collectives"][
                                     "count_by_kind"],
+                                flattened=p_flat,
                                 argument_bytes=pred["memory"][
                                     "argument_bytes"],
                                 temp_bytes=pred["memory"]["temp_bytes"],
@@ -3331,7 +3384,9 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
     print(f"dryrun cross-check: {SHARDED_ARCH} {cfg.n_layers} layers, mesh "
           f"{SHARDED_MESH[0]}x{SHARDED_MESH[1]}: predicted "
           f"{p_flops:.6e} FLOPs a rank, measured "
-          f"{[r['flops'] for r in ranks]}; collectives equal by kind; peak "
+          f"{[r['flops'] for r in ranks]}; collectives equal by kind, "
+          f"{p_flat} over several mesh axes at once predicted, "
+          f"{[r['flattened'] for r in ranks]} counted; peak "
           f"predicted {p_peak / 1e9:.3f} GB, measured "
           f"{[round(r['peak_memory_bytes'] / 1e9, 3) for r in ranks]} GB "
           f"({100 * r0['peak_rel']:+.1f} %): the rank's allocator peak above "
@@ -3347,19 +3402,25 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
             "collective_bytes"], (r, cross["predicted"])
         assert r["collective_counts"] == cross["predicted"][
             "collective_counts"], (r, cross["predicted"])
+        assert r["flattened"] == p_flat, (r, cross["predicted"])
         assert abs(r["peak_rel"]) <= DRYRUN_PEAK_REL_TOL, (r, p_peak)
     cells = []
     for arch, shape, multi_pod in DRYRUN_CELLS:
-        res, _ = DR.lower_cell(arch, shape, multi_pod, device=str(dev))
+        res, rows = DR.lower_cell(arch, shape, multi_pod, device=str(dev))
         assert res["device"] == "cuda" and res["cost"][
             "flops_per_device"] > 0, res
         coll_gb = {k: v / 1e9 for k, v in
                    res["collectives"]["bytes_by_kind"].items() if v}
+        by_axes = DR.collective_axes(rows)
         row = dict(tag=DR.cell_tag(arch, shape, multi_pod),
                    n_layers=get_config(arch).n_layers, reduced=[],
                    flops_per_device=res["cost"]["flops_per_device"],
                    bytes_per_device=res["cost"]["bytes_per_device"],
                    collective_gb_by_kind=coll_gb,
+                   collectives_by_axes={
+                       k: dict(count=v["count"], gb=v["bytes"] / 1e9)
+                       for k, v in by_axes.items()},
+                   flattened_collectives=_flattened(by_axes),
                    argument_gb=res["memory"]["argument_bytes"] / 1e9,
                    peak_gb=res["memory"]["peak_bytes"] / 1e9,
                    card_gb=DR.HW_H100["hbm_bytes"] / 1e9,
@@ -3373,14 +3434,214 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
               f"{row['flops_per_device']:.4e} FLOPs, "
               f"{row['bytes_per_device']:.4e} bytes a device; collectives "
               f"{ {k: round(v, 3) for k, v in coll_gb.items()} } GB; "
-              f"argument {row['argument_gb']:.2f} GB, peak "
+              f"{row['flattened_collectives']} over several mesh axes at "
+              f"once; by axes "
+              f"{ {k: (v['count'], round(v['gb'], 3)) for k, v in row['collectives_by_axes'].items()} } "
+              f"(count, GB); argument {row['argument_gb']:.2f} GB, peak "
               f"{row['peak_gb']:.2f} GB of {row['card_gb']:.0f}; "
               f"{row['dominant']}-bound; traced in "
               f"{row['trace_seconds']:.1f} s ({smi})", flush=True)
+    for row in cells:
+        limit = DRYRUN_ALL_REDUCE_GB.get(row["tag"])
+        assert limit is None or row["collective_gb_by_kind"].get(
+            "all-reduce", 0.0) < limit, (row["tag"], limit,
+                                         row["collective_gb_by_kind"])
     seconds = time.time() - t_phase
     assert seconds <= DRYRUN_BUDGET_S, seconds
     return dict(hand_counts=hand, cross_check=cross, cells=cells,
                 seconds=seconds, budget_seconds=DRYRUN_BUDGET_S)
+
+
+def _grouped_check(np, ranks) -> dict:
+    """Slice 16 on the rig's ranks (CUDA tensors, collectives staged
+    through the host): ``act.redistribute`` of a sum over ('data',
+    'model') and of a gather of one dim over both, against DTensor's own
+    ``redistribute``: results and gradients equal bit for bit (small
+    integers in float64), one collective over both axes each way where
+    DTensor runs two."""
+    want = {"sum": ("all-reduce", None),
+            "gather": ("all-gather", "reduce-scatter")}
+    for got in ranks:
+        for case, (fwd, bwd) in want.items():
+            mine, theirs = got[case, "grouped"], got[case, "dtensor"]
+            assert np.array_equal(mine["y"], theirs["y"]), case
+            assert np.array_equal(mine["grad"], theirs["grad"]), case
+            assert mine["forward"] == mine["flattened"] == {fwd: 1}, mine
+            assert theirs["forward"] == {fwd: 2}, theirs
+            assert mine["backward"] == ({bwd: 1} if bwd else {}), mine
+            assert theirs["backward"] == ({bwd: 2} if bwd else {}), theirs
+    return {case: dict(grouped_rows=ranks[0][case, "grouped"]["rows"],
+                       dtensor_rows=ranks[0][case, "dtensor"]["rows"])
+            for case in want}
+
+
+def _lowering_singles(torch, dev) -> dict:
+    """Slice 16's single-device runs, each on the card and freed before
+    the ranks start: one train step of each LOWERING_TRAIN config (1
+    layer), and the MoE layer at LOWERING_MOE_ARCH's widths (all its
+    experts) with its dispatch table."""
+    from repro_torch.models.moe import _route_group, capacity, moe_forward
+    from repro_torch.parallel.ranks import moe_inputs
+    from repro_torch.serve import serving_config
+
+    out = {}
+    for arch in dict.fromkeys(a for a, _ in LOWERING_TRAIN):
+        out[arch] = _train_single(torch, dev, arch, layers=1, steps=1)
+    # the layer's widths and dtype (its pattern repeats every 8 layers)
+    cfg = serving_config(LOWERING_MOE_ARCH, layers=8)
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = capacity(LOWERING_MOE_TOKENS, E, k, cfg.capacity_factor)
+    torch.cuda.empty_cache()
+    inp = moe_inputs(cfg, LOWERING_MOE_GROUPS, LOWERING_MOE_TOKENS,
+                     EP_SEED, dev)
+    x = inp.pop("x")
+    with torch.no_grad():
+        y, _ = moe_forward(inp, x, cfg)
+        dispatch = _route_group(x @ inp["router"].to(x.dtype), k, C, E)[0]
+    out["moe"] = (cfg, C, dict(y=y.float().cpu().numpy(),
+                               dispatch=dispatch.cpu().numpy()))
+    del inp, x, y, dispatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lowering_train_check(np, cfg, single, ranks, mesh_shape, dev,
+                          B: int = SHARDED_BATCH, S: int = SHARDED_SEQ
+                          ) -> dict:
+    """One LOWERING_TRAIN case on the rig's ranks: its step against the
+    single-device step (every rank reads the same metrics; loss, grad norm
+    and the small leaves' gradients within the sharded_train bounds; K3 /
+    K4 / K5 launches the config's count), and what each rank's Accounting
+    counted against the fake trace of the same step on the same mesh
+    (collectives and their bytes by kind, and those over several mesh
+    axes at once), with the slice's own facts: the Mamba halves moved by
+    three all-to-alls and never gathered whole, q never moved where only
+    the kv heads miss the axis, and no change over ('pod', 'data') made
+    one axis at a time."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as DR
+
+    for r in ranks:
+        assert r["metrics"] == ranks[0]["metrics"], (r["metrics"],
+                                                     ranks[0]["metrics"])
+    mine, one = ranks[0]["metrics"][0], single["metrics"][0]
+    loss_rel = abs(mine["loss"] - one["loss"]) / abs(one["loss"])
+    gnorm_rel = abs(mine["grad_norm"] - one["grad_norm"]) / abs(
+        one["grad_norm"])
+    assert math.isfinite(mine["loss"]) and \
+        loss_rel <= SHARDED_LOSS_REL_TOL, (cfg.name, mine, one)
+    assert gnorm_rel <= SHARDED_GNORM_REL_TOL, (cfg.name, mine, one)
+    got, want = ranks[0]["grads"][0], single["grads"]
+    assert sorted(got) == sorted(want) and want, (sorted(got), sorted(want))
+    leaf_rel = {}
+    for j in sorted(want):
+        a, b = got[j].astype(np.float64), want[j].astype(np.float64)
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        assert math.isfinite(rel) and rel <= SHARDED_LEAF_REL_TOL, \
+            (cfg.name, single["leaf_names"][j], rel)
+        leaf_rel[single["leaf_names"][j]] = rel
+    launches = train_launches_per_step(cfg)
+    for r in ranks:
+        assert r["launches"] == launches, (cfg.name, r["launches"], launches)
+    names = ("pod", "data", "model")[-len(mesh_shape):]
+    pred, pred_rows = DR.trace_step(cfg, ShapeSpec("t", S, B, "train"),
+                                    dict(zip(names, mesh_shape)),
+                                    device=str(dev))
+    p_flat = _flattened(DR.collective_axes(pred_rows))
+    for r in ranks:
+        acc = r["accounting"]
+        assert acc["collective_counts"] == pred["collectives"][
+            "count_by_kind"], (cfg.name, acc, pred["collectives"])
+        assert acc["collective_bytes"] == pred["collectives"][
+            "bytes_by_kind"], (cfg.name, acc, pred["collectives"])
+        assert sum(acc["flattened_counts"].values()) == p_flat, \
+            (cfg.name, acc["flattened_counts"], p_flat)
+    M = mesh_shape[-1]
+    rows = ranks[0]["collectives"]
+    facts = {}
+    if M > 1 and any(sp.kind == "mamba" for sp in cfg.pattern):
+        w = cfg.d_inner // M
+        halves = [c for c in rows if _is_op(c[0], "all-to-all")
+                  and tuple(c[1][0]) == (2, B, S, w)]
+        whole = [c for c in rows if _is_op(c[0], "all-gather")
+                 and tuple(c[1][0]) == (B, S, 2 * w)]
+        assert len(halves) == 3 * cfg.n_layers and not whole, (halves,
+                                                               whole)
+        facts["halves_all_to_alls"] = len(halves)
+    if cfg.n_heads and M > 1 and cfg.n_heads % M == 0 and \
+            cfg.n_kv_heads % M:
+        # told apart by their heads (gemma-2b: q's 2 a rank or 8, kv's 1)
+        assert cfg.n_kv_heads not in (cfg.n_heads // M, cfg.n_heads), cfg
+        q = [c for c in rows if len(c[1][0]) == 4
+             and c[1][0][2] in (cfg.n_heads // M, cfg.n_heads)]
+        kv = [c for c in rows if len(c[1][0]) == 4
+              and c[1][0][2] == cfg.n_kv_heads]
+        assert not q and kv, (q, kv)
+        facts["kv_collectives"] = len(kv)
+    if len(mesh_shape) == 3 and mesh_shape[0] > 1 and mesh_shape[1] > 1:
+        colls = [c[0].rsplit(" @", 1) for c in rows]
+        pairs = [(a, b) for a, b in zip(colls, colls[1:])
+                 if len(a) == len(b) == 2 and a[0] == b[0]
+                 and {a[1], b[1]} == {"pod", "data"}]
+        assert p_flat > 0 and not pairs, (p_flat, pairs)
+    return dict(arch=cfg.name, n_layers=cfg.n_layers,
+                mesh=dict(zip(names, mesh_shape)), batch=B, seq=S,
+                loss=mine["loss"], single_loss=one["loss"],
+                loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
+                leaf_grad_rel_l2_max=max(leaf_rel.values()),
+                launches_per_rank=ranks[0]["launches"],
+                collective_counts=ranks[0]["accounting"][
+                    "collective_counts"],
+                collective_bytes=ranks[0]["accounting"]["collective_bytes"],
+                flattened=p_flat, **facts,
+                rank_step_ms=[1e3 * r["seconds"][0] for r in ranks],
+                single_step_ms=single["step_ms"][0])
+
+
+def _lowering_moe_check(torch, np, cfg, C, single, ranks) -> dict:
+    """The MoE layer at LOWERING_MOE_MESH against the single-device layer:
+    equal dispatch tables, output within EP_REL_TOL, and on every rank the
+    whole-batch (G, S, D) combine summed by two all-reduces, one of the
+    'model' pair and one of the four ('pod', 'data') ranks."""
+    r0 = ranks[0]["bfloat16"]
+    differ = int(np.sum(r0["dispatch"] != single["dispatch"]))
+    assert differ == 0, differ
+    rel = _rel_l2(torch.from_numpy(r0["y"]), torch.from_numpy(single["y"]))
+    assert np.all(np.isfinite(r0["y"])) and rel <= EP_REL_TOL, rel
+    whole = (LOWERING_MOE_GROUPS, LOWERING_MOE_TOKENS, cfg.d_model)
+    sums = []
+    for r in ranks:
+        seen = r["bfloat16"]["collectives"]
+        combine = [n for kind, _, shape, n in seen if kind == "all-reduce"
+                   and tuple(shape) == whole and n > 1]
+        pod, data, model = LOWERING_MOE_MESH
+        assert combine == [model, pod * data], seen
+        sums.append(combine)
+    return dict(arch=LOWERING_MOE_ARCH, experts=cfg.n_experts,
+                d_model=cfg.d_model, d_ff=cfg.moe_d_ff, capacity=C,
+                mesh=dict(zip(("pod", "data", "model"), LOWERING_MOE_MESH)),
+                groups=LOWERING_MOE_GROUPS, tokens=LOWERING_MOE_TOKENS,
+                dispatch_differ=differ, rel_l2_vs_single=rel,
+                tol=EP_REL_TOL, combine_all_reduce_group_sizes=sums,
+                staged_collectives_rank0=[
+                    (kind, list(shape), n) for kind, _, shape, n in
+                    ranks[0]["bfloat16"]["collectives"]],
+                forward_seconds_per_rank=[r["bfloat16"]["seconds"]
+                                          for r in ranks])
+
+
+def _is_op(op: str, kind: str) -> bool:
+    """Whether an Accounting row's op (``staged all-to-all @model``, or a
+    functional collective's name on a CPU mesh) is a collective of
+    ``kind`` (``all-to-all``)."""
+    return kind in op or kind.replace("-", "_") in op
+
+
+def _flattened(by_axes: dict) -> int:
+    """The collectives of ``dryrun.collective_axes`` over several mesh axes
+    at once."""
+    return sum(v["count"] for k, v in by_axes.items() if "+" in k)
 
 
 def sharded_phase(torch, np, dev) -> tuple:
@@ -3398,15 +3659,31 @@ def sharded_phase(torch, np, dev) -> tuple:
     SHARDED_RANK_BUDGET_BYTES free for each rank before they start.  Last,
     each rank runs the sharded_train step once more, untimed, counted by
     the dry run's ``Accounting`` (``accounting_per_rank``: what
-    :func:`dryrun_phase` holds its fake trace to).  Returns the two
-    phases' rows and the launch's seconds."""
+    :func:`dryrun_phase` holds its fake trace to), the grouped
+    redistribute against DTensor's, and slice 16's LOWERING_TRAIN steps,
+    each held to its single-device step and its fake trace; then
+    LOWERING_MOE_RANKS ranks run the MoE layer at LOWERING_MOE_MESH
+    (``lowering``).  Returns the two phases' rows and the first launch's
+    seconds."""
     from repro_torch.launch.dryrun import accounted_train_step
     from repro_torch.launch.mesh import run_ranks
-    from repro_torch.parallel.ranks import (ep_moe_rank, moe_forward_rank,
-                                            run_jobs, sharded_train_steps)
+    from repro_torch.parallel.ranks import (ep_moe_rank,
+                                            grouped_redistribute_rank,
+                                            moe_forward_rank, run_jobs,
+                                            sharded_train_steps)
 
     ep_cfg, C, ep_single = _ep_single(torch, np, dev)
     train_cfg, opt_cfg, train_single = _train_single(torch, dev)
+    low_single = _lowering_singles(torch, dev)
+    low_moe_cfg, low_C, low_moe_single = low_single.pop("moe")
+    low_jobs = []
+    for mesh_shape in dict.fromkeys(m for _, m in LOWERING_TRAIN):
+        cfgs = [low_single[a][0] for a, m in LOWERING_TRAIN
+                if m == mesh_shape]
+        low_jobs.append((sharded_train_steps, (
+            cfgs, opt_cfg, SHARDED_BATCH, SHARDED_SEQ, mesh_shape, str(dev),
+            1, SHARDED_LEAF_ELEMENTS, True)))
+
     # what this process still holds on the card beside the four ranks, and
     # what the card has free for them (every process's memory counted)
     gc.collect()
@@ -3431,14 +3708,37 @@ def sharded_phase(torch, np, dev) -> tuple:
                                SHARDED_STEPS, SHARDED_LEAF_ELEMENTS)),
         # the same step once more, counted for the dry run's cross-check
         (accounted_train_step, (train_cfg, opt_cfg, SHARDED_BATCH,
-                                SHARDED_SEQ, SHARDED_MESH, str(dev)))],
-        device=str(dev), stage_through_host=True)
+                                SHARDED_SEQ, SHARDED_MESH, str(dev))),
+        # slice 16: one collective over both axes against DTensor's two
+        (grouped_redistribute_rank, (SHARDED_MESH, str(dev))),
+        # and its lowerings at published widths, held to one device
+        *low_jobs], device=str(dev), stage_through_host=True)
     ranks_s = time.time() - t0
     ep = _ep_check(torch, np, ep_cfg, C, ep_single, [r[0] for r in ranks])
     ep["dtensor_dispatch"] = _dispatch_check(torch, np, ep_cfg, C, ep_single,
                                              [r[1] for r in ranks])
     train = _train_check(train_cfg, train_single, [r[2][0] for r in ranks])
     train["accounting_per_rank"] = [r[3] for r in ranks]
+    train["grouped_redistribute"] = _grouped_check(np, [r[4] for r in ranks])
+    by_mesh = {m: [r[5 + j] for r in ranks] for j, m in enumerate(
+        dict.fromkeys(m for _, m in LOWERING_TRAIN))}
+    lowering = []
+    for arch, mesh_shape in LOWERING_TRAIN:
+        cfg, _, single = low_single[arch]
+        at = [a for a, m in LOWERING_TRAIN if m == mesh_shape].index(arch)
+        lowering.append(_lowering_train_check(
+            np, cfg, single, [r[at] for r in by_mesh[mesh_shape]],
+            mesh_shape, dev))
+    # the MoE layer's ranks, once the four have ended
+    t1 = time.time()
+    moe_ranks = run_ranks(moe_forward_rank, LOWERING_MOE_RANKS, dict(
+        seed=EP_SEED, G=LOWERING_MOE_GROUPS, S=LOWERING_MOE_TOKENS),
+        low_moe_cfg, LOWERING_MOE_MESH, str(dev), device=str(dev),
+        stage_through_host=True)
+    lowering.append(_lowering_moe_check(
+        torch, np, low_moe_cfg, low_C, low_moe_single, moe_ranks))
+    lowering[-1]["launch_seconds"] = time.time() - t1
+    train["lowering"] = lowering
     ep.update(memory)
     train.update(memory)
     return ep, train, ranks_s
@@ -4479,6 +4779,40 @@ def run(torch, dev) -> int:
           f"{sharded['host_staged_per_rank'][0]['bytes']} bytes of the "
           f"rig's host copies per rank; phase {sharded_s:.1f} s ({smi})",
           flush=True)
+    grouped = sharded["grouped_redistribute"]
+    print(f"grouped redistribute on the rig's ranks: sum and gather over "
+          f"('data', 'model') equal DTensor's bit for bit; rank 0's "
+          f"collectives {grouped['sum']['grouped_rows']} + "
+          f"{grouped['gather']['grouped_rows']} against DTensor's "
+          f"{grouped['sum']['dtensor_rows']} + "
+          f"{grouped['gather']['dtensor_rows']} ({smi})", flush=True)
+
+    for row in sharded["lowering"]:
+        emit(dict(phase="sharded_lowering", nvidia_smi=smi, **row))
+        mesh = " x ".join(f"{a} {n}" for a, n in row["mesh"].items())
+        if "loss" in row:
+            print(f"sharded lowering: {row['arch']} 1 layer at {mesh}, B "
+                  f"{row['batch']} S {row['seq']}: loss {row['loss']:.6f} vs "
+                  f"{row['single_loss']:.6f} single (rel "
+                  f"{row['loss_rel']:.2e}), small-leaf gradients within "
+                  f"{row['leaf_grad_rel_l2_max']:.2e}; collectives "
+                  f"{ {k: v for k, v in row['collective_counts'].items() if v} }"
+                  f" counted = the fake trace's, "
+                  f"{row['flattened']} over several mesh axes at once"
+                  + (f", {row['halves_all_to_alls']} halves all-to-alls"
+                     if "halves_all_to_alls" in row else "")
+                  + (f", {row['kv_collectives']} of k / v and none of q"
+                     if "kv_collectives" in row else "")
+                  + f"; step ms {[round(t, 1) for t in row['rank_step_ms']]}"
+                  f" ({smi})", flush=True)
+        else:
+            print(f"sharded lowering: {row['arch']} MoE layer at {mesh}: "
+                  f"rel L2 {row['rel_l2_vs_single']:.2e} (tol "
+                  f"{row['tol']:.2e}), dispatch equal, the whole-batch "
+                  f"combine summed by all-reduces of "
+                  f"{row['combine_all_reduce_group_sizes'][0]} ranks "
+                  f"(forward {max(row['forward_seconds_per_rank']):.3f} s) "
+                  f"({smi})", flush=True)
 
     # -- phase 10f: slice 12, the dry run on the card's device type -----
     dry = dryrun_phase(torch, dev, smi, sharded)

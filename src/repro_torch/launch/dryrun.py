@@ -32,7 +32,9 @@ rank 0:
   ``CommDebugMode`` reads them: an all-gather counts its gathered output,
   every other collective its operand (DTensor's all-to-all on a CPU mesh,
   an all-gather and a chunk there, counts as the all-to-all it stands in
-  for);
+  for); each collective's row names the mesh axes its group spans, so a
+  change over ('pod', 'data') made as one collective shows as one row
+  ``@pod+data`` (:func:`collective_axes`);
 * HBM bytes: the inputs plus outputs of every local op that is not a view.
   The eager program on the card runs each op as its own kernel, which
   reads its inputs and writes its outputs, so this is what it moves, and
@@ -87,6 +89,7 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.parallel import sharding as sh
 
 __all__ = ["Accounting", "fake_world", "lower_cell", "trace_step",
+           "collective_axes",
            "accounted_train_step", "matmul_probe", "mlp_probe",
            "check_hand_counts", "cell_list", "cell_tag", "main"]
 
@@ -130,6 +133,29 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def _tensors(tree) -> List[torch.Tensor]:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _group_arg(args):
+    """A collective op's process group among its arguments: the functional
+    ops' group name (their last string argument), or a group itself."""
+    for a in reversed(args):
+        if isinstance(a, str) or hasattr(a, "group_name"):
+            return a
+    return None
+
+
+def collective_axes(rows) -> Dict[str, Dict[str, float]]:
+    """The trace rows' collectives by the mesh axes their groups span
+    (``pod+data``; ``""`` where a row names none): count and bytes."""
+    out: Dict[str, Dict[str, float]] = {}
+    for op, _, flops, nbytes in rows:
+        if flops:
+            continue
+        axes = op.rsplit(" @", 1)[1] if " @" in op else ""
+        got = out.setdefault(axes, dict(count=0, bytes=0.0))
+        got["count"] += 1
+        got["bytes"] += nbytes
+    return out
 
 
 def _wrappers() -> tuple:
@@ -188,6 +214,11 @@ class Accounting(TorchDispatchMode):
     (op, local shapes, FLOPs, bytes) for each matrix product and
     collective (``rows``), and the bytes by op (``bytes_by_op``).
 
+    Given the ``mesh`` the step runs on, each collective's row names the
+    mesh axes its group spans (``op @pod+data``; :func:`collective_axes`
+    reads it back), and ``flattened_counts`` counts by kind those over
+    several axes at once (:func:`repro_torch.parallel.act.redistribute`).
+
     Works on fake and on real tensors alike.  Only collectives of tensors
     on ``device_type`` count; those staged through the host
     (:func:`repro_torch.launch.mesh.stage_collectives_through_host`) count
@@ -195,10 +226,23 @@ class Accounting(TorchDispatchMode):
     :func:`~repro_torch.launch.mesh.observe_staged`), not as the host
     exchanges inside them."""
 
-    def __init__(self, device_type: str):
+    def __init__(self, device_type: str, mesh=None):
         super().__init__()
         _check_propagation_modules()
         self.device_type = device_type
+        # each rank's coordinates on the mesh (read on real tensors, outside
+        # the fake mode a trace makes this in), for the axes a collective's
+        # group spans
+        self._coords = None
+        if mesh is not None:
+            from torch.utils._python_dispatch import _disable_current_modes
+
+            with _disable_current_modes():
+                layout = np.asarray(mesh.mesh.tolist())
+            self._coords = {int(r): idx for idx, r in np.ndenumerate(layout)}
+            self._names = tuple(mesh.mesh_dim_names)
+        self._axes_of: Dict[str, tuple] = {}
+        self.flattened_counts = {k: 0 for k in _COLLECTIVES}
         self.flops = 0
         self.hbm_bytes = 0
         self.collective_bytes = {k: 0 for k in _COLLECTIVES}
@@ -212,6 +256,7 @@ class Accounting(TorchDispatchMode):
         self._observing = None
         self._patched: List[tuple] = []
         self._quiet = 0
+        self._paused = 0
 
     # -- collectives the host staging stands in for ----------------------
     def __enter__(self):
@@ -219,6 +264,7 @@ class Accounting(TorchDispatchMode):
                                                   self.device_type)
         self._observing.__enter__()
         self._patch_all_to_all()
+        self._own_lowering()
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -230,8 +276,32 @@ class Accounting(TorchDispatchMode):
             self._patched = []
             self._observing.__exit__(*exc)
 
-    def _staged(self, kind: str, nbytes: int, shape) -> None:
-        self._collective(kind, nbytes, "staged " + kind, [shape])
+    def _own_lowering(self) -> None:
+        """While entered, DTensor's own merging of consecutive per-mesh-dim
+        collectives into one over a flattened mesh (a pass that torch
+        2.13's DTensor has and 2.11's lacks, and which runs only once some
+        code has flattened those dims) is off: what is counted is the port's
+        lowering, the same on either torch and from the first op."""
+        import torch.distributed.tensor._redistribute as rd
+
+        flag = "_DISABLE_REDISTRIBUTE_TRANSFORM_OPTIMIZATION"
+        if hasattr(rd, flag):
+            self._patched.append((rd, flag, getattr(rd, flag)))
+            setattr(rd, flag, True)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """For the block, count nothing: a check's own reads (gathering a
+        gradient whole to compare it) inside a counted step."""
+        self._paused += 1
+        try:
+            yield
+        finally:
+            self._paused -= 1
+
+    def _staged(self, kind: str, nbytes: int, shape, group=None) -> None:
+        if not self._paused:
+            self._collective(kind, nbytes, "staged " + kind, [shape], group)
 
     # -- DTensor's all-to-all on a CPU mesh --------------------------------
     def _patch_all_to_all(self) -> None:
@@ -250,12 +320,13 @@ class Accounting(TorchDispatchMode):
 
     def _all_to_all(self, original):
         def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
-            if mesh.device_type != "cpu" or self._quiet:
+            if mesh.device_type != "cpu" or self._quiet or self._paused:
                 return original(input, gather_dim, shard_dim, mesh, mesh_dim)
             if input.device.type == self.device_type:
                 self._collective("all-to-all", _nbytes(input),
                                  "all-to-all (gathered on a CPU mesh)",
-                                 [tuple(input.shape)])
+                                 [tuple(input.shape)],
+                                 mesh.get_group(mesh_dim))
             self._quiet += 1
             try:
                 return original(input, gather_dim, shard_dim, mesh, mesh_dim)
@@ -263,10 +334,35 @@ class Accounting(TorchDispatchMode):
                 self._quiet -= 1
         return shard_dim_alltoall
 
-    def _collective(self, kind: str, nbytes: int, op: str, shapes) -> None:
+    def _collective(self, kind: str, nbytes: int, op: str, shapes,
+                    group=None) -> None:
         self.collective_bytes[kind] += nbytes
         self.collective_counts[kind] += 1
+        axes = self._axes(group)
+        if len(axes) > 1:
+            self.flattened_counts[kind] += 1
+        if axes:
+            op = f"{op} @{'+'.join(axes)}"
         self.rows.append((op, shapes, 0, nbytes))
+
+    def _axes(self, group) -> tuple:
+        """The mesh axes (of more than one rank) along which the ranks of
+        ``group`` (a process group or its name) differ; () without a
+        mesh."""
+        if self._coords is None or group is None:
+            return ()
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        pg = _resolve_process_group(group) if isinstance(group, str) else group
+        name = pg.group_name
+        if name not in self._axes_of:
+            at = np.array([self._coords[r]
+                           for r in dist.get_process_group_ranks(pg)])
+            self._axes_of[name] = tuple(
+                a for i, a in enumerate(self._names)
+                if len(set(at[:, i].tolist())) > 1)
+        return self._axes_of[name]
 
     # -- every op ----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -274,7 +370,7 @@ class Accounting(TorchDispatchMode):
         if any(issubclass(t, self._skip) for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
-        if not _propagating():
+        if not _propagating() and not self._paused:
             self._record(func, args, kwargs, out)
         return out
 
@@ -288,7 +384,8 @@ class Accounting(TorchDispatchMode):
                 kind, where = _COLLECTIVE_OPS[name]
                 payload = outs if where == "out" else _tensors(args[where])
                 self._collective(kind, sum(map(_nbytes, payload)), name,
-                                 [tuple(t.shape) for t in ins])
+                                 [tuple(t.shape) for t in ins],
+                                 _group_arg(args))
             return
         if name in _NOT_COLLECTIVES:
             return
@@ -341,6 +438,7 @@ class Accounting(TorchDispatchMode):
         return dict(flops=self.flops, hbm_bytes=self.hbm_bytes,
                     collective_bytes=dict(self.collective_bytes),
                     collective_counts=dict(self.collective_counts),
+                    flattened_counts=dict(self.flattened_counts),
                     temp_bytes=self.temp_bytes)
 
 
@@ -466,7 +564,7 @@ def _trace(cfg, shape, mesh, dev, opt_cfg):
     """:func:`trace_step`'s body, under the fake mode."""
     step, args, out_specs = _step_and_args(cfg, shape, mesh, dev, opt_cfg)
     argument_bytes = _local_bytes(args)
-    acc = Accounting(dev.type)
+    acc = Accounting(dev.type, mesh)
     t0 = time.perf_counter()
     with acc, sh.activation_mesh(mesh):
         out = step(*args)
@@ -533,7 +631,7 @@ def accounted_train_step(rank: int, world: int, cfg: ArchConfig, opt_cfg,
     batch = _put(train_batch(cfg, B, S, dev),
                  sh.batch_pspecs(cfg, ShapeSpec("t", S, B, "train"), mesh),
                  mesh)
-    acc = Accounting(dev.type)
+    acc = Accounting(dev.type, mesh)
     with acc, sh.activation_mesh(mesh):
         make_train_step(cfg, opt_cfg)(params, opt, batch)
     return acc.summary()

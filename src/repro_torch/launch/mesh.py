@@ -77,15 +77,20 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
     return LogicalMesh(shape, axes)
 
 
-def make_local_mesh(data: int = 1, model: int = 1,
-                    device: str = "cpu"):
-    """A ``DeviceMesh`` (data, model) over the initialised process group of
-    ``data * model`` ranks; ``device`` is its device type (``"cpu"`` or
-    ``"cuda"``)."""
+def make_local_mesh(*shape: int, device: str = "cpu"):
+    """A ``DeviceMesh`` over the initialised process group of as many ranks
+    as its size: ``(data, model)``, or ``(pod, data, model)`` given three
+    sizes (each 1 where not given); ``device`` is its device type
+    (``"cpu"`` or ``"cuda"``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(torch.device(device).type, (data, model),
-                            mesh_dim_names=("data", "model"))
+    if len(shape) > 3:
+        raise ValueError(f"make_local_mesh: (data, model) or (pod, data, "
+                         f"model), got {shape}")
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    sizes = tuple(shape) + (1,) * (len(axes) - len(shape))
+    return init_device_mesh(torch.device(device).type, sizes,
+                            mesh_dim_names=axes)
 
 
 def shard_batch(*arrays):
@@ -117,10 +122,11 @@ _OBSERVER: list = [None]
 
 @contextlib.contextmanager
 def observe_staged(fn: Callable, device_type: str):
-    """For the block, tell ``fn(kind, payload_bytes, shape)`` of each
-    collective a staged function stands in for: kind as
+    """For the block, tell ``fn(kind, payload_bytes, shape, group)`` of
+    each collective a staged function stands in for: kind as
     ``launch.hlo_analysis`` names it, the payload by its convention (an
-    all-gather's gathered output, any other collective's operand).  The
+    all-gather's gathered output, any other collective's operand), and its
+    process group.  The
     host exchanges inside are the rig's, not the step's, and lie on the
     host: an observer of ``device_type``'s collectives tells them apart by
     device, so CPU tensors staged through the host are refused.  One
@@ -138,12 +144,12 @@ def observe_staged(fn: Callable, device_type: str):
         _OBSERVER[0] = None
 
 
-def _observe(kind: str, t: torch.Tensor, factor: int = 1) -> None:
-    """Tell the observer of one collective of ``kind`` whose payload is
-    ``factor`` times ``t``'s bytes."""
+def _observe(kind: str, t: torch.Tensor, pg, factor: int = 1) -> None:
+    """Tell the observer of one collective of ``kind`` over the process
+    group ``pg`` whose payload is ``factor`` times ``t``'s bytes."""
     if _OBSERVER[0] is not None:
         _OBSERVER[0](kind, factor * t.numel() * t.element_size(),
-                     tuple(t.shape))
+                     tuple(t.shape), pg)
 
 
 def staged_bytes() -> Dict[str, float]:
@@ -244,7 +250,7 @@ def _all_gather(original):
         if self.device.type not in _STAGE_DEVICES:
             return original(self, gather_dim, group, tag)
         pg = _group(group, tag)
-        _observe("all-gather", self, pg.size())
+        _observe("all-gather", self, pg, pg.size())
         return _gather_through_host(self, gather_dim, pg)
     return all_gather
 
@@ -257,7 +263,7 @@ def _reduce_scatter(original):
 
         pg = _group(group, tag)
         n = pg.size()
-        _observe("reduce-scatter", self)
+        _observe("reduce-scatter", self, pg)
         host = _to_host(torch.cat(self.chunk(n, dim=scatter_dim), dim=0))
         out = _host_empty((host.shape[0] // n, *host.shape[1:]), self)
         _exchange(dist.reduce_scatter_tensor, out, host,
@@ -277,7 +283,7 @@ def _all_reduce(original):
         import torch.distributed as dist
 
         pg = _group(group, tag)
-        _observe("all-reduce", self)
+        _observe("all-reduce", self, pg)
         # a copy even on the host: the functional all-reduce leaves its
         # input as it was
         host = _to_host(self.detach())
@@ -290,13 +296,34 @@ def _all_reduce(original):
     return all_reduce
 
 
+def _all_to_all_single(original):
+    def all_to_all_single(self, output_split_sizes, input_split_sizes, group,
+                          tag=""):
+        if self.device.type not in _STAGE_DEVICES:
+            return original(self, output_split_sizes, input_split_sizes,
+                            group, tag)
+        import torch.distributed as dist
+
+        pg = _group(group, tag)
+        _observe("all-to-all", self, pg)
+        host = _to_host(self.contiguous())
+        rows = sum(output_split_sizes) if output_split_sizes else len(host)
+        out = _host_empty((rows, *host.shape[1:]), self)
+        _exchange(dist.all_to_all_single, out, host,
+                  output_split_sizes=output_split_sizes,
+                  input_split_sizes=input_split_sizes, group=pg)
+        _count(host, out)
+        return _to_device(out, self.device)
+    return all_to_all_single
+
+
 def _shard_dim_alltoall(original):
     def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
         """As DTensor runs it on a CPU mesh: an all-gather along
         ``gather_dim``, then this rank's chunk along ``shard_dim``."""
         if input.device.type not in _STAGE_DEVICES:
             return original(input, gather_dim, shard_dim, mesh, mesh_dim)
-        _observe("all-to-all", input)
+        _observe("all-to-all", input, mesh.get_group(mesh_dim))
         whole = _gather_through_host(input, gather_dim,
                                      mesh.get_group(mesh_dim))
         n = mesh.size(mesh_dim)
@@ -317,8 +344,9 @@ def _torch_version() -> tuple:
 
 def stage_collectives_through_host(devices=("cuda",)) -> None:
     """Run DTensor's collectives on tensors of ``devices`` through the host:
-    the functional all-gather, reduce-scatter, all-reduce and DTensor's
-    shard-to-shard all-to-all, as DTensor calls them (the module attributes
+    the functional all-gather, reduce-scatter, all-reduce, all-to-all and
+    DTensor's shard-to-shard all-to-all, as DTensor and
+    :mod:`repro_torch.parallel.act` call them (the module attributes
     of ``torch.distributed._functional_collectives`` and of DTensor's
     placements are replaced, for those devices only).  Each copies the
     local tensor to the host, runs the ``torch.distributed`` collective on
@@ -337,6 +365,7 @@ def stage_collectives_through_host(devices=("cuda",)) -> None:
     staged = [(funcol, "all_gather_tensor", _all_gather),
               (funcol, "reduce_scatter_tensor", _reduce_scatter),
               (funcol, "all_reduce", _all_reduce),
+              (funcol, "all_to_all_single", _all_to_all_single),
               (cu, "shard_dim_alltoall", _shard_dim_alltoall),
               (pt, "shard_dim_alltoall", _shard_dim_alltoall)]
     if _torch_version() >= _SINGLE_SINCE:

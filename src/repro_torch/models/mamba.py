@@ -10,7 +10,9 @@ single recurrence step over (conv_state, ssm_state), plain PyTorch
 everywhere.
 
 Sharded execution (DTensor inputs inside an ``activation_mesh``): u and z
-are constrained to (batch, -, channels) as in the reference, and the
+are constrained to (batch, -, channels) as in the reference, moved there
+from in_proj's column shards by one all-to-all over the model axis
+(:class:`_HalvesExchange`; the product is never gathered whole), and the
 causal convolution and the scan run shard by shard
 (:func:`repro_torch.parallel.act.per_shard`): batch and channels are
 independent, time and the state are not.
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import mamba_scan as K4
 from repro_torch.parallel.act import (BATCH, TP, constrain,
                                       contract_shards, gathered_product,
-                                      per_shard)
+                                      model_axis_size, per_shard)
 
 __all__ = ["mamba_params_shapes", "mamba_forward", "mamba_prefill",
            "mamba_decode_step", "selective_scan_chunked", "selective_scan_ref"]
@@ -201,6 +203,77 @@ def _ssm_projections(params, u, cfg):
     return delta, A, B_t, C_t
 
 
+class _HalvesExchange(torch.autograd.Function):
+    """A model rank's 2 w columns of ``x @ in_proj`` (B, L, 2 w), w = Di /
+    M, to its own w columns of u and of z: rank s holds u's blocks 2 s, 2 s
+    + 1 below M / 2 and z's blocks 2 (s - M / 2), 2 (s - M / 2) + 1 from
+    there, and rank r takes u's and z's block r, from ranks r // 2 and M /
+    2 + r // 2.  One all-to-all over the model axis moves each block to its
+    rank and nothing else; the backward sends each gradient block back to
+    the rank that holds those columns, so the weight gradient stays on its
+    own columns."""
+
+    @staticmethod
+    def forward(ctx, t, group, rank: int, M: int):
+        h = M // 2
+        sends = [int(d // 2 == rank % h) for d in range(M)]
+        takes = [int(s % h == rank // 2) for s in range(M)]
+        ctx.exchange = (group, sends, takes)
+        B, L, w2 = t.shape
+        blocks = t.reshape(B, L, 2, w2 // 2).permute(2, 0, 1, 3)
+        got = _all_to_all(blocks.contiguous(), takes, sends, group)
+        return got[0], got[1]
+
+    @staticmethod
+    def backward(ctx, du, dz):
+        group, sends, takes = ctx.exchange
+        got = _all_to_all(torch.stack([du, dz]).contiguous(), sends, takes,
+                          group)
+        B, L, w = du.shape
+        return (got.permute(1, 2, 0, 3).reshape(B, L, 2 * w), None, None,
+                None)
+
+
+def _all_to_all(t, out_splits, in_splits, group):
+    """The functional all-to-all of ``t``'s dim-0 rows (looked up at the
+    call, so that a staged replacement is the one run), waited."""
+    import torch.distributed._functional_collectives as funcol
+
+    got = funcol.all_to_all_single(t, out_splits, in_splits, group)
+    return got.wait() if isinstance(got, funcol.AsyncCollectiveTensor) \
+        else got
+
+
+def _split_in_proj(xz, Di: int):
+    """u and z, (B, L, Di) each, from ``x @ in_proj`` (B, L, 2 Di).  On a
+    mesh whose model axis (M > 1 ranks: even, dividing Di) shards the
+    product's columns, the product stays on its shards and
+    :class:`_HalvesExchange` moves each rank's halves to u's and z's own
+    (B, L, Di / M) shards, as the reference's partitioner moves them;
+    elsewhere (off a mesh, or one model rank) the plain split."""
+    from torch.distributed.tensor.experimental import local_map
+
+    M = model_axis_size(xz)
+    if M > 1:
+        if M % 2 or Di % M:
+            raise ValueError(f"mamba: a model axis of {M} ranks must be "
+                             f"even and divide d_inner {Di} (each rank "
+                             f"holds u's or z's columns of in_proj)")
+        xz = constrain(xz, BATCH, None, TP)     # 'model' on the columns
+        mesh = xz.device_mesh
+        m = list(mesh.mesh_dim_names).index(TP)
+        group, rank = (mesh, m), mesh.get_local_rank(m)
+        run = local_map(lambda t: _HalvesExchange.apply(t, group, rank, M),
+                        out_placements=(list(xz.placements),) * 2,
+                        in_placements=(list(xz.placements),),
+                        in_grad_placements=(list(xz.placements),),
+                        device_mesh=mesh)
+        return run(xz)
+    xz = constrain(xz, BATCH, None, None)
+    u, z = torch.split(xz, [Di, Di], dim=-1)
+    return constrain(u, BATCH, None, TP), constrain(z, BATCH, None, TP)
+
+
 def mamba_forward(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """x: (B, L, D) -> (B, L, D)."""
     out, _ = mamba_prefill(params, x, cfg, impl=getattr(cfg, "ssm_impl",
@@ -215,14 +288,7 @@ def mamba_prefill(params: Dict, x: torch.Tensor, cfg, impl: str = "assoc",
                   ) -> Tuple[torch.Tensor, Dict]:
     """Forward over the prompt, returning the decode cache."""
     Di, K = cfg.d_inner, cfg.ssm_conv
-    # whole on its last dim before the split: DTensor cannot split a
-    # 'model' shard there, and the gradient of a split it gathers arrives
-    # whole at the product, which then computes every rank's weight
-    # gradient columns on each rank
-    xz = constrain(x @ params["in_proj"], BATCH, None, None)
-    u, z = torch.split(xz, [Di, Di], dim=-1)
-    u = constrain(u, BATCH, None, TP)
-    z = constrain(z, BATCH, None, TP)
+    u, z = _split_in_proj(x @ params["in_proj"], Di)
     conv_state = u[:, -(K - 1):, :]                               # raw inputs tail
     uc = F.silu(per_shard(_causal_conv, (u, params["conv_w"],
                                          params["conv_b"]),

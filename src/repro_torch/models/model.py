@@ -34,7 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.parallel.act import (BATCH, TP, constrain, embed_rows,
                                       gathered_product, is_sharded,
-                                      per_shard, shard_start)
+                                      per_shard, reduce_over, shard_start)
 
 from .layers import init_linear, mrope_positions, rms_norm, rope_angles
 from .transformer import (block_param_shapes, blocks_decode, blocks_forward,
@@ -272,8 +272,10 @@ def loss_fn(params, batch, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         labels = F.pad(labels, (0, pad), value=-1)
     hw = _head_weight(params, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
-    tot = torch.zeros((), dtype=torch.float32, device=h.device)
-    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    # the chunks' partial sums add up as they are (on a mesh, a sum with a
+    # replicated zero would complete each chunk's one axis at a time), and
+    # each total is completed once, in one all-reduce over every axis
+    tot = cnt = None
     for c0 in range(0, S + pad, c):
         args = (h[:, c0:c0 + c], labels[:, c0:c0 + c], hw)
         if remat:
@@ -281,8 +283,9 @@ def loss_fn(params, batch, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
                               preserve_rng_state=False)
         else:
             s, n = _chunk_nll(*args)
-        tot = tot + s
-        cnt = cnt + n
+        tot = s if tot is None else tot + s
+        cnt = n if cnt is None else cnt + n
+    tot, cnt = reduce_over(tot), reduce_over(cnt)
     loss = tot / torch.clamp(cnt, min=1)
     total = loss + cfg.router_aux_coef * aux
     return total, dict(loss=loss, aux=aux, tokens=cnt)

@@ -52,7 +52,8 @@ import torch.nn.functional as F
 from repro_torch.numerics import fma32_t
 from repro_torch.parallel.act import (BATCH, TP, constrain, gathered_product,
                                       is_sharded, mesh_axes, per_shard,
-                                      shard_start, slice_to)
+                                      redistribute, reduce_over, shard_start,
+                                      slice_to)
 
 __all__ = ["moe_params_shapes", "moe_forward", "moe_ref", "capacity",
            "quantize_slots", "dequantize_slots", "E4M3_MAX", "timed_parts"]
@@ -230,7 +231,7 @@ def _fsdp_gathered(w):
             for a, p in zip(mesh_axes(mesh), w.placements)]
     if want == list(w.placements):
         return w
-    return w.redistribute(mesh, want)
+    return redistribute(w, mesh, want)
 
 
 def _top1_one_hot(flat_expert: torch.Tensor, *, k: int, E: int
@@ -311,11 +312,12 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg, *,
     # switch-style load-balance aux loss (ahead of the combine, whose
     # reductions then end the layer: a checkpoint's recompute stops at the
     # combine's last saved tensor, before them, as XLA's remat does)
+    # reductions (the means' sums over the batch axes completed at once)
     probs = torch.softmax(logits.float(), dim=-1)
-    me = probs.mean(dim=(0, 1))                                   # (E,)
+    me = reduce_over(probs.mean(dim=(0, 1)))                      # (E,)
     one_hot = per_shard(_top1_one_hot, (flat_expert,), (("g", "a"),),
                         (("g", "s", "e"),), groups, k=k, E=E)
-    ce = one_hot.reshape(-1, E).mean(dim=0)
+    ce = reduce_over(one_hot.reshape(-1, E).mean(dim=0))
     aux = E * torch.sum(me * ce)
 
     # gather tokens into expert slots: token of assignment a is a // k;
@@ -357,8 +359,9 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg, *,
     arg_dims = (slots + ("d",), ("g", "s", "k"), slots, slots, slots)
     if _experts_sharded(ye):
         # each rank its own (groups, experts) shard into the whole batch,
-        # summed by an all-reduce over each mesh axis, then its groups
-        # kept; the tables move to the slots' layout (a slice, or a small
+        # summed as GSPMD sums the reference's scatter: one all-reduce over
+        # 'model', one over the batch axes at once, then its groups kept;
+        # the tables move to the slots' layout (a slice, or a small
         # exchange where the groups also lie on 'model'), never the slots
         args = (ye, constrain(gate, BATCH, None, None),
                 *(constrain(t, BATCH, TP, None)
@@ -366,7 +369,8 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg, *,
         y = per_shard(_combine, args, arg_dims, (("all", "s", "d"),),
                       frozenset(), summed=frozenset({"g", "e"}), groups=G,
                       first=shard_start(ye, 0))
-        y = constrain(constrain(y, None, None, None), BATCH, None, None)
+        y = constrain(constrain(reduce_over(y, TP), None, None, None),
+                      BATCH, None, None)
     else:
         y = per_shard(_combine, args, arg_dims, (("g", "s", "d"),), groups)
     _mark("combine")

@@ -28,8 +28,12 @@ on their heads, or k / v on head_dim for MQA), DTensor propagates the
 rest op by op, and attention runs shard by shard through
 :func:`repro_torch.parallel.act.per_shard` (batch- and head-sharded; a
 head_dim or sequence shard is gathered first, since K3 and the plain
-attention need them whole).  Where the query or kv heads do not divide
-the model axis (qwen2-7b's 28 / 4 at 16, gemma-2b's 8 / 1), the train and
+attention need them whole).  Where the query heads divide the model axis
+and the kv heads do not (kimi-k2's 64 / 8 at 16, jamba's 32 / 8), q and
+the output stay on their own heads' shards and only k and v are whole on
+the axis, each rank reading the kv heads its query heads read
+(:func:`_kv_whole_attention`).  Where the query heads do not divide it
+either (qwen2-7b's 28 / 4 at 16, gemma-2b's 8 / 1), the train and
 prefill steps take the reference partitioner's padded layout
 (:func:`_padded_heads_attention`): ``act.split_dim`` gathers q / k / v's
 uneven shard before splitting out the heads, each model rank computes
@@ -58,7 +62,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import flash_attention as K3
 from repro_torch.parallel.act import (BATCH, TP, constrain, merge_last,
                                       model_axis_size, padded_heads,
-                                      per_shard, split_dim, split_last)
+                                      per_shard, redistribute, split_dim,
+                                      split_last)
 
 from .attention import chunked_attention
 from .layers import apply_rope, gated_mlp, rms_norm
@@ -150,7 +155,10 @@ def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
     kw = dict(causal=cfg.causal, window=spec.window, chunk=cfg.attn_chunk,
               q_offset=q_offset)
     M = model_axis_size(q)
-    if M > 1 and (cfg.n_heads % M or cfg.n_kv_heads % M):
+    if M > 1 and cfg.n_heads % M == 0 and cfg.n_kv_heads % M:
+        o = _kv_whole_attention(q, k, v, cfg, M, **kw)
+        out = merge_last(o) @ p["wo"]
+    elif M > 1 and (cfg.n_heads % M or cfg.n_kv_heads % M):
         out = _padded_heads_attention(q, k, v, p["wo"], cfg, M, **kw)
     else:
         o = per_shard(_attend, (q, k, v), (_ATTN_DIMS,) * 3, (_ATTN_DIMS,),
@@ -159,6 +167,41 @@ def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def _kv_whole_attention(q, k, v, cfg, M: int, **kw):
+    """Attention on a mesh whose model axis (M wide) divides the query heads
+    but not the kv heads, as the reference's partitioner runs it: q and the
+    output stay on their own heads' shards (H / M a rank), k and v are
+    whole on the axis (gathered where their heads are split out), and each
+    rank passes attention the kv heads its query heads read, in K3's
+    grouped layout (:func:`_grouped_kv`).  The output meets ``wo``'s row
+    shards as it is; dK and dV are partial sums over the axis (each rank
+    its own kv heads'), reduced onto k's and v's shards."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    m = list(mesh.mesh_dim_names).index(TP)
+    _, kvh = zip(*padded_heads(cfg.n_heads, cfg.n_kv_heads, M,
+                               mesh.get_local_rank(TP)))
+    kv = _grouped_kv(kvh)
+    heads = list(q.placements)                  # Shard(2) on 'model'
+    whole = heads[:m] + [Replicate()] + heads[m + 1:]
+    summed = heads[:m] + [Partial()] + heads[m + 1:]
+    # k / v: whole on the axis (MQA's head_dim shard gathered)
+    k, v = (redistribute(t, mesh, whole) for t in (k, v))
+
+    def local(q, k, v):
+        k, v = (torch.cat([t[:, :, h:h + 1] for h in kv], dim=2)
+                for t in (k, v))
+        return _attend(q, k, v, **kw)
+
+    run = local_map(local, out_placements=heads,
+                    in_placements=(heads, whole, whole),
+                    in_grad_placements=(heads, summed, summed),
+                    device_mesh=mesh)
+    return run(q, k, v)
 
 
 def _padded_heads_attention(q, k, v, wo, cfg, M: int, **kw):
@@ -191,6 +234,9 @@ def _padded_heads_attention(q, k, v, wo, cfg, M: int, **kw):
            else Replicate() for pl in q.placements]
     names = mesh.mesh_dim_names
     part = [Partial() if names[i] == TP else pl for i, pl in enumerate(act)]
+    # DTensor's own (only 'model' changes): where q, k or v already lies
+    # so, its no-op is still an autograd node, whose backward completes a
+    # partial gradient there (an all-reduce) before it flows on
     q, k, v = (t.redistribute(mesh, act) for t in (q, k, v))
 
     def pick(t, heads):

@@ -35,7 +35,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import tree as T
-from repro_torch.parallel.act import is_sharded
+from repro_torch.parallel.act import is_sharded, redistribute, reduce_over
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
            "global_norm", "clip_by_global_norm"]
@@ -118,7 +118,7 @@ def _local(t: torch.Tensor, like=None) -> torch.Tensor:
     if not is_sharded(t):
         return t
     if like is not None and tuple(t.placements) != tuple(like.placements):
-        t = t.redistribute(like.device_mesh, like.placements)
+        t = redistribute(t, like.device_mesh, like.placements)
     return t.to_local()
 
 
@@ -138,6 +138,9 @@ def adamw_update(params, grads, state, cfg: AdamWConfig
     step = _full(state["step"]) + 1
     stepf = step.to(torch.float32)
     lr = cosine_schedule(cfg, stepf)
+    # each gradient's pending sums (a replicated parameter's) completed in
+    # one all-reduce over its axes before the squares need them
+    grads = T.tree_map(reduce_over, grads)
     gnorm = _full(global_norm(grads))
     scale = _clip_scale(gnorm, cfg.clip_norm)
     b1, b2 = cfg.b1, cfg.b2

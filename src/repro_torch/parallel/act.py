@@ -24,7 +24,7 @@ __all__ = ["activation_mesh", "constrain", "BATCH", "TP",
            "placements_for", "per_shard", "split_dim", "split_last",
            "merge_last", "is_sharded", "model_axis_size", "padded_heads",
            "contract_shards", "embed_rows", "shard_start",
-           "gathered_product", "slice_to"]
+           "gathered_product", "slice_to", "redistribute", "reduce_over"]
 
 # logical activation axes used by model code (resolved against the live mesh)
 BATCH = ("pod", "data")
@@ -130,7 +130,7 @@ def constrain(x, *spec):
         return x
     if x.dtype in _FLOAT8:
         return _RedistributeBytes.apply(x, mesh, want)
-    return x.redistribute(mesh, want)
+    return redistribute(x, mesh, want)
 
 
 def slice_to(x, *spec):
@@ -164,7 +164,7 @@ def _redistribute_bytes(x, mesh, placements):
                          f"{placements})")
     b = DTensor.from_local(x.to_local().view(torch.uint8), x.device_mesh,
                            x.placements, shape=x.shape, stride=x.stride())
-    b = b.redistribute(mesh, placements)
+    b = _redistribute_grouped(b, mesh, placements)
     return DTensor.from_local(b.to_local().view(x.dtype), mesh, placements,
                               shape=b.shape, stride=b.stride())
 
@@ -181,6 +181,205 @@ class _RedistributeBytes(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _redistribute_bytes(grad, *ctx.source), None, None
+
+
+def redistribute(x, mesh, placements):
+    """``x.redistribute(mesh, placements)``, with each change that the
+    reference's partitioner makes over several mesh axes at once made as
+    one collective over the flattened mesh of those axes, in mesh order
+    (GSPMD's replica groups; DTensor runs one collective a mesh dim):
+
+    * mesh dims that go from ``Partial`` to ``Replicate``: one all-reduce;
+    * mesh dims that go from ``Shard(d)`` to ``Replicate``, all of d's
+      shards and evenly: one all-gather;
+    * mesh dims that go from ``Partial`` to ``Shard(d)``, where nothing
+      else shards d, evenly: one reduce-scatter.
+
+    Where two mesh dims (of more than one rank) take part in one of these
+    or in a slice (``Replicate`` to ``Shard(d)``), or a slice comes before
+    a collective, each rank first keeps its slices, then the sums run, all
+    in one all-reduce, then the reduce-scatters and the gathers, and
+    DTensor's own redistribute makes whatever is left; elsewhere it is
+    DTensor's own throughout.  The gradient is redistributed the same way
+    to what DTensor's backward gives it: to the source's placements, a
+    sum's gradient kept as it arrives (an identity), a gather's
+    reduce-scattered and a slice's gathered over the same flattened
+    group."""
+    placements = tuple(placements)
+    if tuple(x.placements) == placements:
+        return x
+    if not _grouped_steps(tuple(x.placements), placements, tuple(x.shape),
+                          mesh):
+        return x.redistribute(mesh, placements)
+    return _GroupedRedistribute.apply(x, mesh, placements)
+
+
+def reduce_over(x, *axes):
+    """The DTensor ``x`` with its ``Partial`` sums over the mesh axes
+    ``axes`` (every axis if none is named) completed, in one all-reduce
+    over them, its other placements kept; ``x`` itself where it is not
+    sharded or not partial there.  A sum that DTensor would otherwise
+    complete inside the next op that needs it whole (a square, a
+    division) runs one all-reduce a mesh dim there."""
+    from torch.distributed.tensor import Replicate
+
+    if not is_sharded(x):
+        return x
+    names = list(mesh_axes(x.device_mesh))
+    axes = axes or tuple(names)
+    want = tuple(Replicate() if a in axes and p.is_partial() else p
+                 for a, p in zip(names, x.placements))
+    return redistribute(x, x.device_mesh, want)
+
+
+def _shard_dim(p) -> Optional[int]:
+    """The tensor dim of a plain ``Shard`` placement, else None."""
+    from torch.distributed.tensor import Shard
+
+    return p.dim if isinstance(p, Shard) and p == Shard(p.dim) else None
+
+
+def _grouped_steps(src: tuple, dst: tuple, shape: tuple, mesh) -> list:
+    """The steps :func:`redistribute` runs itself to take placements
+    ``src`` towards ``dst``, in order: (kind, tensor dim, mesh dims), kind
+    ``slice`` (replicated mesh dims that shard a dim nothing shards yet: each
+    rank keeps its slice, first, so that what follows moves less), ``sum``
+    (every ``Partial`` that goes to ``Replicate``: one all-reduce),
+    ``scatter`` or ``gather``; [] (DTensor's own redistribute) where no
+    sum, scatter or gather spans two mesh dims of more than one rank, and
+    no slice comes before a collective."""
+    n = len(src)
+    sizes = [mesh.size(i) for i in range(n)]
+    real = lambda dims: [i for i in dims if sizes[i] > 1]   # noqa: E731
+    even = lambda d, dims: shape[d] % int(np.prod(          # noqa: E731
+        [sizes[i] for i in dims])) == 0
+    sums = [i for i in range(n) if src[i].is_partial()
+            and dst[i].is_replicate()]
+    slices, groups = [], []
+    for d in range(len(shape)):
+        shards = [i for i in range(n) if not src[i].is_partial()
+                  and getattr(src[i], "dim", None) == d]
+        gather = [i for i in shards if dst[i].is_replicate()]
+        if gather and gather == shards and all(
+                _shard_dim(src[i]) == d for i in gather):
+            groups.append(("gather", d, gather))
+        targets = [i for i in range(n) if _shard_dim(dst[i]) == d]
+        if targets and not shards and all(src[i].is_partial()
+                                          for i in targets):
+            groups.append(("scatter", d, targets))
+        cut = [i for i in targets if src[i].is_replicate()]
+        if cut and not shards and even(d, cut):
+            slices.append(("slice", d, cut))
+    wide = lambda dims: len(real(dims)) > 1                 # noqa: E731
+    groups = [(k, d, dims) for k, d, dims in groups
+              if wide(dims) and even(d, dims)]
+    ops = {src[i].reduce_op for i in sums} | {
+        src[i].reduce_op for k, _, dims in groups if k == "scatter"
+        for i in dims}
+    cut = {i for _, _, dims in slices for i in real(dims)}
+    moves = any(src[i] != dst[i] and i not in cut for i in range(n))
+    if len(ops) > 1 or not (groups or wide(sums) or cut and moves or any(
+            wide(dims) for _, _, dims in slices)):
+        return []
+    return slices + ([("sum", None, sums)] if sums else []) + groups
+
+
+def _flat_group(mesh, dims: list):
+    """The functional collectives' group of ``mesh``'s dims ``dims``: the
+    mesh dim itself, or the mesh of several flattened in mesh order (made
+    once, on real tensors: a fake trace runs this under a fake mode)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    if len(dims) == 1:
+        return (mesh, dims[0])
+    names = tuple(mesh.mesh_dim_names[i] for i in dims)
+    with _disable_current_modes():
+        return (mesh[names]._flatten(), 0)
+
+
+def _redistribute_grouped(x, mesh, placements):
+    """:func:`redistribute` of the DTensor ``x`` outside autograd."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    placements = tuple(placements)
+    src = tuple(x.placements)
+    steps = _grouped_steps(src, placements, tuple(x.shape), mesh)
+    if not steps:
+        return x.redistribute(mesh, placements)
+    t, cur = x.to_local(), list(src)
+    for kind, d, dims in steps:
+        live = [i for i in dims if mesh.size(i) > 1]
+        n = int(np.prod([mesh.size(i) for i in live]))
+        if kind == "slice":
+            for i in live:              # mesh order: the first outermost
+                t = t.chunk(mesh.size(i), dim=d)[
+                    mesh.get_local_rank(i)].contiguous()
+        elif live:
+            group = _flat_group(mesh, live)
+            op = src[dims[0]].reduce_op if kind != "gather" else None
+            if kind == "sum":
+                t = funcol.all_reduce(t.contiguous(), op, group)
+            elif kind == "scatter":
+                if d:
+                    t = torch.cat(t.chunk(n, dim=d), dim=0)
+                t = _reduce_scatter_single(t.contiguous(), op, group)
+            else:
+                t = _all_gather_single(t.contiguous(), group)
+                if d:
+                    t = torch.cat(t.chunk(n, dim=0), dim=d)
+        for i in dims:
+            cur[i] = Shard(d) if kind in ("scatter", "slice") else Replicate()
+    if isinstance(t, funcol.AsyncCollectiveTensor):
+        t = t.wait()
+    y = DTensor.from_local(t, mesh, cur, shape=x.shape, stride=x.stride())
+    if tuple(cur) != placements:
+        y = y.redistribute(mesh, placements)
+    return y
+
+
+def _all_gather_single(t, group):
+    """The functional all-gather on dim 0 by the name this torch gives it
+    (``all_gather_single`` from torch 2.12, ``all_gather_tensor`` before),
+    looked up at the call, so that a staged replacement is the one run."""
+    import torch.distributed._functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None)
+    if gather is None:
+        return funcol.all_gather_tensor(t, 0, group)
+    return gather(t, 0, group)
+
+
+def _reduce_scatter_single(t, op: str, group):
+    """The functional reduce-scatter on dim 0, named as
+    :func:`_all_gather_single` names its gather."""
+    import torch.distributed._functional_collectives as funcol
+
+    scatter = getattr(funcol, "reduce_scatter_single", None)
+    if scatter is None:
+        return funcol.reduce_scatter_tensor(t, op, 0, group)
+    return scatter(t, op, 0, group)
+
+
+class _GroupedRedistribute(torch.autograd.Function):
+    """:func:`redistribute`: forward :func:`_redistribute_grouped`, and the
+    gradient to the source's placements the same way, a ``Partial``
+    source kept where the gradient is not one (DTensor's own backward
+    skips that step too: the reduction would follow anyway)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.source = tuple(x.placements)
+        return _redistribute_grouped(x, mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Replicate
+
+        want = tuple(Replicate() if s.is_partial() and not g.is_partial()
+                     else s for s, g in zip(ctx.source, grad.placements))
+        return (_redistribute_grouped(grad, grad.device_mesh, want), None,
+                None)
 
 
 def batch_axes(mesh: Any):
@@ -217,7 +416,7 @@ def split_dim(x, dim: int, *sizes):
                      and sizes[0] % mesh.size(i) else p
                      for i, p in enumerate(x.placements))
         if want != tuple(x.placements):
-            x = x.redistribute(mesh, want)
+            x = redistribute(x, mesh, want)
     return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
 
 
@@ -252,7 +451,7 @@ def merge_last(x):
     want = tuple(Replicate() if isinstance(p, Shard) and p.dim == x.dim() - 1
                  else p for p in x.placements)
     if want != tuple(x.placements):
-        x = x.redistribute(mesh, want)
+        x = redistribute(x, mesh, want)
     return x.reshape(*x.shape[:-2], -1)
 
 
@@ -340,8 +539,20 @@ def embed_rows(table, tokens, take):
     it owns, zeros for the rest.  The result is a partial sum over the
     model axis, sharded on D where the table is; the caller's constraint
     reduces it and moves the D shard onto the batch (an all-to-all).  The
-    table is never gathered.  Returns None where the table is not so
-    sharded (the caller gathers it)."""
+    table is never gathered.
+
+    Where the table has no more rows than a rank has tokens to look up
+    (and the model axis divides D), its rows move instead of the tokens':
+    the table is redistributed to whole rows and D on the model axis, each
+    rank looks up its own tokens in its own columns, and the caller's
+    constraint gathers D.  That size rule is an approximation of the
+    reference partitioner's choice, not its rule: it agrees with it on
+    falcon-mamba at 16 x 16 (65,024 rows against 65,536 tokens a rank:
+    the table moves) and kimi-k2 at 16 x 16 (163,840 rows against 65,536:
+    the lookup above), and not on kimi-k2 at 2 x 16 x 16, where the
+    reference moves the table of 163,840 rows against 32,768 tokens a
+    rank.  Returns None where the table's rows are not on the model axis
+    (the caller gathers it)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -353,6 +564,18 @@ def embed_rows(table, tokens, take):
                 for p in table.placements):
         return None
     m = names.index(TP)
+    if table.shape[0] <= tokens.to_local().numel() and \
+            table.shape[1] % mesh.size(m) == 0:
+        # D's FSDP shard gathered, then the model axis's shard moved from
+        # the rows to D (an all-to-all): DTensor's own path from one to the
+        # other gathers the whole table
+        rows = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
+        cols = [Shard(1) if i == m else Replicate() for i in range(mesh.ndim)]
+        whole = redistribute(redistribute(table, mesh, rows), mesh, cols)
+        lead = tuple(f"x{i}" for i in range(tokens.dim()))
+        return per_shard(take, (whole, tokens),
+                         (("v", "d"), lead), (lead + ("d",),),
+                         frozenset(lead + ("d",)))
     rows = table.shape[0] // mesh.size(m)
     lo = mesh.get_local_rank(TP) * rows
     whole = [Replicate()] * mesh.ndim
@@ -371,7 +594,7 @@ def embed_rows(table, tokens, take):
                     in_placements=(list(table.placements), whole),
                     in_grad_placements=(list(table.placements), whole),
                     device_mesh=mesh)
-    return run(table, tokens.redistribute(mesh, whole))
+    return run(table, redistribute(tokens, mesh, whole))
 
 
 def is_sharded(x) -> bool:
@@ -448,7 +671,7 @@ def per_shard(fn, args: tuple, dims: tuple, outs: tuple, free: frozenset,
         if d is not None and is_sharded(a):
             want = tuple(target(d))
             if tuple(a.placements) != want:
-                a = a.redistribute(mesh, want)
+                a = redistribute(a, mesh, want)
         placed.append(a)
     names = list(mesh_axes(mesh))
 

@@ -38,6 +38,7 @@ import torch
 
 __all__ = ["sharded_train_steps", "sharded_serving_steps", "ep_moe_rank",
            "moe_forward_rank", "moe_inputs", "summed_shards_rank",
+           "grouped_redistribute_rank",
            "local_shards", "with_host_staging", "run_jobs", "train_batch",
            "whole_leaves"]
 
@@ -85,12 +86,16 @@ def _count_launches():
 
 def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                         B: int, S: int, mesh_shape, device: str,
-                        steps: int = 1, leaves: Optional[int] = 0
-                        ) -> List[Dict]:
+                        steps: int = 1, leaves: Optional[int] = 0,
+                        account: bool = False) -> List[Dict]:
     """For each config: initial state from seed 0 (the same on every rank,
     as the single-device step it is held to draws it), placed by the rules
-    on a ('data', 'model') mesh of ``mesh_shape``, then ``steps`` train
-    steps on data steps 0, 1, ...  Returns per config the steps' metrics
+    on a ('data', 'model') or ('pod', 'data', 'model') mesh of
+    ``mesh_shape``, then ``steps`` train steps on data steps 0, 1, ...
+    With ``account``, step 0 runs counted by ``launch.dryrun.Accounting``
+    (``accounting``: its totals, and ``collectives``: each collective's row,
+    op with the mesh axes its group spans and local shapes).  Returns per
+    config the steps' metrics
     (floats), the seconds of each step, the K3 / K4 / K5 launches of this
     rank, and its peak device memory, allocated and reserved (CUDA); on
     rank 0 also, by :func:`whole_leaves`, for the leaves of at most
@@ -103,6 +108,7 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
     from repro_torch.kernels import flash_attention as K3
     from repro_torch.kernels import mamba_scan as K4
     from repro_torch.kernels import rmsnorm as K5
+    from repro_torch.launch.dryrun import Accounting
     from repro_torch.launch.mesh import (make_local_mesh, reset_staged_bytes,
                                          staged_bytes)
     from repro_torch.parallel import sharding as sh
@@ -132,9 +138,16 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                                      f"{ns.placements}")
         b_sh = sh.to_shardings(sh.batch_pspecs(cfg, shape, mesh), mesh)
         metrics, seconds, grads = [], [], []
-        step = make_train_step(cfg, opt_cfg, on_grads=(
-            None if leaves == 0           # gathered on every rank
-            else lambda g: grads.append(whole_leaves(g, leaves))))
+        acc = Accounting(dev.type, mesh) if account else None
+
+        def keep(g):
+            """The gradients' small leaves, gathered on every rank (not
+            counted with the step's collectives)."""
+            with acc.paused() if acc is not None else \
+                    contextlib.nullcontext():
+                grads.append(whole_leaves(g, leaves))
+        step = make_train_step(cfg, opt_cfg,
+                               on_grads=None if leaves == 0 else keep)
         reset_staged_bytes()
         for K in (K3, K4, K5):
             K.reset_launches()
@@ -146,7 +159,9 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
         for i in range(steps):
             batch = sh.device_put(train_batch(cfg, B, S, dev, i), b_sh)
             t0 = time.perf_counter()
-            with sh.activation_mesh(mesh):
+            with sh.activation_mesh(mesh), (
+                    acc if acc is not None and i == 0
+                    else contextlib.nullcontext()):
                 params, opt, m = step(params, opt, batch)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -163,6 +178,10 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                    peak_reserved_bytes=(torch.cuda.max_memory_reserved(dev)
                                         if dev.type == "cuda" else None),
                    allocated_at_reset_bytes=at_reset)
+        if acc is not None:
+            row.update(accounting=acc.summary(), collectives=[
+                (op, shapes) for op, shapes, flops, _ in acc.rows
+                if not flops])
         if rank == 0:
             row.update(grads=grads, params_after=after)
         out.append(row)
@@ -336,8 +355,9 @@ def ep_moe_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
 def moe_forward_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
                      mesh_shape, device: str,
                      dispatch_dtypes=("bfloat16",)) -> Dict[str, Any]:
-    """The DTensor ``moe_forward`` on a ('data', 'model') mesh of
-    ``mesh_shape``, inside ``activation_mesh``: token groups spread over
+    """The DTensor ``moe_forward`` on a ('data', 'model') or ('pod',
+    'data', 'model') mesh of ``mesh_shape``, inside ``activation_mesh``:
+    token groups spread over
     every rank (G sharded on both axes), the experts on 'model', so the
     slots cross the model axis at the EP constraint by DTensor's
     all-to-all (the dispatch, float8 with its scales under the float8
@@ -348,7 +368,7 @@ def moe_forward_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
     Returns per dtype the seconds, the peak device memory (CUDA), the
     bytes the host staging copied (when it is installed), each staged
     collective a card rank's forward stands in for (kind, payload bytes,
-    local shape) and the forward's seconds by part
+    local shape, ranks in its group) and the forward's seconds by part
     (:func:`repro_torch.models.moe.timed_parts`: CUDA events on a card);
     on rank 0 also the whole output (float32 numpy) and the whole dispatch
     table that forward routed by."""
@@ -376,8 +396,8 @@ def moe_forward_rank(rank: int, world: int, inputs: Dict[str, Any], cfg,
             c = dataclasses.replace(cfg, moe_dispatch_dtype=dt)
             seen: List[tuple] = []
             observe = (mesh_mod.observe_staged(
-                lambda kind, nbytes, shape: seen.append(
-                    (kind, nbytes, shape)), dev.type)
+                lambda kind, nbytes, shape, pg: seen.append(
+                    (kind, nbytes, shape, pg.size())), dev.type)
                        if cuda else contextlib.nullcontext())
             mesh_mod.reset_staged_bytes()
             with observe, torch.no_grad(), timed_parts(dev) as parts:
@@ -427,6 +447,73 @@ def summed_shards_rank(rank: int, world: int, mesh_shape) -> Dict[str, Any]:
                 grad_local_shape=tuple(x.grad.to_local().shape),
                 x_local_shape=tuple(x.to_local().shape),
                 grad=x.grad.full_tensor().numpy())
+
+
+def grouped_redistribute_rank(rank: int, world: int, mesh_shape,
+                              device: str = "cpu", count: bool = True
+                              ) -> Dict[str, Any]:
+    """``act.redistribute`` against DTensor's own ``redistribute`` on a
+    ('data', 'model') mesh of ``mesh_shape`` on ``device`` (its
+    collectives staged through the host where :func:`run_ranks` stages
+    them), for the two changes it makes
+    in one collective over both axes: a (4, 6) float64 sum ``Partial`` on
+    both to ``Replicate`` (each rank's share of small integers: sums
+    exact), and a (4, 6) tensor ``Shard(0)`` on both to ``Replicate``.
+    Each result's backward runs on a ``Partial`` gradient (both axes) of
+    its own small integers.  Returns, per case and path, this rank's
+    result and gradient (local shards), the gradient's placements, and
+    (with ``count``) the collectives ``dryrun.Accounting`` counts by kind
+    in the forward and in the backward, with those over both axes at once
+    (CPU collectives staged through the host cannot be counted)."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_mod
+
+    from .act import redistribute
+
+    del world
+    # a mesh of its own for DTensor's path: uncounted (outside Accounting,
+    # which turns that off), torch 2.13's DTensor merges per-axis
+    # collectives itself over a flattened mesh once one exists
+    dev = torch.device(device)
+    meshes = {path: mesh_mod.make_local_mesh(*mesh_shape, device=dev.type)
+              for path in ("dtensor", "grouped")}
+    whole = [Replicate(), Replicate()]
+    both = [Partial(), Partial()]
+    local = (torch.arange(24, dtype=torch.float64, device=dev).reshape(4, 6)
+             * (rank + 1)) % 5
+    cases = dict(sum=(local, both), gather=(
+        local[:4 // meshes["grouped"].size()], [Shard(0), Shard(0)]))
+    out: Dict[str, Any] = {}
+    for name, (t, placements) in cases.items():
+        for path, mesh in meshes.items():
+            x = DTensor.from_local(t.clone(), mesh, placements,
+                                   shape=(4, 6), stride=(6, 1)
+                                   ).requires_grad_(True)
+            g = DTensor.from_local(local % 3 + rank, mesh, both,
+                                   shape=(4, 6), stride=(6, 1))
+            fwd = D.Accounting(dev.type, mesh)
+            with fwd if count else contextlib.nullcontext():
+                y = (redistribute(x, mesh, whole) if path == "grouped"
+                     else x.redistribute(mesh, whole))
+            bwd = D.Accounting(dev.type, mesh)
+            with bwd if count else contextlib.nullcontext():
+                y.backward(g)
+            out[name, path] = dict(
+                y=y.to_local().detach().cpu().numpy(),
+                placements=[type(p).__name__ for p in y.placements],
+                grad=x.grad.to_local().cpu().numpy(),
+                grad_placements=[(type(p).__name__, getattr(p, "dim", None))
+                                 for p in x.grad.placements],
+                forward={k: v for k, v in fwd.collective_counts.items() if v},
+                backward={k: v for k, v in bwd.collective_counts.items()
+                          if v},
+                flattened={k: v for k, v in fwd.flattened_counts.items()
+                           if v},
+                rows=[r[0] for r in fwd.rows + bwd.rows if not r[2]])
+    return out
 
 
 def local_shards(rank: int, world: int, mesh_shape, axis_names,

@@ -278,7 +278,7 @@ def reshard(tree, pspecs, mesh: Any):
     tensor -- the same on every rank -- placed, which moves nothing."""
     from torch.distributed.tensor import distribute_tensor
 
-    from .act import is_sharded
+    from .act import is_sharded, redistribute
 
     flat, tdef = T.flatten(tree)
     specs = T.flatten(to_shardings(pspecs, mesh))[0]
@@ -291,7 +291,7 @@ def reshard(tree, pspecs, mesh: Any):
             out.append(distribute_tensor(t, s.mesh, s.placements,
                                          src_data_rank=None))
         elif tuple(t.placements) != s.placements:
-            out.append(t.redistribute(s.mesh, s.placements))
+            out.append(redistribute(t, s.mesh, s.placements))
         else:
             out.append(t)
     return T.unflatten(tdef, out)

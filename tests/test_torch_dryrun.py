@@ -11,8 +11,14 @@
   Per-device FLOPs within 1 % of the reference's HLO count (measured:
   equal to 5 digits, falcon-mamba +0.01 %, kimi-k2 equal), argument bytes
   within 1 %, the analytic figures equal, the same keys; kimi-k2's
-  collective elements within 10 %, its all-to-alls equal, no slot tensor
-  in a collective.  And 1-layer ``falcon-mamba-7b`` ``decode_32k``: the
+  collective elements within 3 %, attention's within 1.5 times the
+  reference's, its all-to-alls equal, no slot tensor in a collective;
+  falcon-mamba's within 10 %, with no all-gather of in_proj's whole
+  product.  kimi-k2's cell once more at 2 x 16 x 16: FLOPs within 1 %,
+  collective elements within 10 %, the whole-batch combine all-reduced
+  twice (over 'model', over 'pod' and 'data' at once), and no collective
+  issued once per axis over ('pod', 'data').  And 1-layer
+  ``falcon-mamba-7b`` ``decode_32k``: the
   all-gathers' elements a device within 5 % of the reference's (XLA's
   CPU backend gathers bf16 weights as f32, so its bytes are twice the
   program's; elements compare).
@@ -59,21 +65,48 @@ from test_torch_harness import ROOT
 PARITY = [("hubert-xlarge", "train_4k"), ("falcon-mamba-7b", "train_4k"),
           ("qwen2-7b", "train_4k"), ("kimi-k2-1t-a32b", "train_4k")]
 PARITY_FLOPS_REL = 1e-2
-#: the cell whose collectives are held to the reference's: kimi-k2, whose
-#: 384 experts spread over the model axis (24 a rank); each collective's
-#: elements a device (XLA's CPU backend widens bf16 collectives to f32, so
-#: bytes do not compare), totalled over kinds.  Measured: the port
-#: +7.07 % (3.533e10 against 3.300e10).  The differences, from the
-#: attribution in PERF.md (tools/dryrun_attribution.py): attention's
-#: exchanges (+2.77e9 elements: 3.21e9 against 0.44e9), against the
-#: routing probabilities the reference gathers over 'data' for its top_k
-#: (-0.40e9: its 0.81e9 against the port's aux-loss reduce-scatter of
-#: 0.40e9); the head, the loss and the embedding within 0.08e9 each.  The
-#: combine (2.25e10 of the total), the hidden-state all-reduces, the
-#: expert weights' gathers and gradient reductions and the all-to-alls
-#: are the reference's, element for element.  10 % leaves 3 points above.
+#: the cell whose collectives are held to the reference's most closely:
+#: kimi-k2, whose 384 experts spread over the model axis (24 a rank); each
+#: collective's elements a device (XLA's CPU backend widens bf16
+#: collectives to f32, so bytes do not compare), totalled over kinds.
+#: Measured: the port -2.72 % (3.2101e10 against 3.2997e10).  The
+#: differences, from the attribution in PERF.md
+#: (tools/dryrun_attribution.py): the routing probabilities the reference
+#: gathers over 'data' for its top_k (-0.81e9: the port completes the
+#: aux loss's means as (E,) vectors and moves no (B, S, E) tensor);
+#: attention (-0.09e9: k and v gathered over 'model' and dK / dV summed
+#: back, 3.52e8 against the reference's 4.40e8); the head, the loss and
+#: the embedding within 0.08e9 each.  The combine (2.25e10 of the total),
+#: the hidden-state all-reduces, the expert weights' gathers and gradient
+#: reductions and the all-to-alls are the reference's, element for
+#: element.  The count is exact (a trace, no noise); 3 % is the bound the
+#: repair was asked to meet.
 EP_CELL = ("kimi-k2-1t-a32b", "train_4k")
+EP_ELEMENTS_REL = 3e-2
+#: attention's collectives in the reference's HLO of EP_CELL, elements a
+#: device (tools/dryrun_attribution.py: k and v gathered over 8 of the
+#: model ranks, dK / dV summed over pairs); the port's may be 1.5 times
+ATTENTION_REF_ELEMENTS = 4.4006e8
+ATTENTION_REL = 1.5
+#: the other cells' collectives, in total (see MAMBA_CELL, MULTIPOD_CELL)
 COLLECTIVE_ELEMENTS_REL = 1e-1
+#: the Mamba cell whose collectives are held to the reference's:
+#: falcon-mamba-7b train_4k, one layer, 16 x 16.  in_proj's product stays
+#: on its 'model' shards and one all-to-all a pass (the forward, its
+#: recompute, the backward) moves its halves to u's and z's; the
+#: embedding, whose 65,024 rows are fewer than a rank's 65,536 tokens,
+#: moves the table and not the activations.  Measured: -6.01 % (1.8215e9
+#: against 1.9381e9; +174.5 % before both): the reference moves in_proj's
+#: halves in eight collective-permutes and two all-to-alls (4.72e8 against
+#: the port's 2.01e8), the port gathers the head's FSDP shard once a loss
+#: chunk and pass (16 against 9, +1.16e8)
+MAMBA_CELL = ("falcon-mamba-7b", "train_4k")
+#: kimi-k2's cell at 2 x 16 x 16 (one layer): a sum over ('pod', 'data')
+#: is one all-reduce over both, as GSPMD's replica groups span them
+#: (counted with DTensor's own merging of per-axis collectives off, as
+#: ``Accounting`` counts every trace: torch 2.11 has none).  Measured:
+#: +0.77 % (3.0385e10 against 3.0154e10; +69.8 % before)
+MULTIPOD_CELL = ("kimi-k2-1t-a32b", "train_4k")
 #: the serving cell whose all-gathers are held to the reference's: the
 #: embedding lookup in each rank's own block of the table, the table never
 #: gathered
@@ -142,9 +175,10 @@ def elements_by_kind(hlo):
 
 
 out = {}
-for arch, shape, *extra in json.loads(sys.argv[1]):
-    extra = extra[0] if extra else {}
-    result, _ = RD.lower_cell(arch, shape, False,
+for arch, shape, *rest in json.loads(sys.argv[1]):
+    extra = rest[0] if rest else {}
+    multi_pod = bool(rest[1]) if len(rest) > 1 else False
+    result, _ = RD.lower_cell(arch, shape, multi_pod,
                               overrides={"n_layers": 1, **extra})
     gathered = 0
     for m in re.finditer(r"= \w+\[([\d,]*)\]\S* all-gather\(", texts[-1]):
@@ -152,7 +186,8 @@ for arch, shape, *extra in json.loads(sys.argv[1]):
         for d in filter(None, m.group(1).split(",")):
             n *= int(d)
         gathered += n
-    key = "/".join([arch, shape, *extra.values()])
+    key = "/".join([arch, shape, *extra.values()]
+                   + (["2x16x16"] if multi_pod else []))
     out[key] = dict(result=result, all_gather_elements=gathered,
                     collective_elements=elements_by_kind(texts[-1]))
 print(json.dumps(out))
@@ -173,8 +208,9 @@ def reference_cells():
     subprocess; the result is read when a test first needs it."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     fp8 = [(*FP8_CELL, {"moe_dispatch_dtype": dt}) for dt in DISPATCH_DTYPES]
+    cells = PARITY + [GATHER_PARITY] + fp8 + [(*MULTIPOD_CELL, {}, True)]
     proc = subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
-                             json.dumps(PARITY + [GATHER_PARITY] + fp8)],
+                             json.dumps(cells)],
                             env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -275,14 +311,15 @@ def port_cells():
     tensor's bytes are taken as its element count."""
     cache = {}
 
-    def get(arch, shape, elements=False, **overrides):
-        key = (arch, shape, tuple(sorted(overrides.items())), elements)
+    def get(arch, shape, elements=False, multi_pod=False, **overrides):
+        key = (arch, shape, tuple(sorted(overrides.items())), elements,
+               multi_pod)
         if key not in cache:
             nbytes = D._nbytes
             if elements:
                 D._nbytes = lambda t: t.numel()
             try:
-                cache[key] = D.lower_cell(arch, shape, False, overrides={
+                cache[key] = D.lower_cell(arch, shape, multi_pod, overrides={
                     "n_layers": 1, **overrides}, device="cpu")
             finally:
                 D._nbytes = nbytes
@@ -331,14 +368,85 @@ def _hold_ep_collectives(reference_cells, port_cells, arch, shape):
     got, rows = port_cells(arch, shape, elements=True)
     got = got["collectives"]["bytes_by_kind"]
     total, ref_total = sum(got.values()), sum(want.values())
-    assert abs(total / ref_total - 1) < COLLECTIVE_ELEMENTS_REL, (got, want)
+    assert abs(total / ref_total - 1) < EP_ELEMENTS_REL, (got, want)
     assert got["all-to-all"] == want["all-to-all"] > 0
     cfg = get_config(arch)
     C = capacity(SHAPES[shape].seq_len, cfg.n_experts,
                  cfg.experts_per_token, cfg.capacity_factor)
-    slots = [r for r in rows if r[2] == 0          # the collectives' rows
-             and any(len(s) == 4 and s[2] == C for s in r[1])]
+    colls = [r for r in rows if r[2] == 0]          # the collectives' rows
+    slots = [r for r in colls if any(len(s) == 4 and s[2] == C
+                                     for s in r[1])]
     assert not slots, slots
+    # attention: q and the output stay on their heads' shards (no
+    # collective of a (B, S, H / M, hd) tensor); k and v, (B, S, Kv hd / M)
+    # a rank, are gathered over 'model' and their gradients reduced back
+    M, hd, S = 16, cfg.head_dim, SHAPES[shape].seq_len
+    assert not [r for r in colls if any(s[-2:] == (cfg.n_heads // M, hd)
+                                        for s in r[1])]
+    kv = [r for r in colls if any(len(s) == 3 and s[1] == S and s[2] ==
+                                  cfg.n_kv_heads * hd // M for s in r[1])]
+    assert kv and all(r[0].endswith(" @model") for r in kv)
+    assert sum(r[3] for r in kv) <= ATTENTION_REL * ATTENTION_REF_ELEMENTS
+
+
+def test_mamba_cell_collectives_match_the_references(reference_cells,
+                                                      port_cells):
+    """MAMBA_CELL: the port's collective elements a device within
+    COLLECTIVE_ELEMENTS_REL of the reference's in total; no all-gather
+    yields in_proj's whole (B, L, 2 Di) product (a rank's batch, the whole
+    sequence, both halves), and one all-to-all over 'model' a pass moves
+    its halves, each rank's 2 Di / M columns as u's and z's Di / M."""
+    arch, shape = MAMBA_CELL
+    want = reference_cells()[f"{arch}/{shape}"]["collective_elements"]
+    got, rows = port_cells(arch, shape, elements=True)
+    total = sum(got["collectives"]["bytes_by_kind"].values())
+    assert abs(total / sum(want.values()) - 1) < COLLECTIVE_ELEMENTS_REL, (
+        got["collectives"]["bytes_by_kind"], want)
+    cfg, cell = get_config(arch), SHAPES[shape]
+    B, L, Di = cell.global_batch // 16, cell.seq_len, cfg.d_inner
+    colls = [r for r in rows if r[2] == 0]
+    gathers = [r for r in colls if "all_gather" in r[0]]
+    assert gathers and all(r[3] != B * L * 2 * Di for r in gathers)
+    halves = [r for r in colls if "all_to_all_single" in r[0]]
+    assert [(r[0].rsplit(" @", 1)[1], r[1], r[3]) for r in halves] == [
+        ("model", [(2, B, L, Di // 16)], 2 * B * L * Di // 16)] * 3
+
+
+def _per_axis_pairs(rows, axes=("pod", "data")) -> list:
+    """Consecutive collectives of one kind, one over each of ``axes``: a
+    change over both made one axis at a time."""
+    colls = [r[0].rsplit(" @", 1) for r in rows if r[2] == 0]
+    return [(a, b) for a, b in zip(colls, colls[1:])
+            if len(a) == len(b) == 2 and a[0] == b[0]
+            and {a[1], b[1]} == set(axes)]
+
+
+def test_multipod_cell_sums_over_pod_and_data_at_once(reference_cells,
+                                                       port_cells):
+    """MULTIPOD_CELL at 2 x 16 x 16: FLOPs within PARITY_FLOPS_REL and
+    collective elements within COLLECTIVE_ELEMENTS_REL of the reference's;
+    the whole-batch combine (B, S, D) is all-reduced twice, over 'model'
+    and over 'pod' and 'data' at once (three times before, one an axis),
+    and no change over ('pod', 'data') runs one collective an axis."""
+    arch, shape = MULTIPOD_CELL
+    ref = reference_cells()[f"{arch}/{shape}/2x16x16"]
+    mine, _ = port_cells(arch, shape, multi_pod=True)
+    gap = (mine["cost"]["flops_per_device"]
+           / ref["result"]["cost"]["flops_per_device"] - 1)
+    assert abs(gap) < PARITY_FLOPS_REL, gap
+    assert mine["chips"] == ref["result"]["chips"] == 512
+    got, rows = port_cells(arch, shape, elements=True, multi_pod=True)
+    total = sum(got["collectives"]["bytes_by_kind"].values())
+    want = sum(ref["collective_elements"].values())
+    assert abs(total / want - 1) < COLLECTIVE_ELEMENTS_REL, (
+        got["collectives"]["bytes_by_kind"], ref["collective_elements"])
+    cfg, cell = get_config(arch), SHAPES[shape]
+    whole = cell.global_batch * cell.seq_len * cfg.d_model
+    combine = sorted(r[0].rsplit(" @", 1)[1] for r in rows
+                     if r[2] == 0 and "all_reduce" in r[0] and r[3] == whole)
+    assert combine == ["model", "pod+data"], combine
+    assert not _per_axis_pairs(rows)
+    assert D.collective_axes(rows)["pod+data"]["count"] > 0
 
 
 def test_decode_all_gathers_match_the_references_dry_run(reference_cells,

@@ -9,7 +9,8 @@ The port's side is ``repro_torch.launch.dryrun.lower_cell`` on the CPU
 (the plain path, a fake world of 256 or 512 ranks), counted once with
 every tensor's bytes taken as its element count; its trace rows give each
 matrix product's FLOPs by its local operand shapes and each collective's
-elements by its op and operand shapes.  The reference's side runs in a
+elements by its op, the mesh axes its group spans (``@pod+data``) and
+its operand shapes.  The reference's side runs in a
 subprocess (this file imports neither jax nor the reference package): its
 own ``lower_cell`` with 512 XLA host devices and Auto mesh axes, as
 ``tests/test_torch_dryrun.py`` runs it, and its compiled HLO read with its
