@@ -541,16 +541,25 @@ SHARDED_GNORM_REL_TOL = 2e-2
 #: off by ~0.7
 SHARDED_LEAF_ELEMENTS = 1 << 20
 SHARDED_LEAF_REL_TOL = 2e-2
+#: the sharded_train step's optimizer collectives by kind and axes, as the
+#: dry run's trace on the CPU counts them (torch 2.13; held there by
+#: tests/test_torch_dryrun.py): the replicated parameters' gradient sums in
+#: one all-reduce over 'data' (one bucket: every leaf bf16), and the global
+#: norm's per-leaf square-sums in one over the whole mesh.  Each rank on
+#: the card (torch 2.11) and the card's fake trace must count the same
+SHARDED_OPTIMIZER_COLLECTIVES = {"all-reduce @data": 1,
+                                 "all-reduce @data+model": 1}
 #: slice 16's lowerings on the rig's ranks, each at its config's published
-#: widths, 1 layer, bf16, one train step on the sharded_train batch (B 4,
-#: S 1024), held to one device's step on the same card from the same seed at
-#: the sharded_train bounds (one layer has fewer split products on a token's
-#: path than their two), and counted by the dry run's Accounting against
-#: its fake trace of the same step:
+#: widths, 1 layer, bf16, one train step on a batch of B 4, S
+#: LOWERING_SEQ, held to one device's step on the same card from the same
+#: seed at the sharded_train bounds (one layer has fewer split products on
+#: a token's path than their two), and counted by the dry run's Accounting
+#: against its fake trace of the same step:
 #: - falcon-mamba-7b at data 1 x model 4: in_proj's product stays on its
-#:   'model' columns; one all-to-all a pass (forward, remat's recompute,
-#:   backward) moves its halves (``models.mamba._HalvesExchange``, staged
-#:   through the host), and no all-gather makes the whole (B, S, 2 Di);
+#:   'model' columns; the reference partitioner's four permutes a pass
+#:   (forward, remat's recompute; w columns back for each in the backward)
+#:   move its halves (``models.mamba._HalvesExchange``, staged through the
+#:   host), and no all-gather makes the whole (B, S, 2 Di);
 #: - gemma-2b at data 1 x model 4: its 8 query heads divide the axis, its
 #:   one kv head does not, so q and the output stay on their heads and only
 #:   k and v move (``models.transformer._kv_whole_attention``);
@@ -558,6 +567,10 @@ SHARDED_LEAF_REL_TOL = 2e-2
 #:   'data') run one collective over both, none one axis at a time
 LOWERING_TRAIN = (("falcon-mamba-7b", (1, 4)), ("gemma-2b", (1, 4)),
                   ("falcon-mamba-7b", (2, 2, 1)))
+#: their steps' sequence length, half the sharded_train step's: with the
+#: in_proj halves moved as the reference moves them the whole smoke ran
+#: past 700 s of its 1,200 s limit at 1024 (H100 80GB HBM3, 700 W)
+LOWERING_SEQ = 512
 #: and, on LOWERING_MOE_RANKS ranks of their own (the combine sums over
 #: ('pod', 'data') only where 'model' shards the experts), the DTensor
 #: moe_forward of one MoE layer at jamba-v0.1-52b's widths (E 16, k 2, D
@@ -570,6 +583,25 @@ LOWERING_TRAIN = (("falcon-mamba-7b", (1, 4)), ("gemma-2b", (1, 4)),
 LOWERING_MOE_ARCH, LOWERING_MOE_MESH = "jamba-v0.1-52b", (2, 2, 2)
 LOWERING_MOE_RANKS = 8
 LOWERING_MOE_GROUPS, LOWERING_MOE_TOKENS = 8, 1024
+#: slice 17's lowerings that need more than four ranks, in the same launch
+#: after the MoE layer, each held as LOWERING_TRAIN holds its cases, in the
+#: dtype given:
+#: - qwen2-7b at data 1 x model 8: its 28 query heads do not divide the
+#:   axis, its 4 kv heads do, so each rank computes its kv group's 7 heads
+#:   and keeps its own 448 columns of the output, those of wo's row shard
+#:   (``models.transformer._kv_group_attention``): no reduce-scatter of a
+#:   padded output.  In float32: in bf16 at this mesh the final norm's
+#:   gradient reads 5.2e-2 from one device's, equally under the padded
+#:   lowering before it (the vocabulary's 8 bf16 partial sums; every leaf
+#:   the attention reaches 1.3e-2), while in f32 every leaf reads ~3e-6
+#:   (tools/lowering_leaf_errors.py, H100 80GB HBM3, 700 W);
+#: - falcon-mamba-7b at pod 2 x data 2 x model 2: the batch on ('pod',
+#:   'data'), the table's D on 'data' alone, so the embedding moves the
+#:   table (``parallel.act._TableToColumns``: one permute over 'data' and
+#:   'model' each way, staged through the host), and in_proj's halves move
+#:   by the reference's permutes at M = 2
+LOWERING_TRAIN_8 = (("qwen2-7b", (1, 8), "float32"),
+                    ("falcon-mamba-7b", (2, 2, 2), "bfloat16"))
 #: a rank's device memory budget: its allocator's reserved peak, 15.37 GB
 #: (12.59 GB of it allocated by the ep_moe forward), plus its CUDA context
 #: and cuBLAS workspace, ~0.6 GB, and slack; the card must have this free
@@ -1825,8 +1857,8 @@ def _moe_routes(replay=None):
     orig = MOE._route_group
     own = []
 
-    def route(logits, k, C, E):
-        out = orig(logits, k, C, E)
+    def route(logits, k, C, E, **kw):
+        out = orig(logits, k, C, E, **kw)
         own.append(out[2].clone())
         if replay is None:
             return out
@@ -3224,10 +3256,14 @@ def _dispatch_check(torch, np, cfg, C, single, ranks) -> dict:
 
 def _train_single(torch, dev, arch: str = SHARDED_ARCH,
                   layers: int = SHARDED_LAYERS,
-                  steps: int = SHARDED_STEPS) -> tuple:
-    """``arch`` (qwen2-7b) at published widths, ``layers`` layers: ``steps``
-    single-device steps on the card from seed 0 (run first and freed),
-    with step 1's gradients of the small leaves on the host."""
+                  steps: int = SHARDED_STEPS, seq: int = SHARDED_SEQ,
+                  dtype: str = "bfloat16") -> tuple:
+    """``arch`` (qwen2-7b) at published widths, ``layers`` layers, its
+    parameters and compute in ``dtype``: ``steps`` single-device steps on
+    the card from seed 0 (run first and freed), with step 1's gradients of
+    the small leaves on the host."""
+    import dataclasses
+
     from repro_torch import tree as TR
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.ranks import train_batch, whole_leaves
@@ -3237,6 +3273,7 @@ def _train_single(torch, dev, arch: str = SHARDED_ARCH,
     cfg = serving_config(arch, layers=layers)
     assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == \
         ("bfloat16", "bfloat16", True), cfg
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
     opt_cfg = AdamWConfig(**SHARDED_OPT)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3249,7 +3286,7 @@ def _train_single(torch, dev, arch: str = SHARDED_ARCH,
         whole_leaves(g, SHARDED_LEAF_ELEMENTS)))
     metrics, step_ms = [], []
     for i in range(steps):
-        batch = train_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, dev, i)
+        batch = train_batch(cfg, SHARDED_BATCH, seq, dev, i)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
@@ -3359,6 +3396,7 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
         ranks.append(dict(flops=acc["flops"], flops_rel=flops_rel,
                           collective_bytes=acc["collective_bytes"],
                           collective_counts=acc["collective_counts"],
+                          optimizer=acc["counts_by_part"].get("optimizer"),
                           flattened=sum(acc["flattened_counts"].values()),
                           peak_memory_bytes=peak, peak_rel=peak_rel,
                           allocated_at_reset_bytes=base,
@@ -3372,6 +3410,8 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
                                 collective_counts=pred["collectives"][
                                     "count_by_kind"],
                                 flattened=p_flat,
+                                optimizer=pred["collectives_by_part"].get(
+                                    "optimizer"),
                                 argument_bytes=pred["memory"][
                                     "argument_bytes"],
                                 temp_bytes=pred["memory"]["temp_bytes"],
@@ -3386,7 +3426,9 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
           f"{p_flops:.6e} FLOPs a rank, measured "
           f"{[r['flops'] for r in ranks]}; collectives equal by kind, "
           f"{p_flat} over several mesh axes at once predicted, "
-          f"{[r['flattened'] for r in ranks]} counted; peak "
+          f"{[r['flattened'] for r in ranks]} counted; the optimizer's "
+          f"{cross['predicted']['optimizer']} predicted, "
+          f"{[r['optimizer'] for r in ranks]} counted; peak "
           f"predicted {p_peak / 1e9:.3f} GB, measured "
           f"{[round(r['peak_memory_bytes'] / 1e9, 3) for r in ranks]} GB "
           f"({100 * r0['peak_rel']:+.1f} %): the rank's allocator peak above "
@@ -3403,6 +3445,11 @@ def dryrun_phase(torch, dev, smi: str, sharded: dict) -> dict:
         assert r["collective_counts"] == cross["predicted"][
             "collective_counts"], (r, cross["predicted"])
         assert r["flattened"] == p_flat, (r, cross["predicted"])
+        # the optimizer's all-reduces: this torch's rank and fake trace, and
+        # the CPU trace's count (tests/test_torch_dryrun.py recomputes it)
+        assert r["optimizer"] == cross["predicted"]["optimizer"] == \
+            SHARDED_OPTIMIZER_COLLECTIVES, (r["optimizer"],
+                                            cross["predicted"]["optimizer"])
         assert abs(r["peak_rel"]) <= DRYRUN_PEAK_REL_TOL, (r, p_peak)
     cells = []
     for arch, shape, multi_pod in DRYRUN_CELLS:
@@ -3477,8 +3524,8 @@ def _grouped_check(np, ranks) -> dict:
 
 def _lowering_singles(torch, dev) -> dict:
     """Slice 16's single-device runs, each on the card and freed before
-    the ranks start: one train step of each LOWERING_TRAIN config (1
-    layer), and the MoE layer at LOWERING_MOE_ARCH's widths (all its
+    the ranks start: one train step of each LOWERING_TRAIN and
+    LOWERING_TRAIN_8 config (1 layer), and the MoE layer at LOWERING_MOE_ARCH's widths (all its
     experts) with its dispatch table."""
     from repro_torch.models.moe import _route_group, capacity, moe_forward
     from repro_torch.parallel.ranks import moe_inputs
@@ -3486,7 +3533,13 @@ def _lowering_singles(torch, dev) -> dict:
 
     out = {}
     for arch in dict.fromkeys(a for a, _ in LOWERING_TRAIN):
-        out[arch] = _train_single(torch, dev, arch, layers=1, steps=1)
+        out[arch] = _train_single(torch, dev, arch, layers=1, steps=1,
+                                  seq=LOWERING_SEQ)
+    for arch, _, dtype in LOWERING_TRAIN_8:
+        out[arch, dtype] = out[arch] if dtype == "bfloat16" and \
+            arch in out else _train_single(torch, dev, arch, layers=1,
+                                           steps=1, seq=LOWERING_SEQ,
+                                           dtype=dtype)
     # the layer's widths and dtype (its pattern repeats every 8 layers)
     cfg = serving_config(LOWERING_MOE_ARCH, layers=8)
     E, k = cfg.n_experts, cfg.experts_per_token
@@ -3507,7 +3560,7 @@ def _lowering_singles(torch, dev) -> dict:
 
 
 def _lowering_train_check(np, cfg, single, ranks, mesh_shape, dev,
-                          B: int = SHARDED_BATCH, S: int = SHARDED_SEQ
+                          B: int = SHARDED_BATCH, S: int = LOWERING_SEQ
                           ) -> dict:
     """One LOWERING_TRAIN case on the rig's ranks: its step against the
     single-device step (every rank reads the same metrics; loss, grad norm
@@ -3515,10 +3568,11 @@ def _lowering_train_check(np, cfg, single, ranks, mesh_shape, dev,
     K4 / K5 launches the config's count), and what each rank's Accounting
     counted against the fake trace of the same step on the same mesh
     (collectives and their bytes by kind, and those over several mesh
-    axes at once), with the slice's own facts: the Mamba halves moved by
-    three all-to-alls and never gathered whole, q never moved where only
-    the kv heads miss the axis, and no change over ('pod', 'data') made
-    one axis at a time."""
+    axes at once), with the slices' own facts: the Mamba halves moved by
+    the reference's permutes and never gathered whole, q never moved where
+    only the kv heads miss the axis, no change over ('pod', 'data') made
+    one axis at a time, and the optimizer's all-reduces the fake trace's,
+    at most one per (axes, dtype) and one for the norm."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun as DR
 
@@ -3558,17 +3612,61 @@ def _lowering_train_check(np, cfg, single, ranks, mesh_shape, dev,
         assert sum(acc["flattened_counts"].values()) == p_flat, \
             (cfg.name, acc["flattened_counts"], p_flat)
     M = mesh_shape[-1]
+    b = B // math.prod(mesh_shape[:-1])         # a rank's rows of the batch
     rows = ranks[0]["collectives"]
     facts = {}
     if M > 1 and any(sp.kind == "mamba" for sp in cfg.pattern):
+        # the reference's permutes a pass (at M = 4: 2 w, w, w, w columns)
+        # in the forward and its recompute, w columns back for each in the
+        # backward
+        from repro_torch.models.mamba import _halves_permutes
+
         w = cfg.d_inner // M
-        halves = [c for c in rows if _is_op(c[0], "all-to-all")
-                  and tuple(c[1][0]) == (2, B, S, w)]
+        used = [sent for pairs, sent, _, _ in _halves_permutes(M) if pairs]
+        halves = sorted(tuple(c[1][0]) for c in rows
+                        if _is_op(c[0], "all-to-all")
+                        and c[0].endswith(" @model"))
+        want = sorted(([(b, S, w * len(sent)) for sent in used] * 2
+                       + [(b, S, w)] * len(used)) * cfg.n_layers)
         whole = [c for c in rows if _is_op(c[0], "all-gather")
-                 and tuple(c[1][0]) == (B, S, 2 * w)]
-        assert len(halves) == 3 * cfg.n_layers and not whole, (halves,
-                                                               whole)
-        facts["halves_all_to_alls"] = len(halves)
+                 and c[0].endswith(" @model")
+                 and tuple(c[1][0]) == (b, S, 2 * w)]
+        assert halves == want and not whole, (halves, whole)
+        facts["halves_permutes"] = len(halves)
+    if cfg.n_heads and M > 1 and cfg.n_heads % M and \
+            cfg.n_kv_heads > 1 and M % cfg.n_kv_heads == 0:
+        # each rank its kv group's heads and its own columns of the output:
+        # the padded output is never reduce-scattered over 'model'
+        scattered = [c for c in rows if _is_op(c[0], "reduce-scatter")
+                     and c[0].endswith(" @model")]
+        assert not scattered, (cfg.name, scattered)
+        facts["kv_group_heads"] = cfg.n_heads // cfg.n_kv_heads
+    if len(mesh_shape) == 3 and mesh_shape[0] > 1 and \
+            mesh_shape[1] == M > 1:
+        # the table moved by one permute over 'data' and 'model' in the
+        # forward and one back in the backward, a rank's (V / M, D / data)
+        moved = [tuple(c[1][0]) for c in rows if _is_op(c[0], "all-to-all")
+                 and c[0].endswith(" @data+model")]
+        block = (cfg.vocab_size // M, cfg.d_model // mesh_shape[1])
+        assert moved == [block] * 2, (cfg.name, moved, block)
+        facts["table_permutes"] = len(moved)
+    # the optimizer: at most one all-reduce per (axes, dtype) of the
+    # gradients' sums and one for the global norm, as the fake trace counts
+    from repro_torch import tree as TR
+    from repro_torch.launch.specs import train_state_specs
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt = ranks[0]["accounting"]["counts_by_part"].get("optimizer", {})
+    for r in ranks:
+        assert r["accounting"]["counts_by_part"].get("optimizer", {}) == \
+            opt == pred["collectives_by_part"].get("optimizer", {}), \
+            (cfg.name, r["accounting"]["counts_by_part"], pred[
+                "collectives_by_part"])
+    dtypes = len({p.dtype for p in TR.leaves(
+        train_state_specs(cfg, AdamWConfig())[0])})
+    assert opt and all(k.startswith("all-reduce") for k in opt) and \
+        sum(opt.values()) <= dtypes * len(opt) + 1, (cfg.name, opt)
+    facts["optimizer_collectives"] = opt
     if cfg.n_heads and M > 1 and cfg.n_heads % M == 0 and \
             cfg.n_kv_heads % M:
         # told apart by their heads (gemma-2b: q's 2 a rank or 8, kv's 1)
@@ -3644,6 +3742,46 @@ def _flattened(by_axes: dict) -> int:
     return sum(v["count"] for k, v in by_axes.items() if "+" in k)
 
 
+@contextlib.contextmanager
+def _headroom(torch, dev, every_s: float = 0.2):
+    """The least host memory available (``MemAvailable`` of
+    /proc/meminfo) and the least free card memory (every process's use
+    counted) seen while the block runs, read by a thread every ``every_s``
+    seconds: what the ranks sharing the host and the card left."""
+    import threading
+
+    low = dict(host_available_min_bytes=None, card_free_min_bytes=None)
+    stop = threading.Event()
+
+    def host_available() -> int:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+        return -1
+
+    def read():
+        for key, now in (("host_available_min_bytes", host_available()),
+                         ("card_free_min_bytes",
+                          torch.cuda.mem_get_info(dev)[0])):
+            if low[key] is None or now < low[key]:
+                low[key] = now
+
+    def sample():
+        while not stop.wait(every_s):
+            read()
+
+    read()
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield low
+    finally:
+        stop.set()
+        thread.join()
+        read()
+
+
 def sharded_phase(torch, np, dev) -> tuple:
     """Slice 11 on SHARDED_RANKS ranks of the one card, in one launch:
     ``ep_moe`` (kimi-k2's expert widths, data 1 x model 4, each rank
@@ -3662,8 +3800,8 @@ def sharded_phase(torch, np, dev) -> tuple:
     :func:`dryrun_phase` holds its fake trace to), the grouped
     redistribute against DTensor's, and slice 16's LOWERING_TRAIN steps,
     each held to its single-device step and its fake trace; then
-    LOWERING_MOE_RANKS ranks run the MoE layer at LOWERING_MOE_MESH
-    (``lowering``).  Returns the two phases' rows and the first launch's
+    LOWERING_MOE_RANKS ranks run the MoE layer at LOWERING_MOE_MESH and
+    slice 17's LOWERING_TRAIN_8 steps, held the same way (``lowering``).  Returns the two phases' rows and the first launch's
     seconds."""
     from repro_torch.launch.dryrun import accounted_train_step
     from repro_torch.launch.mesh import run_ranks
@@ -3681,7 +3819,7 @@ def sharded_phase(torch, np, dev) -> tuple:
         cfgs = [low_single[a][0] for a, m in LOWERING_TRAIN
                 if m == mesh_shape]
         low_jobs.append((sharded_train_steps, (
-            cfgs, opt_cfg, SHARDED_BATCH, SHARDED_SEQ, mesh_shape, str(dev),
+            cfgs, opt_cfg, SHARDED_BATCH, LOWERING_SEQ, mesh_shape, str(dev),
             1, SHARDED_LEAF_ELEMENTS, True)))
 
     # what this process still holds on the card beside the four ranks, and
@@ -3696,23 +3834,24 @@ def sharded_phase(torch, np, dev) -> tuple:
     assert memory["free_bytes_before_ranks"] >= need, \
         f"sharded: {memory} -- the ranks need {need} bytes free"
     t0 = time.time()
-    ranks = run_ranks(run_jobs, SHARDED_RANKS, [
-        (ep_moe_rank, (dict(seed=EP_SEED, G=EP_GROUPS, S=EP_TOKENS), ep_cfg,
-                       EP_MESH, str(dev))),
-        # slice 14: the DTensor layer, bf16 then e4m3 dispatch
-        (moe_forward_rank, (dict(seed=EP_SEED, G=EP_GROUPS, S=EP_TOKENS),
-                            ep_cfg, EP_MESH, str(dev),
-                            ("bfloat16", "float8_e4m3fn"))),
-        (sharded_train_steps, ([train_cfg], opt_cfg, SHARDED_BATCH,
-                               SHARDED_SEQ, SHARDED_MESH, str(dev),
-                               SHARDED_STEPS, SHARDED_LEAF_ELEMENTS)),
-        # the same step once more, counted for the dry run's cross-check
-        (accounted_train_step, (train_cfg, opt_cfg, SHARDED_BATCH,
-                                SHARDED_SEQ, SHARDED_MESH, str(dev))),
-        # slice 16: one collective over both axes against DTensor's two
-        (grouped_redistribute_rank, (SHARDED_MESH, str(dev))),
-        # and its lowerings at published widths, held to one device
-        *low_jobs], device=str(dev), stage_through_host=True)
+    with _headroom(torch, dev) as headroom:
+        ranks = run_ranks(run_jobs, SHARDED_RANKS, [
+            (ep_moe_rank, (dict(seed=EP_SEED, G=EP_GROUPS, S=EP_TOKENS),
+                           ep_cfg, EP_MESH, str(dev))),
+            # slice 14: the DTensor layer, bf16 then e4m3 dispatch
+            (moe_forward_rank, (dict(seed=EP_SEED, G=EP_GROUPS,
+                                     S=EP_TOKENS), ep_cfg, EP_MESH, str(dev),
+                                ("bfloat16", "float8_e4m3fn"))),
+            (sharded_train_steps, ([train_cfg], opt_cfg, SHARDED_BATCH,
+                                   SHARDED_SEQ, SHARDED_MESH, str(dev),
+                                   SHARDED_STEPS, SHARDED_LEAF_ELEMENTS)),
+            # the same step once more, counted for the dry run's cross-check
+            (accounted_train_step, (train_cfg, opt_cfg, SHARDED_BATCH,
+                                    SHARDED_SEQ, SHARDED_MESH, str(dev))),
+            # slice 16: one collective over both axes against DTensor's two
+            (grouped_redistribute_rank, (SHARDED_MESH, str(dev))),
+            # and its lowerings at published widths, held to one device
+            *low_jobs], device=str(dev), stage_through_host=True)
     ranks_s = time.time() - t0
     ep = _ep_check(torch, np, ep_cfg, C, ep_single, [r[0] for r in ranks])
     ep["dtensor_dispatch"] = _dispatch_check(torch, np, ep_cfg, C, ep_single,
@@ -3729,16 +3868,31 @@ def sharded_phase(torch, np, dev) -> tuple:
         lowering.append(_lowering_train_check(
             np, cfg, single, [r[at] for r in by_mesh[mesh_shape]],
             mesh_shape, dev))
-    # the MoE layer's ranks, once the four have ended
+    # the MoE layer's ranks and slice 17's steps, once the four have ended
     t1 = time.time()
-    moe_ranks = run_ranks(moe_forward_rank, LOWERING_MOE_RANKS, dict(
-        seed=EP_SEED, G=LOWERING_MOE_GROUPS, S=LOWERING_MOE_TOKENS),
-        low_moe_cfg, LOWERING_MOE_MESH, str(dev), device=str(dev),
-        stage_through_host=True)
+    with _headroom(torch, dev) as headroom8:
+        ranks8 = run_ranks(run_jobs, LOWERING_MOE_RANKS, [
+            (moe_forward_rank, (dict(seed=EP_SEED, G=LOWERING_MOE_GROUPS,
+                                     S=LOWERING_MOE_TOKENS),
+                                low_moe_cfg, LOWERING_MOE_MESH, str(dev))),
+            *[(sharded_train_steps, ([low_single[a, dt][0]], opt_cfg,
+                                     SHARDED_BATCH, LOWERING_SEQ, m, str(dev),
+                                     1, SHARDED_LEAF_ELEMENTS, True))
+              for a, m, dt in LOWERING_TRAIN_8]],
+            device=str(dev), stage_through_host=True)
+    launch8_s = time.time() - t1
     lowering.append(_lowering_moe_check(
-        torch, np, low_moe_cfg, low_C, low_moe_single, moe_ranks))
-    lowering[-1]["launch_seconds"] = time.time() - t1
+        torch, np, low_moe_cfg, low_C, low_moe_single,
+        [r[0] for r in ranks8]))
+    lowering[-1]["launch_seconds"] = launch8_s
+    for j, (arch, mesh_shape, dtype) in enumerate(LOWERING_TRAIN_8):
+        cfg, _, single = low_single[arch, dtype]
+        lowering.append(_lowering_train_check(
+            np, cfg, single, [r[1 + j][0] for r in ranks8], mesh_shape,
+            dev))
     train["lowering"] = lowering
+    memory["headroom"] = {SHARDED_RANKS: headroom,
+                          LOWERING_MOE_RANKS: headroom8}
     ep.update(memory)
     train.update(memory)
     return ep, train, ranks_s
@@ -4767,6 +4921,11 @@ def run(torch, dev) -> int:
               flush=True)
     emit(dict(phase="sharded_train", nvidia_smi=smi, **sharded))
     emit(dict(phase="sharded", seconds=sharded_s, ranks_seconds=ranks_s))
+    print("rank launches: " + "; ".join(
+        f"{n} ranks left at least {h['host_available_min_bytes'] / 1e9:.2f} "
+        f"GB of host memory available and {h['card_free_min_bytes'] / 1e9:.2f}"
+        f" GB of the card free" for n, h in sharded["headroom"].items())
+          + f" ({smi})", flush=True)
     print(f"sharded_train: {SHARDED_ARCH} {sharded['n_layers']} layers, "
           f"mesh data {SHARDED_MESH[0]} x model {SHARDED_MESH[1]}, B "
           f"{SHARDED_BATCH} S {SHARDED_SEQ}: losses "
@@ -4799,8 +4958,9 @@ def run(torch, dev) -> int:
                   f"{ {k: v for k, v in row['collective_counts'].items() if v} }"
                   f" counted = the fake trace's, "
                   f"{row['flattened']} over several mesh axes at once"
-                  + (f", {row['halves_all_to_alls']} halves all-to-alls"
-                     if "halves_all_to_alls" in row else "")
+                  + (f", {row['halves_permutes']} halves permutes"
+                     if "halves_permutes" in row else "")
+                  + f", optimizer {row['optimizer_collectives']}"
                   + (f", {row['kv_collectives']} of k / v and none of q"
                      if "kv_collectives" in row else "")
                   + f"; step ms {[round(t, 1) for t in row['rank_step_ms']]}"

@@ -51,8 +51,8 @@ the trace's seconds.  The roofline is computed at the card's constants
 NVLink links of 25 GB/s), not the reference's TPU constants.  A 16-wide
 model axis spans two 8-card NVLink nodes, so its collectives would in
 part cross the slower link between nodes: the collective term is a lower
-bound there.  The trace rows (op, local shapes, FLOPs, bytes) of every
-matrix product and collective are what ``save_hlo`` keeps in the
+bound there.  The trace rows (op, local shapes, FLOPs, bytes, issuing
+functions) of every matrix product and collective are what ``save_hlo`` keeps in the
 reference: enough to explain a count.
 
 Per-device FLOPs can exceed the reference's where heads do not divide the
@@ -87,6 +87,7 @@ from repro_torch.launch.hlo_analysis import _COLLECTIVES, HW_H100, roofline_term
 from repro_torch.launch.specs import cache_specs, input_specs, train_state_specs
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.parallel import sharding as sh
+from repro_torch.train import steps as train_steps
 
 __all__ = ["Accounting", "fake_world", "lower_cell", "trace_step",
            "collective_axes",
@@ -148,7 +149,7 @@ def collective_axes(rows) -> Dict[str, Dict[str, float]]:
     """The trace rows' collectives by the mesh axes their groups span
     (``pod+data``; ``""`` where a row names none): count and bytes."""
     out: Dict[str, Dict[str, float]] = {}
-    for op, _, flops, nbytes in rows:
+    for op, _, flops, nbytes, _ in rows:
         if flops:
             continue
         axes = op.rsplit(" @", 1)[1] if " @" in op else ""
@@ -206,18 +207,36 @@ def _propagating() -> bool:
     return False
 
 
+def _issuers() -> tuple:
+    """The qualified names of the port's functions on the caller's stack
+    outside this module, innermost first."""
+    out, frame = [], sys._getframe(1)
+    while frame is not None:
+        name = frame.f_code.co_filename
+        if "repro_torch" in name and name != __file__:
+            out.append(frame.f_code.co_qualname)
+        frame = frame.f_back
+    return tuple(out)
+
+
 class Accounting(TorchDispatchMode):
     """Per-device totals of the ops run while it is entered (see the module
     docstring): ``flops``, ``hbm_bytes``, ``collective_bytes`` and
     ``collective_counts`` by kind, and ``temp_bytes``, the most bytes of
     tensors on ``device_type`` made by those ops and alive at once; a row
-    (op, local shapes, FLOPs, bytes) for each matrix product and
-    collective (``rows``), and the bytes by op (``bytes_by_op``).
+    (op, local shapes, FLOPs, bytes, functions) for each matrix product
+    and collective (``rows``; a collective's functions are the qualified
+    names of the port's functions on the stack that issued it, innermost
+    first, a product's none), and the bytes by op (``bytes_by_op``).
 
     Given the ``mesh`` the step runs on, each collective's row names the
     mesh axes its group spans (``op @pod+data``; :func:`collective_axes`
     reads it back), and ``flattened_counts`` counts by kind those over
-    several axes at once (:func:`repro_torch.parallel.act.redistribute`).
+    several axes at once (:func:`repro_torch.parallel.act.redistribute`),
+    and ``counts_by_part`` counts them in each part of a train step
+    (``repro_torch.train.steps.part_running``: forward, backward,
+    optimizer) by kind and the axes their group spans (``all-reduce
+    @data``).
 
     Works on fake and on real tensors alike.  Only collectives of tensors
     on ``device_type`` count; those staged through the host
@@ -243,6 +262,7 @@ class Accounting(TorchDispatchMode):
             self._names = tuple(mesh.mesh_dim_names)
         self._axes_of: Dict[str, tuple] = {}
         self.flattened_counts = {k: 0 for k in _COLLECTIVES}
+        self.counts_by_part: Dict[str, Dict[str, int]] = {}
         self.flops = 0
         self.hbm_bytes = 0
         self.collective_bytes = {k: 0 for k in _COLLECTIVES}
@@ -341,9 +361,14 @@ class Accounting(TorchDispatchMode):
         axes = self._axes(group)
         if len(axes) > 1:
             self.flattened_counts[kind] += 1
+        part = train_steps.part_running
+        if part is not None:
+            key = f"{kind} @{'+'.join(axes)}" if axes else kind
+            got = self.counts_by_part.setdefault(part, {})
+            got[key] = got.get(key, 0) + 1
         if axes:
             op = f"{op} @{'+'.join(axes)}"
-        self.rows.append((op, shapes, 0, nbytes))
+        self.rows.append((op, shapes, 0, nbytes, _issuers()))
 
     def _axes(self, group) -> tuple:
         """The mesh axes (of more than one rank) along which the ranks of
@@ -407,7 +432,7 @@ class Accounting(TorchDispatchMode):
             self.bytes_by_op[name] = self.bytes_by_op.get(name, 0) + moved
             if flops:
                 self.rows.append((name, [tuple(t.shape) for t in ins], flops,
-                                  moved))
+                                  moved, ()))
         for t in outs:
             self._track(t, in_keys)
 
@@ -439,6 +464,8 @@ class Accounting(TorchDispatchMode):
                     collective_bytes=dict(self.collective_bytes),
                     collective_counts=dict(self.collective_counts),
                     flattened_counts=dict(self.flattened_counts),
+                    counts_by_part={k: dict(v) for k, v in
+                                    self.counts_by_part.items()},
                     temp_bytes=self.temp_bytes)
 
 
@@ -469,6 +496,22 @@ def fake_world(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
+        _forget_meshes()
+
+
+def _forget_meshes() -> None:
+    """Clear DTensor's sharding-propagation caches (the Python one, and the
+    C++ dispatch's where the torch has one), whose output specs hold the
+    meshes of the world just destroyed: a later world's DTensor would be
+    handed an equal mesh from them, whose (flattened) groups are gone."""
+    from torch.distributed.tensor import DTensor
+
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding \
+        .cache_clear()
+    clear = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                    None)
+    if clear is not None:
+        clear()
 
 
 def _device_mesh(shape: Dict[str, int], device_type: str):
@@ -592,6 +635,8 @@ def _trace(cfg, shape, mesh, dev, opt_cfg):
                          count_by_kind={k: float(v) for k, v in
                                         acc.collective_counts.items()},
                          total_bytes_per_device=coll_dev),
+        collectives_by_part={k: dict(v)
+                             for k, v in acc.counts_by_part.items()},
         roofline=roofline_terms(flops_dev, bytes_dev, coll_dev, hw=HW_H100),
         model_flops=mf,
         useful_flops_ratio=mf / max(chips * flops_dev, 1.0),

@@ -418,6 +418,13 @@ def _rank_main(rank: int, world: int, store_path: str, out_dir: str,
     dist.destroy_process_group()
 
 
+def _peer_gone(error: str) -> bool:
+    """Whether a rank's traceback is gloo's report that a peer left."""
+    return any(m in error for m in ("Connection closed by peer",
+                                    "Connection reset by peer",
+                                    "Broken pipe"))
+
+
 def run_ranks(fn: Callable, world: int, *args, device: str = "cpu",
               stage_through_host: bool = False) -> List[Any]:
     """Run ``fn(rank, world, *args)`` on ``world`` new processes joined in
@@ -430,7 +437,10 @@ def run_ranks(fn: Callable, world: int, *args, device: str = "cpu",
     host.  ``stage_through_host`` installs
     :func:`stage_collectives_through_host` for ``device`` on every rank:
     ranks that share one card over gloo need it for DTensor.  Raises with
-    the first failing rank's traceback."""
+    the traceback of a rank that failed on its own, not because a peer
+    left (those read only that gloo's connection closed), or else with
+    the exit status of the rank that ended without a result (killed by a
+    signal)."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
@@ -441,14 +451,28 @@ def run_ranks(fn: Callable, world: int, *args, device: str = "cpu",
                                      stage_through_host),
                                nprocs=world, join=True, start_method="spawn")
         except Exception as exc:
+            errors = {}
             for r in range(world):
                 path = os.path.join(tmp, f"{r}.pkl")
                 if os.path.exists(path):
                     with open(path, "rb") as f:
                         res = pickle.load(f)
                     if "error" in res:
-                        raise RuntimeError(f"rank {r} of {world} failed:\n"
-                                           + res["error"]) from exc
+                        errors[r] = res["error"]
+            # a rank whose peer has left fails in gloo's transport: the
+            # cause is the rank that failed otherwise, or ended unreported
+            own = [r for r, e in errors.items() if not _peer_gone(e)]
+            first = getattr(exc, "error_index", None)
+            if own:
+                raise RuntimeError(f"rank {own[0]} of {world} failed:\n"
+                                   + errors[own[0]]) from exc
+            if first is not None and first not in errors:
+                raise RuntimeError(f"rank {first} of {world} ended without "
+                                   f"a result: {exc}") from exc
+            if errors:
+                r = min(errors)
+                raise RuntimeError(f"rank {r} of {world} failed:\n"
+                                   + errors[r]) from exc
             raise
         out = []
         for r in range(world):

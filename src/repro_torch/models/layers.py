@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import rmsnorm as K5
-from repro_torch.parallel.act import is_sharded, per_shard
+from repro_torch.parallel.act import is_sharded, per_shard, reduced_grad
 
 __all__ = ["rms_norm", "rope_angles", "apply_rope", "mrope_positions",
            "gated_mlp", "init_linear", "init_norm"]
@@ -78,10 +78,12 @@ def mrope_positions(B: int, S: int, offset: int = 0,
 
 def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
               wd: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SwiGLU / GeGLU: down( act(x@wg) * (x@wu) )."""
-    g = x @ wg
+    """SwiGLU / GeGLU: down( act(x@wg) * (x@wu) ); on a mesh each of the two
+    products' input gradients is reduced on its own
+    (:func:`~repro_torch.parallel.act.reduced_grad`)."""
+    g = reduced_grad(x) @ wg
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (g * (x @ wu)) @ wd
+    return (g * (reduced_grad(x) @ wu)) @ wd
 
 
 #: f32 elements drawn at once by init_linear (512 MB): a full-width expert

@@ -11,8 +11,9 @@ everywhere.
 
 Sharded execution (DTensor inputs inside an ``activation_mesh``): u and z
 are constrained to (batch, -, channels) as in the reference, moved there
-from in_proj's column shards by one all-to-all over the model axis
-(:class:`_HalvesExchange`; the product is never gathered whole), and the
+from in_proj's column shards by the reference partitioner's four
+permutes over the model axis (:class:`_HalvesExchange`; the product is
+never gathered whole), and the
 causal convolution and the scan run shard by shard
 (:func:`repro_torch.parallel.act.per_shard`): batch and channels are
 independent, time and the state are not.
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import mamba_scan as K4
 from repro_torch.parallel.act import (BATCH, TP, constrain,
                                       contract_shards, gathered_product,
-                                      model_axis_size, per_shard)
+                                      model_axis_size, per_shard, permute)
 
 __all__ = ["mamba_params_shapes", "mamba_forward", "mamba_prefill",
            "mamba_decode_step", "selective_scan_chunked", "selective_scan_ref"]
@@ -203,45 +204,73 @@ def _ssm_projections(params, u, cfg):
     return delta, A, B_t, C_t
 
 
+def _halves_permutes(M: int) -> list:
+    """The reference's lowering of the split of ``x @ in_proj``'s 2 w
+    columns a model rank (M ranks, w = Di / M) into u's and z's w columns:
+    four collective-permutes, as (source -> target pairs, the source's
+    slots it sends, the slot the target takes, the half it fills), in
+    XLA's order (its HLO of the reference's falcon-mamba-7b step at 16 x
+    16).  Rank s holds u's blocks 2 s, 2 s + 1 below h = M / 2 and z's
+    blocks 2 (s - h), 2 (s - h) + 1 from there (slots 0, 1); rank r takes
+    u's and z's block r.  The first permute sends a rank's two slots
+    whole, its target keeping one; rank 0 keeps its u block and rank M - 1
+    its z block where they are."""
+    h = M // 2
+    return [
+        ({0: 1, **{j: 2 * j for j in range(1, h)}}, (0, 1), None, "u"),
+        ({j: 2 * j + 1 for j in range(1, h)}, (1,), 0, "u"),
+        ({h + j: 2 * j for j in range(h)}, (0,), 0, "z"),
+        ({h + j: 2 * j + 1 for j in range(h - 1)}, (1,), 0, "z"),
+    ]
+
+
 class _HalvesExchange(torch.autograd.Function):
     """A model rank's 2 w columns of ``x @ in_proj`` (B, L, 2 w), w = Di /
-    M, to its own w columns of u and of z: rank s holds u's blocks 2 s, 2 s
-    + 1 below M / 2 and z's blocks 2 (s - M / 2), 2 (s - M / 2) + 1 from
-    there, and rank r takes u's and z's block r, from ranks r // 2 and M /
-    2 + r // 2.  One all-to-all over the model axis moves each block to its
-    rank and nothing else; the backward sends each gradient block back to
-    the rank that holds those columns, so the weight gradient stays on its
+    M, to its own w columns of u and of z, moved as the reference's
+    partitioner moves them (:func:`_halves_permutes`: 5 w columns a rank in
+    four permutes, where one all-to-all of 2 w would do).  The backward
+    sends each target's gradient back to the rank and slot its columns
+    came from, w columns a permute, so the weight gradient stays on its
     own columns."""
 
     @staticmethod
     def forward(ctx, t, group, rank: int, M: int):
-        h = M // 2
-        sends = [int(d // 2 == rank % h) for d in range(M)]
-        takes = [int(s % h == rank // 2) for s in range(M)]
-        ctx.exchange = (group, sends, takes)
-        B, L, w2 = t.shape
-        blocks = t.reshape(B, L, 2, w2 // 2).permute(2, 0, 1, 3)
-        got = _all_to_all(blocks.contiguous(), takes, sends, group)
-        return got[0], got[1]
+        w = t.shape[-1] // 2
+        slots = (t[..., :w], t[..., w:])
+        half = dict(u=slots[0] if rank == 0 else None,
+                    z=slots[1] if rank == M - 1 else None)
+        used = []
+        for pairs, sent, take, name in _halves_permutes(M):
+            if not pairs:
+                continue
+            got = permute(t if len(sent) == 2 else slots[sent[0]], pairs,
+                           rank, M, group)
+            if got is not None:
+                if take is None:            # the whole pair of slots
+                    take = 1 if rank == 1 else 0
+                    got = got[..., take * w:(take + 1) * w]
+                half[name] = got
+            used.append((pairs, sent, name))
+        ctx.exchange = (group, rank, M, used)
+        return half["u"].contiguous(), half["z"].contiguous()
 
     @staticmethod
     def backward(ctx, du, dz):
-        group, sends, takes = ctx.exchange
-        got = _all_to_all(torch.stack([du, dz]).contiguous(), sends, takes,
-                          group)
-        B, L, w = du.shape
-        return (got.permute(1, 2, 0, 3).reshape(B, L, 2 * w), None, None,
-                None)
-
-
-def _all_to_all(t, out_splits, in_splits, group):
-    """The functional all-to-all of ``t``'s dim-0 rows (looked up at the
-    call, so that a staged replacement is the one run), waited."""
-    import torch.distributed._functional_collectives as funcol
-
-    got = funcol.all_to_all_single(t, out_splits, in_splits, group)
-    return got.wait() if isinstance(got, funcol.AsyncCollectiveTensor) \
-        else got
+        group, rank, M, used = ctx.exchange
+        grads = dict(u=du, z=dz)
+        slots = [None, None]
+        if rank == 0:
+            slots[0] = du
+        if rank == M - 1:
+            slots[1] = dz
+        for pairs, sent, name in used:
+            back = {d: s for s, d in pairs.items()}
+            got = permute(grads[name], back, rank, M, group)
+            if got is not None:
+                slot = sent[-1] if len(sent) == 1 else (1 if rank == 0
+                                                        else 0)
+                slots[slot] = got
+        return torch.cat(slots, dim=-1), None, None, None
 
 
 def _split_in_proj(xz, Di: int):
@@ -249,7 +278,8 @@ def _split_in_proj(xz, Di: int):
     mesh whose model axis (M > 1 ranks: even, dividing Di) shards the
     product's columns, the product stays on its shards and
     :class:`_HalvesExchange` moves each rank's halves to u's and z's own
-    (B, L, Di / M) shards, as the reference's partitioner moves them;
+    (B, L, Di / M) shards, as the reference's partitioner moves them (no
+    rank gathers the whole product);
     elsewhere (off a mesh, or one model rank) the plain split."""
     from torch.distributed.tensor.experimental import local_map
 

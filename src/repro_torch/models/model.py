@@ -20,7 +20,10 @@ then one all-reduce), and the per-position loss runs shard by shard
 (:func:`repro_torch.parallel.act.per_shard`); where the vocabulary is
 sharded, each rank reduces its own block and three all-reduces of (B, c)
 complete the log-sum-exp and the label's logit, as the reference's
-partitioner does (the logits are never gathered).
+partitioner does (the logits are never gathered).  The head's d_model
+(FSDP) shard is gathered once for all the forward's chunks and once in
+each chunk's recompute (:class:`_GatheredHead`), as the reference's
+compiled scan gathers it: 9 times a step with 8 chunks.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.parallel.act import (BATCH, TP, constrain, embed_rows,
                                       gathered_product, is_sharded,
-                                      per_shard, reduce_over, shard_start)
+                                      per_shard, redistribute, reduce_over,
+                                      shard_start)
 
 from .layers import init_linear, mrope_positions, rms_norm, rope_angles
 from .transformer import (block_param_shapes, blocks_decode, blocks_forward,
@@ -237,9 +241,40 @@ def _vocab_sharded(logits) -> bool:
         logits.placements
 
 
-def _chunk_nll(hs, ls, hw):
+def _d_gathered(w):
+    """The DTensor head weight ``w`` (D, V) with its d_model (FSDP) shard
+    gathered, its other placements kept."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return redistribute(w, w.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+        for p in w.placements])
+
+
+class _GatheredHead(torch.autograd.Function):
+    """The head weight with its d_model shard gathered: ``held["w"]``, the
+    weight the forward gathered once before its chunks, where ``held``
+    has it, else gathered here (a chunk's recompute in the backward, after
+    the forward has dropped it); the gradient is reduced back onto the
+    shard, once a chunk, as the reference reduces it."""
+
+    @staticmethod
+    def forward(ctx, w, held):
+        ctx.source = tuple(w.placements)
+        whole = held.get("w")
+        return (_d_gathered(w) if whole is None else whole).detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return redistribute(grad, grad.device_mesh, ctx.source), None
+
+
+def _chunk_nll(hs, ls, hw, held=None):
     """One loss chunk: (sum of the valid positions' -log p(label) in f32,
-    count of valid positions).  hs (B, c, D); ls (B, c), -1 = no label."""
+    count of valid positions).  hs (B, c, D); ls (B, c), -1 = no label;
+    ``held``: see :class:`_GatheredHead` (a sharded head only)."""
+    if held is not None:
+        hw = _GatheredHead.apply(hw, held)
     logits = constrain(_head_logits(hs, hw), BATCH, None, TP)
     if _vocab_sharded(logits):
         nll, valid = _sharded_token_nll(logits, ls)
@@ -271,13 +306,19 @@ def loss_fn(params, batch, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         h = F.pad(h, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
     hw = _head_weight(params, cfg)
+    held = None
+    if is_sharded(hw):
+        # gathered once for the forward's chunks, dropped after them: each
+        # chunk's recompute gathers it again
+        with torch.no_grad():
+            held = dict(w=_d_gathered(hw))
     remat = cfg.remat and torch.is_grad_enabled()
     # the chunks' partial sums add up as they are (on a mesh, a sum with a
     # replicated zero would complete each chunk's one axis at a time), and
     # each total is completed once, in one all-reduce over every axis
     tot = cnt = None
     for c0 in range(0, S + pad, c):
-        args = (h[:, c0:c0 + c], labels[:, c0:c0 + c], hw)
+        args = (h[:, c0:c0 + c], labels[:, c0:c0 + c], hw, held)
         if remat:
             s, n = checkpoint(_chunk_nll, *args, use_reentrant=False,
                               preserve_rng_state=False)
@@ -285,6 +326,8 @@ def loss_fn(params, batch, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
             s, n = _chunk_nll(*args)
         tot = s if tot is None else tot + s
         cnt = n if cnt is None else cnt + n
+    if held is not None:
+        held.clear()
     tot, cnt = reduce_over(tot), reduce_over(cnt)
     loss = tot / torch.clamp(cnt, min=1)
     total = loss + cfg.router_aux_coef * aux

@@ -22,7 +22,10 @@ cotangent is cast to e4m3 too).
 Sharded execution (DTensor inputs inside an ``activation_mesh``), as the
 reference's partitioner lowers it: the router's logits are computed whole
 on each rank for its own groups (its d_model shard gathered,
-:func:`repro_torch.parallel.act.gathered_product`); the routing, the
+:func:`repro_torch.parallel.act.gathered_product`); each token's top-k
+experts are chosen on the routing probabilities all-gathered over the
+batch axes (:func:`_batch_top_k`), as the reference's compiled top_k runs
+on the whole batch; the routing, the
 gather into slots and the combine run group by group
 (:func:`repro_torch.parallel.act.per_shard`: DTensor has no sharding rule
 for their sorts and indexed scatters, ``index_put_`` with ``accumulate``,
@@ -135,10 +138,13 @@ def _act(cfg):
     return lambda a: F.gelu(a, approximate="tanh")
 
 
-def _route_group(router_logits: torch.Tensor, k: int, C: int, E: int
+def _route_group(router_logits: torch.Tensor, k: int, C: int, E: int,
+                 expert_idx: torch.Tensor = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """Every group's routing at once.  router_logits: (G, S, E).
+    """Every group's routing at once.  router_logits: (G, S, E);
+    ``expert_idx`` (G, S, k): each token's top-k experts where they were
+    already chosen (:func:`_batch_top_k`), else chosen here.
 
     Returns (dispatch_idx (G, E, C) into each group's S*k assignment list
     with sentinel S*k, gate (G, S, k), expert of each assignment (G, S*k),
@@ -147,7 +153,8 @@ def _route_group(router_logits: torch.Tensor, k: int, C: int, E: int
     G, S, _ = router_logits.shape
     dev = router_logits.device
     probs = torch.softmax(router_logits.float(), dim=-1)
-    expert_idx = torch.topk(probs, k, dim=-1).indices             # (G, S, k)
+    if expert_idx is None:
+        expert_idx = torch.topk(probs, k, dim=-1).indices         # (G, S, k)
     gate = torch.gather(probs, -1, expert_idx)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     flat_expert = expert_idx.reshape(G, S * k)                    # (G, S*k)
@@ -168,13 +175,37 @@ def _route_group(router_logits: torch.Tensor, k: int, C: int, E: int
     return dispatch, gate, flat_expert, valid
 
 
-def _route(logits: torch.Tensor, *, k: int, C: int, E: int):
+def _route(logits: torch.Tensor, expert_idx=None, *, k: int, C: int,
+           E: int):
     """:func:`_route_group` and each slot's token (sentinel S = no token)."""
     S = logits.shape[1]
-    dispatch, gate, flat_expert, valid = _route_group(logits, k, C, E)
+    dispatch, gate, flat_expert, valid = _route_group(
+        logits, k, C, E, expert_idx=expert_idx)
     token_idx = torch.where(valid, dispatch // k,
                             torch.full_like(dispatch, S))
     return dispatch, gate, flat_expert, valid, token_idx
+
+
+def _batch_top_k(logits, k: int):
+    """On a mesh, each token's top-k experts (G, S, k), chosen as the
+    reference's partitioner chooses them: the routing probabilities (f32)
+    all-gathered over the batch axes, one collective, the top-k taken on the
+    whole batch, each rank keeping its own groups' rows (the same experts as
+    its own rows' top-k: a row's choice is its own).  No gradient flows
+    through the choice.  None off a mesh (the routing chooses them)."""
+    if not is_sharded(logits):
+        return None
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = logits.device_mesh
+    whole = [Replicate() if a in BATCH else p
+             for a, p in zip(mesh_axes(mesh), logits.placements)]
+    with torch.no_grad():
+        probs = redistribute(torch.softmax(logits.float(), dim=-1), mesh,
+                             whole)
+        idx = torch.topk(probs.to_local(), k, dim=-1).indices
+        idx = DTensor.from_local(idx, mesh, whole, run_check=False)
+        return redistribute(idx, mesh, logits.placements)
 
 
 def _gather_slots(x: torch.Tensor, token_idx: torch.Tensor) -> torch.Tensor:
@@ -305,7 +336,8 @@ def moe_forward(params: Dict, x: torch.Tensor, cfg, *,
     slots = _SLOT_DIMS
     groups = frozenset({"g"})
     dispatch, gate, flat_expert, valid, token_idx = per_shard(
-        _route, (logits,), (("g", "s", "e"),),
+        _route, (logits, _batch_top_k(logits, k)),
+        (("g", "s", "e"), ("g", "s", "k")),
         (slots, ("g", "s", "k"), ("g", "a"), slots, slots), groups,
         k=k, C=C, E=E)
 

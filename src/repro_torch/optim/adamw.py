@@ -21,10 +21,18 @@ of ``_CHUNK`` elements, so that a full-width step needs no second copy of
 the parameters or the state and only slice-sized float32 temporaries.  It
 returns the trees all the same, as the reference's pure update does.
 
-On DTensor parameters (sharded execution) the global norm is DTensor
-arithmetic, so its sums reduce over the whole mesh; the update itself runs
-on each rank's local shards, every gradient first redistributed to its
-parameter's placements (elementwise work is exact shard by shard).
+On DTensor parameters (sharded execution) the gradients' pending sums (a
+replicated parameter's gradient is a partial sum over the axes its batch
+shards) are completed in one all-reduce per (mesh axes, dtype), their
+leaves flattened into one buffer, as XLA's combiner joins the reference's
+(:func:`_completed`); the global norm is each rank's local f32
+square-sums, one a leaf (from the first replica of each shard only),
+summed over the whole mesh in one all-reduce and then in leaf order
+(:func:`_sharded_norm`), so it needs no DTensor rule for adding partial
+and replicated sums, which torch 2.11 completes one leaf at a time.  The
+update itself runs on each rank's local shards, every gradient first
+redistributed to its parameter's placements (elementwise work is exact
+shard by shard).
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import tree as T
-from repro_torch.parallel.act import is_sharded, redistribute, reduce_over
+from repro_torch.parallel.act import _flat_group, is_sharded, redistribute
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
            "global_norm", "clip_by_global_norm"]
@@ -80,6 +88,70 @@ def global_norm(tree) -> torch.Tensor:
     for x in T.leaves(tree):
         s = torch.sum(torch.square(x.to(torch.float32)))
         total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """The functional all-reduce (looked up at the call, so that a staged
+    replacement is the one run), waited."""
+    import torch.distributed._functional_collectives as funcol
+
+    got = funcol.all_reduce(t, op, group)
+    return got.wait() if isinstance(got, funcol.AsyncCollectiveTensor) \
+        else got
+
+
+def _completed(leaves: list) -> list:
+    """The DTensor leaves with their ``Partial`` sums completed, the others
+    as they are: the leaves partial over the same mesh axes with the same
+    dtype and reduce op flattened into one buffer, one all-reduce over
+    those axes (flattened) each."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    buckets: Dict[tuple, list] = {}
+    for i, x in enumerate(leaves):
+        if not is_sharded(x):
+            continue
+        dims = tuple(j for j, p in enumerate(x.placements) if p.is_partial())
+        if dims:
+            op = x.placements[dims[0]].reduce_op
+            key = (x.device_mesh, dims, x.dtype, op)
+            buckets.setdefault(key, []).append(i)
+    out = list(leaves)
+    for (_, dims, _, op), idx in buckets.items():
+        mesh = leaves[idx[0]].device_mesh
+        local = [leaves[i].to_local() for i in idx]
+        flat = _all_reduce(torch.cat([t.reshape(-1) for t in local]), op,
+                           _flat_group(mesh, list(dims)))
+        parts = torch.split(flat, [t.numel() for t in local])
+        for i, t, part in zip(idx, local, parts):
+            x = leaves[i]
+            out[i] = DTensor.from_local(
+                part.view(t.shape), mesh,
+                [Replicate() if p.is_partial() else p for p in x.placements],
+                shape=x.shape, stride=x.stride())
+    return out
+
+
+def _sharded_norm(leaves: list) -> torch.Tensor:
+    """:func:`global_norm` of leaves on one mesh, none of them partial: each
+    leaf's f32 square-sum over this rank's shard, counted by the rank that
+    holds the first replica of that shard on every mesh dim that does not
+    shard the leaf (zero elsewhere); the (leaves,) vector summed over the
+    whole mesh in one all-reduce, then its entries in leaf order."""
+    mesh = next(x.device_mesh for x in leaves if is_sharded(x))
+    sums = []
+    for x in leaves:
+        t = x.to_local() if is_sharded(x) else x
+        first = all(mesh.get_local_rank(i) == 0 for i in range(mesh.ndim)
+                    if not is_sharded(x) or x.placements[i].is_replicate())
+        s = torch.sum(torch.square(t.to(torch.float32)))
+        sums.append(s if first else torch.zeros_like(s))
+    vec = _all_reduce(torch.stack(sums), "sum",
+                      _flat_group(mesh, list(range(mesh.ndim))))
+    total = vec[0]
+    for s in vec[1:]:
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -138,10 +210,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig
     step = _full(state["step"]) + 1
     stepf = step.to(torch.float32)
     lr = cosine_schedule(cfg, stepf)
-    # each gradient's pending sums (a replicated parameter's) completed in
-    # one all-reduce over its axes before the squares need them
-    grads = T.tree_map(reduce_over, grads)
-    gnorm = _full(global_norm(grads))
+    flat_g, gdef = T.flatten(grads)
+    if any(is_sharded(g) for g in flat_g):
+        grads = T.unflatten(gdef, _completed(flat_g))
+        gnorm = _sharded_norm(T.leaves(grads))
+    else:
+        gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - torch.pow(_f32(b1, stepf), stepf)

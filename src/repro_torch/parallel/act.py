@@ -24,7 +24,8 @@ __all__ = ["activation_mesh", "constrain", "BATCH", "TP",
            "placements_for", "per_shard", "split_dim", "split_last",
            "merge_last", "is_sharded", "model_axis_size", "padded_heads",
            "contract_shards", "embed_rows", "shard_start",
-           "gathered_product", "slice_to", "redistribute", "reduce_over"]
+           "gathered_product", "slice_to", "redistribute", "reduce_over",
+           "reduced_grad", "permute"]
 
 # logical activation axes used by model code (resolved against the live mesh)
 BATCH = ("pod", "data")
@@ -230,6 +231,29 @@ def reduce_over(x, *axes):
     want = tuple(Replicate() if a in axes and p.is_partial() else p
                  for a, p in zip(names, x.placements))
     return redistribute(x, x.device_mesh, want)
+
+
+class _ReducedGrad(torch.autograd.Function):
+    """The identity, whose gradient's ``Partial`` sums are completed where
+    it arrives (:func:`reduce_over`)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_over(grad)
+
+
+def reduced_grad(x):
+    """``x``, for one product's use: the partial sums of that use's input
+    gradient are completed in an all-reduce of their own, before they meet
+    the other uses' gradients, as the reference's partitioner reduces each
+    product's partial result at the product (q, k and v's projections of
+    one input: three all-reduces, where adding the partial gradients first
+    would need one).  ``x`` itself off a mesh."""
+    return _ReducedGrad.apply(x) if is_sharded(x) else x
 
 
 def _shard_dim(p) -> Optional[int]:
@@ -530,6 +554,121 @@ def contract_shards(fn, a, w):
     return run(a, w)
 
 
+def _all_to_all(t, out_splits, in_splits, group):
+    """The functional all-to-all of ``t``'s dim-0 rows (looked up at the
+    call, so that a staged replacement is the one run), waited."""
+    import torch.distributed._functional_collectives as funcol
+
+    got = funcol.all_to_all_single(t, out_splits, in_splits, group)
+    return got.wait() if isinstance(got, funcol.AsyncCollectiveTensor) \
+        else got
+
+
+def permute(t, pairs: dict, rank: int, size: int, group):
+    """A collective-permute of ``t`` (on every rank of ``group``, ``size``
+    ranks; this one ``rank``): sent from each source rank of ``pairs`` to
+    its target, as one all-to-all.  A rank that sends nothing sends ``t``
+    to itself, so that every rank passes the operand, as each device of
+    XLA's collective-permute does.  What this rank got from its source, or
+    None."""
+    dst = pairs.get(rank, rank)
+    src = next((s for s, d in pairs.items() if d == rank), None)
+    n = t.shape[0]
+    takes = [n if s == src or (s == rank and dst == rank) else 0
+             for s in range(size)]
+    got = _all_to_all(t.contiguous(), takes,
+                      [n if d == dst else 0 for d in range(size)], group)
+    if src is None:
+        return None
+    return got[n:] if dst == rank and rank < src else got[:n]
+
+
+def _swap_pairs(n: int) -> dict:
+    """The pairs of a permute over two flattened mesh dims of ``n`` ranks
+    each that swaps a rank's two coordinates."""
+    return {a * n + b: b * n + a for a in range(n) for b in range(n)
+            if a != b}
+
+
+class _TableToColumns(torch.autograd.Function):
+    """A (V, D) table with its rows on the model axis and D on the data axis
+    (as many ranks), to whole rows and D on the model axis, as the
+    reference's partitioner moves it: each rank's block goes to the rank
+    whose data and model coordinates are its own swapped (one permute over
+    both axes: rank (d, m) then holds row block d and D block m), and the
+    row blocks are all-gathered over 'data'.  The gradient, a partial sum
+    over the axes that shard the tokens, is completed in one all-reduce
+    over them, each rank keeps its row block, and the blocks go back by the
+    same permute."""
+
+    @staticmethod
+    def forward(ctx, table, d: int, m: int):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh = table.device_mesh
+        n = mesh.size(m)
+        lo, hi = sorted((d, m))
+        group = _flat_group(mesh, [lo, hi])
+        rank = mesh.get_local_rank(lo) * n + mesh.get_local_rank(hi)
+        ctx.layout = (tuple(table.placements), table.shape, table.stride(),
+                      d, group, rank, n)
+        t = table.to_local()
+        got = permute(t, _swap_pairs(n), rank, n * n, group)
+        swapped = [Shard(0) if i == d else Shard(1) if i == m else p
+                   for i, p in enumerate(table.placements)]
+        out = DTensor.from_local(t if got is None else got, mesh, swapped,
+                                 shape=table.shape, stride=table.stride())
+        whole = [Replicate() if i == d else p for i, p in enumerate(swapped)]
+        return _redistribute_grouped(out, mesh, whole)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        placements, shape, stride, d, group, rank, n = ctx.layout
+        mesh = grad.device_mesh
+        g = reduce_over(grad).to_local()
+        rows = g.shape[0] // n
+        own = g[mesh.get_local_rank(d) * rows:][:rows]
+        got = permute(own, _swap_pairs(n), rank, n * n, group)
+        return (DTensor.from_local(own if got is None else got, mesh,
+                                   placements, shape=shape, stride=stride),
+                None, None)
+
+
+def _table_columns(table, m: int):
+    """The DTensor ``table`` (V, D), its rows on mesh dim ``m`` (the model
+    axis), with its rows whole and D on that dim: :class:`_TableToColumns`
+    where D lies on the data axis alone and that axis is as wide as the
+    model axis, else D's shard gathered and the model axis's shard moved
+    from the rows to D (an all-to-all; DTensor's own path from one to the
+    other gathers the whole table)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = table.device_mesh
+    names = list(mesh_axes(mesh))
+    cols = [Shard(1) if i == m else Replicate() for i in range(mesh.ndim)]
+    d = names.index("data") if "data" in names else None
+    rest = [p for i, p in enumerate(table.placements) if i not in (d, m)]
+    if d is not None and table.placements[d] == Shard(1) and \
+            mesh.size(d) == mesh.size(m) > 1 and \
+            all(p == Replicate() for p in rest) and \
+            not table.shape[0] % mesh.size(m) and \
+            not table.shape[1] % mesh.size(m):
+        return _TableToColumns.apply(table, d, m)
+    rows = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
+    return redistribute(redistribute(table, mesh, rows), mesh, cols)
+
+
+def _batch_dims(x) -> set:
+    """The mesh dims (of more than one rank) that shard the DTensor ``x``'s
+    dim 0."""
+    from torch.distributed.tensor import Shard
+
+    return {i for i, p in enumerate(x.placements)
+            if p == Shard(0) and x.device_mesh.size(i) > 1}
+
+
 def embed_rows(table, tokens, take):
     """``take(table, tokens)`` (the table's rows at the tokens) where the
     DTensor ``table`` (V, D) is sharded on its rows over the model axis, as
@@ -541,18 +680,19 @@ def embed_rows(table, tokens, take):
     reduces it and moves the D shard onto the batch (an all-to-all).  The
     table is never gathered.
 
-    Where the table has no more rows than a rank has tokens to look up
-    (and the model axis divides D), its rows move instead of the tokens':
-    the table is redistributed to whole rows and D on the model axis, each
-    rank looks up its own tokens in its own columns, and the caller's
-    constraint gathers D.  That size rule is an approximation of the
-    reference partitioner's choice, not its rule: it agrees with it on
-    falcon-mamba at 16 x 16 (65,024 rows against 65,536 tokens a rank:
-    the table moves) and kimi-k2 at 16 x 16 (163,840 rows against 65,536:
-    the lookup above), and not on kimi-k2 at 2 x 16 x 16, where the
-    reference moves the table of 163,840 rows against 32,768 tokens a
-    rank.  Returns None where the table's rows are not on the model axis
-    (the caller gathers it)."""
+    The table's rows move instead of the tokens' (:func:`_table_columns`:
+    whole rows, D on the model axis; each rank looks up its own tokens in
+    its own columns and the caller's constraint gathers D) where the
+    reference's partitioner moves them, in the three parity cells read
+    from its HLO: where the batch lies on a mesh axis that holds no shard
+    of the table's D and the model axis has more than one rank (kimi-k2 at
+    2 x 16 x 16: the batch on ('pod', 'data'), D on 'data' alone), and
+    where the table has no more rows than a rank has tokens to look up
+    (falcon-mamba at 16 x 16: 65,024 rows against 65,536 tokens a rank;
+    kimi-k2 at 16 x 16, 163,840 against 65,536, takes the lookup above).
+    The size condition is fitted to those cells, not read from the
+    partitioner's rule.  Returns None where the table's rows are not on
+    the model axis (the caller gathers it)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -564,14 +704,12 @@ def embed_rows(table, tokens, take):
                 for p in table.placements):
         return None
     m = names.index(TP)
-    if table.shape[0] <= tokens.to_local().numel() and \
+    d_dims = {i for i, p in enumerate(table.placements)
+              if p == Shard(1) and mesh.size(i) > 1}
+    moved = mesh.size(m) > 1 and not _batch_dims(tokens) <= d_dims
+    if (table.shape[0] <= tokens.to_local().numel() or moved) and \
             table.shape[1] % mesh.size(m) == 0:
-        # D's FSDP shard gathered, then the model axis's shard moved from
-        # the rows to D (an all-to-all): DTensor's own path from one to the
-        # other gathers the whole table
-        rows = [Shard(0) if i == m else Replicate() for i in range(mesh.ndim)]
-        cols = [Shard(1) if i == m else Replicate() for i in range(mesh.ndim)]
-        whole = redistribute(redistribute(table, mesh, rows), mesh, cols)
+        whole = _table_columns(table, m)
         lead = tuple(f"x{i}" for i in range(tokens.dim()))
         return per_shard(take, (whole, tokens),
                          (("v", "d"), lead), (lead + ("d",),),

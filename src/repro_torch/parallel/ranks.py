@@ -31,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -84,6 +84,34 @@ def _count_launches():
                 mamba_scan=K4.launches())
 
 
+def _release(dev) -> None:
+    """This process's cached, unused device memory back to the card, for
+    the other ranks sharing it."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _in_turn(rank: int, world: int, dev, make: Callable[[], Any]) -> Any:
+    """``make()`` on this rank, and its freed device memory handed back.
+    Ranks that share one card take turns, a barrier apart, so that one
+    rank's transient peak (whole parameters, and the copies DTensor makes
+    of their shards) meets only the others' results, never their peaks:
+    eight ranks drawing qwen2-7b's float32 parameters at once filled an
+    80 GB card.  ``make`` must issue no collective."""
+    import torch.distributed as dist
+
+    if dev.type != "cuda":
+        return make()
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = make()
+            gc.collect()
+            _release(dev)
+        dist.barrier()
+    return out
+
+
 def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                         B: int, S: int, mesh_shape, device: str,
                         steps: int = 1, leaves: Optional[int] = 0,
@@ -122,13 +150,15 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
     out = []
     for cfg in cfgs:
         gc.collect()                # an earlier job's cycles off the card
+        _release(dev)
         shape = ShapeSpec("t", S, B, "train")
         # whole parameters from the seed, then this rank's shards (copies,
-        # so the whole tensors are freed); the AdamW state is made beside
-        # the shards, at the placements opt_pspecs gives
-        params = sh.device_put(init_params(cfg, seed=0, device=dev),
-                               sh.to_shardings(sh.param_pspecs(cfg, mesh),
-                                               mesh))
+        # so the whole tensors are freed, and their memory handed back to
+        # the card for the other ranks sharing it); the AdamW state is
+        # made beside the shards, at the placements opt_pspecs gives
+        params = _in_turn(rank, world, dev, lambda: sh.device_put(
+            init_params(cfg, seed=0, device=dev),
+            sh.to_shardings(sh.param_pspecs(cfg, mesh), mesh)))
         opt = adamw_init(params, opt_cfg)
         want = sh.to_shardings(sh.opt_pspecs(cfg, mesh), mesh)
         for t, ns in zip(T.leaves(opt), T.leaves(want)):
@@ -180,7 +210,7 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                    allocated_at_reset_bytes=at_reset)
         if acc is not None:
             row.update(accounting=acc.summary(), collectives=[
-                (op, shapes) for op, shapes, flops, _ in acc.rows
+                (op, shapes) for op, shapes, flops, _, _ in acc.rows
                 if not flops])
         if rank == 0:
             row.update(grads=grads, params_after=after)

@@ -262,9 +262,15 @@ def device_put(tree, shardings):
     def put(t, s):
         local = distribute_tensor(t, s.mesh, s.placements,
                                   src_data_rank=None).to_local()
-        # a copy: a shard may be a view of the whole tensor, which the
-        # caller then could not free
-        return DTensor.from_local(local.clone(), s.mesh, s.placements,
+        # a copy where the shard is the caller's tensor or a view of a
+        # larger one (which the caller then could not free); a shard in
+        # storage of its own is kept, so that a whole leaf is not copied
+        # again where its mesh axes have one rank
+        store = local.untyped_storage()
+        if store._cdata == t.untyped_storage()._cdata or \
+                store.nbytes() > local.numel() * local.element_size():
+            local = local.clone()
+        return DTensor.from_local(local, s.mesh, s.placements,
                                   run_check=False, shape=t.shape,
                                   stride=t.stride())
 

@@ -8,7 +8,8 @@ through int8 compression with error feedback, and applies
 and the optimizer state in place.  It runs eagerly: the reference's
 ``jax.jit`` has no counterpart here.  Its forward, backward and optimizer
 run inside profiler ranges named ``repro_torch/train_step/<part>``, which
-``chip_smoke.py`` reads to split a traced step's device time.
+``chip_smoke.py`` reads to split a traced step's device time (and
+:data:`part_running` names the part, for the dry run's accounting).
 
 Sharded: with parameters, optimizer state and batch placed as DTensors
 (:func:`repro_torch.parallel.sharding.device_put` by ``param_pspecs`` /
@@ -41,8 +42,21 @@ __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
            "init_train_state"]
 
 
+#: the part of a train step running now (forward, backward, optimizer),
+#: None outside one: the dry run's accounting counts collectives by it
+part_running: Optional[str] = None
+
+
+@contextlib.contextmanager
 def _range(part: str):
-    return torch.profiler.record_function(f"repro_torch/train_step/{part}")
+    global part_running
+    before, part_running = part_running, part
+    try:
+        with torch.profiler.record_function(
+                f"repro_torch/train_step/{part}"):
+            yield
+    finally:
+        part_running = before
 
 
 def _replicating(sharded: bool):

@@ -130,6 +130,23 @@ def _padded_cfg():
                                n_kv_heads=3, name="qwen2-7b-reduced-h6")
 
 
+def _kv_group_cfg():
+    """Query heads that do not divide MESH's model axis of 4 and kv heads
+    that do: 6 query heads in 2 kv groups (G 3), each kv group's heads on 2
+    ranks, as qwen2-7b's 28 / 4 on 4 groups of 4 at 16."""
+    return dataclasses.replace(reduced(get_config("qwen2-7b")), n_heads=6,
+                               n_kv_heads=2, name="qwen2-7b-reduced-h6-kv2")
+
+
+def _table_cfg():
+    """Reduced qwen2-7b with a vocabulary of 212 rows (the reduced 211 does
+    not split over a model axis), on POD_MESH: the batch on ('pod',
+    'data'), the table's rows on 'model' and its D on 'data' alone, so the
+    embedding moves the table (``act._TableToColumns``)."""
+    return dataclasses.replace(reduced(get_config("qwen2-7b")),
+                               vocab_size=212, name="qwen2-7b-reduced-v212")
+
+
 def _ep_cfg(cf: float):
     return types.SimpleNamespace(
         d_model=32, n_experts=8, experts_per_token=2, moe_d_ff=16,
@@ -186,6 +203,10 @@ def runs(ep_inputs, pod_array, tmp_path_factory):
                                        UNEVEN_MESH, "cpu", STEPS, None)),
                 (sharded_train_steps, ([_padded_cfg()], OPT, B, S, MESH,
                                        "cpu", STEPS, None)),
+                (sharded_train_steps, ([_kv_group_cfg()], OPT, B, S, MESH,
+                                       "cpu", STEPS, None)),
+                (sharded_train_steps, ([_table_cfg()], OPT, B, S,
+                                       POD_MESH[0], "cpu", STEPS, None)),
                 # last: the host staging of ranks on one card, here on
                 # the CPU
                 (with_host_staging, ("cpu", sharded_train_steps,
@@ -347,6 +368,62 @@ def test_padded_heads_step_matches_single_device(launched):
     assert worst[0] < LEAF_REL_TOL, worst
 
 
+def _held_to_single(launched, job: int, cfg):
+    """The job's two steps of ``cfg`` on its mesh against the single-device
+    steps: loss and grad norm within UNEVEN_TOL, step 1's gradient of every
+    leaf within LEAF_REL_TOL."""
+    params, opt = init_train_state(cfg, OPT, seed=0, device="cpu")
+    grads = []
+    step = make_train_step(cfg, OPT, on_grads=lambda g: grads.append(
+        whole_leaves(g)))
+    want = []
+    for k in range(STEPS):
+        params, opt, m = step(params, opt, train_batch(cfg, B, S, "cpu", k))
+        want.append({n: float(v) for n, v in m.items()})
+    rows = [r[job][0] for r in launched]
+    for r in rows:
+        assert r["arch"] == cfg.name
+        assert r["metrics"] == rows[0]["metrics"]
+    for got, one in zip(rows[0]["metrics"], want, strict=True):
+        assert abs(got["loss"] - one["loss"]) < UNEVEN_TOL, (got, one)
+        assert abs(got["grad_norm"] - one["grad_norm"]) < UNEVEN_TOL * max(
+            one["grad_norm"], 1), (got, one)
+    mine, single = rows[0]["grads"][0], grads[0]
+    assert sorted(mine) == sorted(single)
+    worst = max((_rel_l2(mine[j], single[j]), j) for j in single)
+    assert worst[0] < LEAF_REL_TOL, worst
+
+
+def test_kv_group_heads_step_matches_single_device(launched):
+    """6 query heads in 2 kv groups on MESH's model axis of 4: each rank
+    computes its kv group's attention and keeps its own columns of the
+    output, those of wo's row shard (``transformer._kv_group_attention``,
+    the reference partitioner's layout for qwen2-7b at 16); its two steps
+    equal the single-device steps."""
+    cfg = _kv_group_cfg()
+    M = MESH[1]
+    assert cfg.n_heads % M and M % cfg.n_kv_heads == 0
+    _held_to_single(launched, 6, cfg)
+
+
+def test_table_moving_embedding_step_matches_single_device(launched):
+    """On POD_MESH, where the batch lies on ('pod', 'data') and the table's
+    D on 'data' alone, the embedding moves the table (a permute over
+    'data' and 'model', its rows gathered over 'data'; the gradient summed
+    over ('pod', 'data') and permuted back): two steps equal the
+    single-device steps, the embedding's gradient among the leaves.  The
+    fake trace of the same step shows the permute."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+
+    cfg = _table_cfg()
+    _held_to_single(launched, 7, cfg)
+    _, rows = D.trace_step(cfg, ShapeSpec("t", S, B, "train"),
+                           dict(zip(POD_MESH[1], POD_MESH[0])), device="cpu")
+    assert [r for r in rows if r[2] == 0 and "all_to_all_single" in r[0]
+            and r[0].endswith(" @data+model")]
+
+
 def test_two_axis_dim_takes_the_hand_computed_shard(launched, pod_array):
     """P(('pod', 'data'), None, 'model') on (pod 2, data 2, model 2): rank
     r = (pod, data, model) in row-major order holds rows [2 (2 pod + data),
@@ -395,3 +472,41 @@ def test_run_ranks_returns_in_rank_order_and_raises_with_the_traceback():
     assert run_ranks(operator.truediv, 2) == [0.0, 0.5]
     with pytest.raises(RuntimeError, match="math domain error"):
         run_ranks(math.log, 2)         # log(0, 2) on rank 0
+
+
+def _fails_on_rank_one(rank, world):
+    import torch.distributed as dist
+
+    if rank == 1:
+        raise ValueError("rank one's own fault")
+    dist.all_reduce(torch.ones(1))              # its peer has left
+
+
+def test_run_ranks_names_the_rank_at_fault_not_its_peers():
+    """A rank that fails leaves its peers failing in gloo's transport
+    (the connection closed); the error raised is the failing rank's."""
+    with pytest.raises(RuntimeError, match="rank 1 of 2") as err:
+        run_ranks(_fails_on_rank_one, 2)
+    assert "rank one's own fault" in str(err.value)
+
+
+def _timed_turn(rank, world):
+    import time
+
+    from repro_torch.parallel.ranks import _in_turn
+
+    def make():
+        t0 = time.monotonic()
+        time.sleep(0.2)
+        return t0, time.monotonic()
+    # the card's path (ranks sharing one card take turns); on a CPU-only
+    # torch its release of cached device memory does nothing
+    return _in_turn(rank, world, torch.device("cuda"), make)
+
+
+def test_ranks_sharing_a_card_place_their_parameters_in_turn():
+    """``sharded_train_steps``' placement on a card runs on one rank at a
+    time, in rank order."""
+    spans = run_ranks(_timed_turn, 3)
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        assert end <= start, spans

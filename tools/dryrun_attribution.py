@@ -3,7 +3,7 @@ in the port's trace and, with ``--reference``, in the JAX reference's HLO.
 
     PYTHONPATH=src python tools/dryrun_attribution.py --arch kimi-k2-1t-a32b \
         --shape train_4k [--overrides '{"n_layers": 1}'] [--multi-pod] \
-        [--reference] [--top 40] [--out FILE]
+        [--reference] [--functions] [--top 40] [--out FILE]
 
 The port's side is ``repro_torch.launch.dryrun.lower_cell`` on the CPU
 (the plain path, a fake world of 256 or 512 ranks), counted once with
@@ -18,8 +18,13 @@ own ``lower_cell`` with 512 XLA host devices and Auto mesh axes, as
 by its output, every other collective by its operands), each ``dot`` by
 its output and operand shapes, each collective by kind, operand shape and
 replica groups.  Elements, not bytes: XLA's CPU backend widens bf16
-collectives to f32.  Prints both tables and the totals by kind; ``--out``
-writes them as JSON.  CPU only; the reference side needs jax.
+collectives to f32.  With ``--functions`` each collective's key also
+names the functions that issued it: the port's innermost functions on the
+Python stack as ``Accounting`` records them (a backward that autograd
+runs names only the port's own autograd functions), the reference's from
+its HLO's stack frames (``tools/hlo_frames.py``).  Prints
+both tables and the totals by kind; ``--out`` writes them as JSON.  CPU
+only; the reference side needs jax.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ def make_mesh(shape, names, *args, **kwargs):
 
 jax.make_mesh = make_mesh
 import repro.launch.dryrun as RD
+from hlo_frames import stack_functions
 H = RD.H
 texts = []
 _analyze = H.analyze_hlo
@@ -89,6 +95,9 @@ def bare(s):
     return s.split("{")[0]
 
 
+functions = stack_functions(texts[-1])
+
+
 flops = collections.Counter()
 coll = collections.Counter()
 calls = collections.Counter()
@@ -109,6 +118,8 @@ for cname, insts in comps.items():
             g = re.search(r"replica_groups=(\[[^ ]*|\{\{[\d,]{0,24})",
                           inst.line)
             key = "%s %s %s" % (kind, what, g.group(1) if g else "")
+            if sys.argv[5] == "1":
+                key += " [%s]" % " < ".join(functions(inst.line)[:2])
             coll[key] += m * n
             calls[key] += m
 print(json.dumps(dict(
@@ -118,8 +129,8 @@ print(json.dumps(dict(
 """
 
 
-def port_side(arch: str, shape: str, overrides: dict, multi_pod: bool
-              ) -> dict:
+def port_side(arch: str, shape: str, overrides: dict, multi_pod: bool,
+              by_function: bool = False) -> dict:
     """The port's trace of the cell, counted in elements."""
     import torch
 
@@ -134,11 +145,13 @@ def port_side(arch: str, shape: str, overrides: dict, multi_pod: bool
     finally:
         D._nbytes = nbytes
     flops, coll, calls = (collections.Counter() for _ in range(3))
-    for op, shapes, f, n in rows:
+    for op, shapes, f, n, fns in rows:
         key = "%s %s" % (op, " x ".join(str(tuple(s)) for s in shapes))
         if f:
             flops[key] += f
         else:
+            if by_function:
+                key += " [%s]" % " < ".join(fns[:3])
             coll[key] += n
             calls[key] += 1
     return dict(flops_per_device=result["cost"]["flops_per_device"],
@@ -147,11 +160,13 @@ def port_side(arch: str, shape: str, overrides: dict, multi_pod: bool
                 elements_by_kind=result["collectives"]["bytes_by_kind"])
 
 
-def reference_side(arch: str, shape: str, overrides: dict, multi_pod: bool
-                   ) -> dict:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+def reference_side(arch: str, shape: str, overrides: dict, multi_pod: bool,
+                   by_function: bool = False) -> dict:
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        (str(ROOT / "src"), str(ROOT / "tools"))))
     out = subprocess.run([sys.executable, "-c", REFERENCE, arch, shape,
-                          json.dumps(overrides), str(int(multi_pod))],
+                          json.dumps(overrides), str(int(multi_pod)),
+                          str(int(by_function))],
                          env=env, check=True,
                          capture_output=True, text=True).stdout
     got = json.loads(out.strip().splitlines()[-1])
@@ -184,14 +199,16 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true",
                     help="the 2 x 16 x 16 mesh (default 16 x 16)")
     ap.add_argument("--reference", action="store_true")
+    ap.add_argument("--functions", action="store_true",
+                    help="name each collective's issuing functions")
     ap.add_argument("--top", type=int, default=40)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     overrides = json.loads(args.overrides)
     cell = (args.arch, args.shape, overrides, args.multi_pod)
-    sides = dict(port=port_side(*cell))
+    sides = dict(port=port_side(*cell, args.functions))
     if args.reference:
-        sides["reference"] = reference_side(*cell)
+        sides["reference"] = reference_side(*cell, args.functions)
     for name, side in sides.items():
         _table(f"{name} {args.arch} {args.shape} {overrides}", side, args.top)
     if "reference" in sides:
