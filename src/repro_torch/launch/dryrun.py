@@ -260,6 +260,7 @@ class Accounting(TorchDispatchMode):
                 layout = np.asarray(mesh.mesh.tolist())
             self._coords = {int(r): idx for idx, r in np.ndenumerate(layout)}
             self._names = tuple(mesh.mesh_dim_names)
+            self._sizes = dict(zip(self._names, layout.shape))
         self._axes_of: Dict[str, tuple] = {}
         self.flattened_counts = {k: 0 for k in _COLLECTIVES}
         self.counts_by_part: Dict[str, Dict[str, int]] = {}
@@ -358,35 +359,41 @@ class Accounting(TorchDispatchMode):
                     group=None) -> None:
         self.collective_bytes[kind] += nbytes
         self.collective_counts[kind] += 1
-        axes = self._axes(group)
+        axes, label = self._axes(group)
         if len(axes) > 1:
             self.flattened_counts[kind] += 1
         part = train_steps.part_running
         if part is not None:
-            key = f"{kind} @{'+'.join(axes)}" if axes else kind
+            key = f"{kind} @{label}" if axes else kind
             got = self.counts_by_part.setdefault(part, {})
             got[key] = got.get(key, 0) + 1
         if axes:
-            op = f"{op} @{'+'.join(axes)}"
+            op = f"{op} @{label}"
         self.rows.append((op, shapes, 0, nbytes, _issuers()))
 
     def _axes(self, group) -> tuple:
         """The mesh axes (of more than one rank) along which the ranks of
-        ``group`` (a process group or its name) differ; () without a
-        mesh."""
+        ``group`` (a process group or its name) differ, and the group's
+        label: those axes joined by ``+``, and the group's size in
+        brackets where it holds fewer ranks than the axes span (a subgroup
+        of an axis, :func:`repro_torch.parallel.act.axis_groups`:
+        ``model[2]``); ((), "") without a mesh."""
         if self._coords is None or group is None:
-            return ()
+            return (), ""
         import torch.distributed as dist
         from torch.distributed.distributed_c10d import _resolve_process_group
 
         pg = _resolve_process_group(group) if isinstance(group, str) else group
         name = pg.group_name
         if name not in self._axes_of:
-            at = np.array([self._coords[r]
-                           for r in dist.get_process_group_ranks(pg)])
-            self._axes_of[name] = tuple(
-                a for i, a in enumerate(self._names)
-                if len(set(at[:, i].tolist())) > 1)
+            ranks = dist.get_process_group_ranks(pg)
+            at = np.array([self._coords[r] for r in ranks])
+            axes = tuple(a for i, a in enumerate(self._names)
+                         if len(set(at[:, i].tolist())) > 1)
+            whole = int(np.prod([self._sizes[a] for a in axes] or [1]))
+            label = "+".join(axes) + (f"[{len(ranks)}]"
+                                      if len(ranks) < whole else "")
+            self._axes_of[name] = (axes, label)
         return self._axes_of[name]
 
     # -- every op ----------------------------------------------------------

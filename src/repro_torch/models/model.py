@@ -38,7 +38,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.parallel.act import (BATCH, TP, constrain, embed_rows,
                                       gathered_product, is_sharded,
                                       per_shard, redistribute, reduce_over,
-                                      shard_start)
+                                      reduced_grad, shard_start)
 
 from .layers import init_linear, mrope_positions, rms_norm, rope_angles
 from .transformer import (block_param_shapes, blocks_decode, blocks_forward,
@@ -272,7 +272,13 @@ class _GatheredHead(torch.autograd.Function):
 def _chunk_nll(hs, ls, hw, held=None):
     """One loss chunk: (sum of the valid positions' -log p(label) in f32,
     count of valid positions).  hs (B, c, D); ls (B, c), -1 = no label;
-    ``held``: see :class:`_GatheredHead` (a sharded head only)."""
+    ``held``: see :class:`_GatheredHead` (a sharded head only).  On a mesh
+    whose model axis shards the vocabulary, the head's input gradient (a
+    partial sum over the axis, in hs's dtype) is all-reduced here, a chunk
+    at a time, as the reference's partitioner reduces it inside its loss
+    scan (a bf16 all-reduce of (B, c, D) a chunk in its partitioned HLO of
+    qwen2-7b ``train_4k``)."""
+    hs = reduced_grad(hs)
     if held is not None:
         hw = _GatheredHead.apply(hw, held)
     logits = constrain(_head_logits(hs, hw), BATCH, None, TP)

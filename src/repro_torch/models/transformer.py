@@ -63,7 +63,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as K3
-from repro_torch.parallel.act import (BATCH, TP, constrain, merge_last,
+from repro_torch.parallel.act import (BATCH, TP, axis_groups, constrain,
+                                      gather_dim, merge_last,
                                       model_axis_size, padded_heads,
                                       per_shard, redistribute, reduced_grad,
                                       split_dim, split_last)
@@ -114,16 +115,15 @@ def block_param_shapes(cfg, spec) -> Dict[str, Any]:
 # forward (train / prefill)
 # --------------------------------------------------------------------------
 
-def _qkv(p, x, cfg, S, own_grads: bool = False):
-    """q, k, v on their heads.  With ``own_grads``, each projection's input
-    gradient is reduced on its own (:func:`~repro_torch.parallel.act.
-    reduced_grad`), as the reference's partitioner reduces it."""
+def _qkv(p, x, cfg, S):
+    """q, k, v on their heads; each projection's input gradient is reduced
+    on its own (:func:`~repro_torch.parallel.act.reduced_grad`), as the
+    reference's partitioner reduces it: three all-reduces on a mesh."""
     B = x.shape[0]
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    xg = reduced_grad if own_grads else (lambda t: t)
-    q = xg(x) @ p["wq"]
-    k = xg(x) @ p["wk"]
-    v = xg(x) @ p["wv"]
+    q = reduced_grad(x) @ p["wq"]
+    k = reduced_grad(x) @ p["wk"]
+    v = reduced_grad(x) @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = constrain(split_last(q, H, hd), BATCH, None, TP, None)
@@ -155,13 +155,7 @@ _ATTN_FREE = frozenset({"b", "h"})
 def _attn_sublayer(p, x, cfg, spec, rope, q_offset=0,
                    return_kv: bool = False):
     M = model_axis_size(x)
-    # the q / k / v projections' input gradients reduced one by one, as the
-    # reference reduces them, except where only the kv heads miss the model
-    # axis: there they are summed first (one all-reduce, where the
-    # reference runs three), since reordering that sum moves the float8
-    # dispatch's sharded step past what its test holds (see CHANGES.md)
-    q, k, v = _qkv(p, x, cfg, x.shape[1], own_grads=not (
-        M > 1 and cfg.n_heads % M == 0 and cfg.n_kv_heads % M))
+    q, k, v = _qkv(p, x, cfg, x.shape[1])
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
@@ -230,11 +224,14 @@ def _kv_group_attention(q, k, v, wo, cfg, M: int, **kw):
     of the output, which are the columns of ``wo``'s row shard on that
     rank, so the output meets ``wo`` where it lies (no reduce-scatter of
     a padded output).  q, k and v arrive whole on the axis (the uneven
-    shard is gathered where the heads are split out).  A rank's q, k and
-    v gradients come from its own columns of the output's gradient only:
-    partial sums over the axis, which add up to the whole gradient
-    (attention's backward is linear in dO)."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    shard is gathered where the heads are split out).  The backward is the
+    reference's (:class:`_GatheredGrad`): the output's gradient is
+    all-gathered over the R ranks of the kv group, so that each rank
+    computes its group's dq, dk and dv whole, and those are all-gathered
+    over the Kv groups: every rank ends with the whole gradients, and none
+    is a partial sum.  The two gathers run on subgroups of the model axis
+    (:func:`~repro_torch.parallel.act.axis_groups`)."""
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -245,19 +242,39 @@ def _kv_group_attention(q, k, v, wo, cfg, M: int, **kw):
     act = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
            else Replicate() for pl in q.placements]
     names = mesh.mesh_dim_names
-    part = [Partial() if names[i] == TP else pl for i, pl in enumerate(act)]
     cols = [Shard(2) if names[i] == TP else pl for i, pl in enumerate(act)]
     q, k, v = (t.redistribute(mesh, act) for t in (q, k, v))
+    groups, in_group = axis_groups(mesh, TP, R)
 
     def local(q, k, v):
-        o = _attend(q[:, :, g * G:(g + 1) * G], k[:, :, g:g + 1],
-                    v[:, :, g:g + 1], **kw)
-        return o.reshape(*o.shape[:2], G * hd)[:, :, c0:c0 + w]
+        o = _attend(_GatheredGrad.apply(q, g * G, G, groups),
+                    _GatheredGrad.apply(k, g, 1, groups),
+                    _GatheredGrad.apply(v, g, 1, groups), **kw)
+        return _GatheredGrad.apply(o.reshape(*o.shape[:2], G * hd), c0, w,
+                                   in_group)
 
     run = local_map(local, out_placements=cols,
                     in_placements=(act, act, act),
-                    in_grad_placements=(part, part, part), device_mesh=mesh)
+                    in_grad_placements=(act, act, act), device_mesh=mesh)
     return run(q, k, v) @ wo
+
+
+class _GatheredGrad(torch.autograd.Function):
+    """``t[:, :, lo:lo + n]``, whose gradient is all-gathered along dim 2
+    over ``group`` (in its rank order): the ranks of ``group`` hold the
+    other blocks of dim 2, so each ends with the gradient of the whole of
+    ``t``.  :func:`_kv_group_attention` slices its kv group's heads of q,
+    k and v (the gradient gathered over the groups) and its own columns of
+    the group's output (the gradient gathered over the group's ranks)."""
+
+    @staticmethod
+    def forward(ctx, t, lo: int, n: int, group):
+        ctx.group = group
+        return t[:, :, lo:lo + n]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_dim(grad, ctx.group, 2), None, None, None
 
 
 def _padded_heads_attention(q, k, v, wo, cfg, M: int, **kw):

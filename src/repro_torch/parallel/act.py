@@ -25,7 +25,8 @@ __all__ = ["activation_mesh", "constrain", "BATCH", "TP",
            "merge_last", "is_sharded", "model_axis_size", "padded_heads",
            "contract_shards", "embed_rows", "shard_start",
            "gathered_product", "slice_to", "redistribute", "reduce_over",
-           "reduced_grad", "permute"]
+           "reduced_grad", "permute", "axis_groups", "gather_dim",
+           "moves_table"]
 
 # logical activation axes used by model code (resolved against the live mesh)
 BATCH = ("pod", "data")
@@ -385,6 +386,48 @@ def _reduce_scatter_single(t, op: str, group):
     return scatter(t, op, 0, group)
 
 
+def axis_groups(mesh, axis: str, inner: int) -> tuple:
+    """The ranks of ``mesh``'s axis ``axis`` (n of them) split into n /
+    ``inner`` groups of ``inner`` consecutive ranks, as two process groups
+    for each rank, each a (mesh, dim) pair the functional collectives take:
+    (the ranks at this rank's place in every group, in group order; the
+    ranks of this rank's group, in order).  They are the dims of a mesh
+    made once from ``mesh``'s own layout with ``axis`` split in two
+    (outside any fake mode; every rank makes it at the same point, as any
+    process group), so that the host staging and ``dryrun.Accounting``
+    see them as groups of ``mesh``'s ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    made = mesh.__dict__.setdefault("_repro_axis_groups", {})
+    if (axis, inner) not in made:
+        names = list(mesh.mesh_dim_names)
+        i = names.index(axis)
+        with _disable_current_modes():
+            layout = mesh.mesh.clone()
+            shape = list(layout.shape)
+            shape[i:i + 1] = [shape[i] // inner, inner]
+            split = DeviceMesh(mesh.device_type, layout.reshape(shape),
+                               mesh_dim_names=tuple(
+                                   names[:i] + [f"{axis}_groups",
+                                                f"{axis}_in_group"]
+                                   + names[i + 1:]))
+        made[(axis, inner)] = ((split, i), (split, i + 1))
+    return made[(axis, inner)]
+
+
+def gather_dim(t, group, dim: int):
+    """``t`` from every rank of ``group`` (a (mesh, dim) pair), joined along
+    ``dim`` in the group's rank order: one all-gather."""
+    import torch.distributed._functional_collectives as funcol
+
+    n = group[0].size(group[1])
+    got = _all_gather_single(t.contiguous(), group)
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    return torch.cat(got.chunk(n, dim=0), dim=dim) if dim else got
+
+
 class _GroupedRedistribute(torch.autograd.Function):
     """:func:`redistribute`: forward :func:`_redistribute_grouped`, and the
     gradient to the source's placements the same way, a ``Partial``
@@ -669,6 +712,28 @@ def _batch_dims(x) -> set:
             if p == Shard(0) and x.device_mesh.size(i) > 1}
 
 
+def moves_table(rows: int, tokens_rank: int, tokens_batch: int,
+                spread: bool) -> bool:
+    """Whether the reference's partitioner moves an embedding table of
+    ``rows`` rows, sharded on its rows over the model axis, rather than the
+    tokens, for a lookup of ``tokens_rank`` tokens a rank out of a batch of
+    ``tokens_batch``; ``spread``: the batch lies on a mesh axis that holds
+    no shard of the table's D (('pod', 'data') beside D on 'data').  Read
+    from XLA's lowering of the reference's lookup alone
+    (``tools/embedding_layouts.py``: 16 x 16, 16 x 8, 8 x 16, 8 x 8 and 2 x
+    16 x 16 meshes, vocabularies of 2k to 2M rows, 4k to 64k tokens a rank,
+    the three parity cells among them): the table moves where it has fewer
+    rows than a rank has tokens, or, where ``spread``, fewer than the whole
+    batch has; the tokens move otherwise.  D and the mesh's sizes do not
+    enter.  Not ported: where the data and model axes are equally wide,
+    XLA gathers the table's whole rows over 'model' instead of moving the
+    tokens in a narrow band below rows = data * tokens_rank (16 x 16: 14 to
+    16 times a rank's tokens; 8 x 8: 8 times), and above the batch's tokens
+    where ``spread`` (2 x 16 x 16: 1 to 1.375 times); the port moves the
+    tokens there.  No config's cell reaches those bands."""
+    return rows < (tokens_batch if spread else tokens_rank)
+
+
 def embed_rows(table, tokens, take):
     """``take(table, tokens)`` (the table's rows at the tokens) where the
     DTensor ``table`` (V, D) is sharded on its rows over the model axis, as
@@ -683,16 +748,11 @@ def embed_rows(table, tokens, take):
     The table's rows move instead of the tokens' (:func:`_table_columns`:
     whole rows, D on the model axis; each rank looks up its own tokens in
     its own columns and the caller's constraint gathers D) where the
-    reference's partitioner moves them, in the three parity cells read
-    from its HLO: where the batch lies on a mesh axis that holds no shard
-    of the table's D and the model axis has more than one rank (kimi-k2 at
-    2 x 16 x 16: the batch on ('pod', 'data'), D on 'data' alone), and
-    where the table has no more rows than a rank has tokens to look up
-    (falcon-mamba at 16 x 16: 65,024 rows against 65,536 tokens a rank;
-    kimi-k2 at 16 x 16, 163,840 against 65,536, takes the lookup above).
-    The size condition is fitted to those cells, not read from the
-    partitioner's rule.  Returns None where the table's rows are not on
-    the model axis (the caller gathers it)."""
+    reference's partitioner moves them (:func:`moves_table`): falcon-mamba
+    at 16 x 16 (65,024 rows, 65,536 tokens a rank) and kimi-k2 at 2 x 16 x
+    16 (the batch on ('pod', 'data'), D on 'data' alone) move the table,
+    kimi-k2 at 16 x 16 (163,840 rows) the tokens.  Returns None where the
+    table's rows are not on the model axis (the caller gathers it)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -706,8 +766,9 @@ def embed_rows(table, tokens, take):
     m = names.index(TP)
     d_dims = {i for i, p in enumerate(table.placements)
               if p == Shard(1) and mesh.size(i) > 1}
-    moved = mesh.size(m) > 1 and not _batch_dims(tokens) <= d_dims
-    if (table.shape[0] <= tokens.to_local().numel() or moved) and \
+    spread = mesh.size(m) > 1 and not _batch_dims(tokens) <= d_dims
+    if moves_table(table.shape[0], tokens.to_local().numel(),
+                   tokens.numel(), spread) and \
             table.shape[1] % mesh.size(m) == 0:
         whole = _table_columns(table, m)
         lead = tuple(f"x{i}" for i in range(tokens.dim()))

@@ -8,6 +8,11 @@ live in the package.
   parameters, optimizer state and batch placed on a (data, model) mesh by
   ``param_pspecs`` / ``opt_pspecs`` / ``batch_pspecs``, then train steps
   inside ``activation_mesh``; returns each step's metrics.
+* :func:`embedding_rank` -- the embedding lookup alone and its backward on
+  a mesh, each rank's shards held to the plain lookup and gradient.
+* :func:`loss_grads_rank` -- the loss's gradient with respect to a few
+  parameters only, on a mesh, from given whole parameters; returns them
+  whole and the step's collectives.
 * :func:`sharded_serving_steps` -- the prefill and decode steps on DTensor
   parameters and caches placed by the rules; returns the whole logits and
   caches.
@@ -38,7 +43,7 @@ import torch
 
 __all__ = ["sharded_train_steps", "sharded_serving_steps", "ep_moe_rank",
            "moe_forward_rank", "moe_inputs", "summed_shards_rank",
-           "grouped_redistribute_rank",
+           "grouped_redistribute_rank", "loss_grads_rank", "embedding_rank",
            "local_shards", "with_host_staging", "run_jobs", "train_batch",
            "whole_leaves"]
 
@@ -58,9 +63,11 @@ def train_batch(cfg, B: int, S: int, device, step: int = 0
 def whole_leaves(tree, limit: Optional[int] = None
                  ) -> Dict[int, np.ndarray]:
     """Each leaf of at most ``limit`` elements (every leaf if None), whole
-    (a DTensor's ``full_tensor()``: pending partial sums reduced), as float32
-    numpy, by its index in ``repro_torch.tree`` order.  Every rank of a
-    mesh must call it: the sharded leaves are gathered."""
+    (a DTensor's ``full_tensor()``: pending partial sums reduced), as a
+    float32 numpy copy (a replicated leaf's ``full_tensor()`` is its own
+    storage, which a later step updates in place), by its index in
+    ``repro_torch.tree`` order.  Every rank of a mesh must call it: the
+    sharded leaves are gathered."""
     from repro_torch import tree as T
 
     from .act import is_sharded
@@ -70,7 +77,7 @@ def whole_leaves(tree, limit: Optional[int] = None
         if limit is not None and t.numel() > limit:
             continue
         t = t.full_tensor() if is_sharded(t) else t
-        out[i] = t.detach().float().cpu().numpy()
+        out[i] = t.detach().float().cpu().numpy().copy()
     return out
 
 
@@ -115,15 +122,17 @@ def _in_turn(rank: int, world: int, dev, make: Callable[[], Any]) -> Any:
 def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                         B: int, S: int, mesh_shape, device: str,
                         steps: int = 1, leaves: Optional[int] = 0,
-                        account: bool = False) -> List[Dict]:
+                        account: bool = False,
+                        states: bool = False) -> List[Dict]:
     """For each config: initial state from seed 0 (the same on every rank,
     as the single-device step it is held to draws it), placed by the rules
     on a ('data', 'model') or ('pod', 'data', 'model') mesh of
     ``mesh_shape``, then ``steps`` train steps on data steps 0, 1, ...
     With ``account``, step 0 runs counted by ``launch.dryrun.Accounting``
-    (``accounting``: its totals, and ``collectives``: each collective's row,
-    op with the mesh axes its group spans and local shapes).  Returns per
-    config the steps' metrics
+    (``accounting``: its totals, ``collectives``: each collective's row,
+    op with the mesh axes its group spans and local shapes, and
+    ``collective_issuers``: each one's issuing functions, in order).
+    Returns per config the steps' metrics
     (floats), the seconds of each step, the K3 / K4 / K5 launches of this
     rank, and its peak device memory, allocated and reserved (CUDA); on
     rank 0 also, by :func:`whole_leaves`, for the leaves of at most
@@ -131,7 +140,10 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
     (``grads``, a list by step) and the parameters after the steps
     (``params_after``), and the device bytes allocated when the peak was
     reset (after placement: the arguments, and anything an earlier job of
-    the process left)."""
+    the process left); with ``states``, also each step's parameters and
+    optimizer state after it, every leaf whole (``states``, a list by step
+    of (params, opt) :func:`whole_leaves` pairs), from which one device
+    can run the next step from the mesh's own state."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels import flash_attention as K3
     from repro_torch.kernels import mamba_scan as K4
@@ -167,7 +179,7 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                                      f"{t.placements}, opt_pspecs "
                                      f"{ns.placements}")
         b_sh = sh.to_shardings(sh.batch_pspecs(cfg, shape, mesh), mesh)
-        metrics, seconds, grads = [], [], []
+        metrics, seconds, grads, after_steps = [], [], [], []
         acc = Accounting(dev.type, mesh) if account else None
 
         def keep(g):
@@ -197,6 +209,9 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
                 torch.cuda.synchronize(dev)
             seconds.append(time.perf_counter() - t0)
             metrics.append({k: float(v) for k, v in m.items()})
+            if states:
+                after_steps.append((whole_leaves(params),
+                                    whole_leaves(opt)))
         local = sum(t.to_local().numel() for t in T.leaves(params))
         whole = sum(t.numel() for t in T.leaves(params))
         after = whole_leaves(params, leaves) if leaves != 0 else {}
@@ -211,12 +226,123 @@ def sharded_train_steps(rank: int, world: int, cfgs: List[Any], opt_cfg,
         if acc is not None:
             row.update(accounting=acc.summary(), collectives=[
                 (op, shapes) for op, shapes, flops, _, _ in acc.rows
-                if not flops])
+                if not flops], collective_issuers=[
+                fns for _, _, flops, _, fns in acc.rows if not flops])
         if rank == 0:
             row.update(grads=grads, params_after=after)
+            if states:
+                row.update(states=after_steps)
         out.append(row)
         del params, opt
     return out
+
+
+def loss_grads_rank(rank: int, world: int, params: Dict[str, Any],
+                    batch: Dict[str, torch.Tensor], cfg, mesh_shape,
+                    names: List[str], device: str = "cpu") -> Dict[str, Any]:
+    """``models.model.loss_fn``'s gradient with respect to the top-level
+    parameters ``names`` alone (autograd forms no other gradient), on a
+    ('data', 'model') mesh of ``mesh_shape``: the whole ``params`` and
+    ``batch`` are the same on every rank, which keeps its shards, placed
+    by the rules; the step is counted by ``launch.dryrun.Accounting``.
+    Returns the loss, each named gradient whole (float32 numpy) and each
+    collective's row (op with the mesh axes its group spans, local
+    shapes, bytes, issuing functions)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import Accounting
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import loss_fn
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.steps import _replicating
+
+    dev = torch.device(device)
+    mesh = make_local_mesh(*mesh_shape, device=dev.type)
+    B, S = batch["labels"].shape
+    params = sh.device_put(params, sh.to_shardings(
+        sh.param_pspecs(cfg, mesh), mesh))
+    batch = sh.device_put(batch, sh.to_shardings(sh.batch_pspecs(
+        cfg, ShapeSpec("t", S, B, "train"), mesh), mesh))
+    leaves = [params[n].requires_grad_(True) for n in names]
+    acc = Accounting(dev.type, mesh)
+    with sh.activation_mesh(mesh), _replicating(True), acc:
+        loss, _ = loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    return dict(loss=float(loss.full_tensor()),
+                grads={n: g.full_tensor().float().cpu().numpy()
+                       for n, g in zip(names, grads)},
+                collectives=[(op, shapes, nbytes, fns) for op, shapes,
+                             flops, nbytes, fns in acc.rows if not flops])
+
+
+def _own(t, mesh, placements, whole: torch.Tensor) -> torch.Tensor:
+    """The block of ``whole`` that this rank's shard of a DTensor of
+    ``placements`` on ``mesh`` holds."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    shape, offset = compute_local_shape_and_global_offset(
+        whole.shape, mesh, placements)
+    return whole[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def embedding_rank(rank: int, world: int, cfg, B: int, S: int, mesh_shape,
+                   device: str = "cpu") -> Dict[str, Any]:
+    """``models.model._embed_in``'s lookup alone and its backward, on a
+    ('data', 'model') or ('pod', 'data', 'model') mesh of ``mesh_shape``:
+    the (V, D) table drawn normal with std 0.02 from ``torch`` seed 0 on
+    the device, placed by ``param_pspecs``, ``train_batch``'s step-0
+    tokens placed by ``batch_pspecs``, and the loss ``sum(x * c)`` with c
+    (B, S, D) normal from seed 1; the pass is counted by
+    ``launch.dryrun.Accounting`` and timed.  Each rank holds its own shards to the
+    plain lookup ``table[tokens]`` and the plain gradient (c's rows added
+    into the table's, in float32) of the whole table it drew.  Returns
+    the largest difference of its output shard (a lookup moves values
+    exactly), its gradient shard's relative L2 error, the pass's seconds
+    and each
+    collective's row (op with the mesh axes its group spans, local
+    shapes)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import Accounting
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import _embed_in, dtype_of
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.steps import _replicating
+
+    dev = torch.device(device)
+    mesh = make_local_mesh(*mesh_shape, device=dev.type)
+    V, D = cfg.vocab_size, cfg.d_model
+    gen = torch.Generator(device=dev)
+    table = (torch.randn(V, D, generator=gen.manual_seed(0), device=dev)
+             * 0.02).to(dtype_of(cfg.param_dtype))
+    c = torch.randn(B, S, D, generator=gen.manual_seed(1), device=dev)
+    tokens = train_batch(cfg, B, S, dev, 0)["tokens"]
+    spec = sh.param_pspecs(cfg, mesh)["embed"]
+    placed = sh.device_put({"embed": table}, sh.to_shardings(
+        {"embed": spec}, mesh))["embed"].requires_grad_(True)
+    batch = sh.device_put({"tokens": tokens}, sh.to_shardings(
+        {"tokens": sh.batch_pspecs(cfg, ShapeSpec("t", S, B, "train"),
+                                   mesh)["tokens"]}, mesh))
+    acc = Accounting(dev.type, mesh)
+    t0 = time.perf_counter()
+    with sh.activation_mesh(mesh), _replicating(True), acc:
+        x = _embed_in({"embed": placed}, batch, cfg)
+        (grad,) = torch.autograd.grad((x.float() * c).sum(), [placed])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    want_x = table[tokens.long()].to(x.dtype)
+    want_g = torch.zeros(V, D, device=dev).index_add_(
+        0, tokens.reshape(-1).long(), c.reshape(-1, D))
+    got_x = x.to_local().float()
+    got_g = grad.to_local().float()
+    own_g = _own(grad, mesh, grad.placements, want_g)
+    return dict(
+        out_max_abs=float((got_x - _own(x, mesh, x.placements, want_x)
+                           .float()).abs().max()),
+        grad_rel_l2=float((got_g - own_g).norm() / own_g.norm()),
+        seconds=seconds,
+        collectives=[(op, shapes) for op, shapes, flops, _, _ in acc.rows
+                     if not flops])
 
 
 def serving_tokens(cfg, B: int, steps: int) -> np.ndarray:

@@ -18,8 +18,14 @@ reason:
 * a reduced kimi-k2 loss and every leaf's gradient: 1e-5 / 1e-4, as
   ``test_torch_train.py`` holds the bf16 dispatch;
 * on 8 gloo ranks, the sharded fp8 train step against the single-device
-  step within 1e-6 (the mesh only reorders float32 sums; the quantize sees
-  whole D rows on every rank); ``ep_moe_forward`` on an fp8 config against
+  step: step 1 within 1e-6 (the mesh only reorders float32 sums; the
+  quantize sees whole D rows on every rank); step 2 re-anchored (one
+  device from the mesh's state after step 1) within 1e-6 where both sides
+  round the dispatch's slots to the same e4m3 values, and without that
+  only ties rounding otherwise; step 2 chained (from one device's own step
+  1) within 1e-4: one float32 ulp moves step 2's loss by up to 1.05e-5
+  through e4m3 payload elements that round to another value
+  (``tools/fp8_step_noise.py``); ``ep_moe_forward`` on an fp8 config against
   the reference's within 1e-4 (``tests/test_torch_sharded.py``'s EP_TOL:
   the explicit-EP forward exchanges the compute dtype in both packages);
   the DTensor ``moe_forward`` with groups on every rank, whose dispatch
@@ -29,6 +35,7 @@ Tests marked ``cuda`` quantize on the card against the host's bits; they
 skip elsewhere.
 """
 import dataclasses
+import importlib.util
 import os
 import subprocess
 import sys
@@ -53,6 +60,19 @@ from repro_torch.runtime import checkpoint as PCK
 from repro_torch.train.steps import init_train_state, make_train_step
 from test_torch_harness import ROOT, load_reference
 
+
+def _tool(name: str):
+    spec = importlib.util.spec_from_file_location(name,
+                                                  ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: the one-device steps of the re-anchored check (the same config, batch
+#: and optimizer as the sharded step's below)
+REANCHORED = _tool("fp8_reanchored_step")
+
 FP8 = "float8_e4m3fn"
 ARCHS = ["kimi-k2-1t-a32b", "grok-1-314b"]
 F32_REL = 1e-5
@@ -62,6 +82,22 @@ LOSS_REL_TOL, GRAD_REL_TOL = 1e-5, 1e-4
 B, S, MESH, RANKS, STEPS = 8, 32, (2, 4), 8, 2
 OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
 SHARDED_TOL = 1e-6
+#: step 2 chained (one device's own step 1 before it), where the float8
+#: dispatch amplifies float32 rounding: one float32 ulp of random sign on
+#: each element of step 1's gradient, as a reordered sum moves it, moved
+#: step 2's loss (5.7106) by at most 1.05e-5 and its grad norm (3.44) by
+#: at most 3.5e-5 (tools/fp8_step_noise.py, 4 draws a set: e4m3 payload
+#: elements that round to another value; with the bf16 dispatch nothing
+#: moves).  The bound is ~10 times the largest move the tool measured.
+STEP2_TOL = 1e-4
+#: the first dispatch's slots of step 2, one device's against the mesh's
+#: from the same state: float32 ulps of the slot's largest magnitude
+#: (reordered float32 sums ahead of the dispatch; measured at most 6.0
+#: there, 8.5 in step 1's dispatches), the scales' ulps (7.0); a payload
+#: element rounds otherwise only at a tie, its two quotients that many
+#: ulps of 448 apart (measured: 2 elements, 0.45 ulp apart).
+#: tools/fp8_reanchored_step.py
+SLOT_ULPS = 16
 LEAF_REL_TOL = 1e-4
 EP_TOL = 1e-4
 #: the DTensor forward's groups: 8, one a rank
@@ -393,6 +429,25 @@ def _dispatch_cfg():
         n_experts=8, experts_per_token=2, moe_d_ff=16, capacity_factor=1.25)
 
 
+def _sharded_fp8_steps(rank: int, world: int) -> list:
+    """A rank of the sharded fp8 train steps: ``sharded_train_steps`` with
+    each step's state returned whole, and on rank 0 also each step's
+    dispatch slots (``quantize_slots``' input, whole, in call order)."""
+    slots = []
+    quantize, PMoE.quantize_slots = REANCHORED.recording_quantize(slots)
+    try:
+        rows = sharded_train_steps(
+            rank, world, [_fp8(reduced(get_config("kimi-k2-1t-a32b")))],
+            OPT, B, S, MESH, "cpu", steps=STEPS, leaves=None, states=True)
+    finally:
+        PMoE.quantize_slots = quantize
+    n = len(slots) // STEPS
+    assert n * STEPS == len(slots), len(slots)
+    if rank == 0:
+        rows[0]["slots"] = [slots[k * n:(k + 1) * n] for k in range(STEPS)]
+    return rows
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The reference's EP forward in its subprocess, left running while one
@@ -410,9 +465,7 @@ def runs(tmp_path_factory):
     try:
         dts = ("bfloat16", FP8)
         wide = _ep_inputs(EP_GROUPS)
-        jobs = [(sharded_train_steps, ([_fp8(reduced(get_config(
-                    "kimi-k2-1t-a32b")))], OPT, B, S, MESH, "cpu", STEPS,
-                    None)),
+        jobs = [(_sharded_fp8_steps, ()),
                 (ep_moe_rank, (ep, _ep_cfg(), MESH, "cpu")),
                 (moe_forward_rank, (wide, _dispatch_cfg(), MESH, "cpu", dts)),
                 (with_host_staging, ("cpu", moe_forward_rank,
@@ -426,31 +479,68 @@ def runs(tmp_path_factory):
     return ranks, dict(np.load(tmp / "out.npz"))
 
 
+def _held(got: dict, want: dict, tol: float) -> None:
+    """A step's loss within ``tol`` of ``want``'s, its grad norm within
+    ``tol`` relative (absolute below 1)."""
+    assert abs(got["loss"] - want["loss"]) < tol, (got, want)
+    assert abs(got["grad_norm"] - want["grad_norm"]) < tol * max(
+        want["grad_norm"], 1), (got, want)
+
+
 def test_sharded_fp8_train_step_matches_single_device(runs):
-    """Reduced kimi-k2 with the fp8 dispatch on the (2, 4) mesh, two steps:
-    loss and grad norm within 1e-6 of the single-device steps, step 1's
-    gradient of every leaf within 1e-4 relative L2."""
+    """Reduced kimi-k2 with the fp8 dispatch on the (2, 4) mesh, two steps.
+
+    Step 1, from the same initial state: loss and grad norm within
+    SHARDED_TOL of the single-device step, every leaf's gradient within
+    LEAF_REL_TOL relative L2 (the mesh only reorders float32 sums; the
+    quantize sees whole D rows on every rank).
+
+    Step 2 re-anchored: one device runs it from the mesh's own parameters
+    and optimizer state after step 1 (the ranks return them whole).  Both
+    sides then start from the same bits and only the step's own float32
+    order differs, as in step 1; but at a tie a reordered sum rounds a
+    payload element to the next e4m3 value, and that moves the loss by
+    ~1e-5 (measured: 2 of the first dispatch's 131,072 elements, 9.1e-6
+    on the loss).  So: one device's first dispatch slots equal the mesh's
+    to SLOT_ULPS float32 ulps, with every payload element that rounds
+    otherwise a tie; and with each dispatch's payload and scales taken
+    from the mesh's slots, the loss and grad norm within SHARDED_TOL
+    (``tools/fp8_reanchored_step.py`` runs the one-device steps and
+    prints the same readings).
+
+    Step 2 chained, from one device's own step 1: within STEP2_TOL (its
+    derivation beside the constant)."""
     ranks, _ = runs
+    assert (REANCHORED.B, REANCHORED.S, REANCHORED.OPT) == (B, S, OPT)
     cfg = _fp8(reduced(get_config("kimi-k2-1t-a32b")))
     params, opt = init_train_state(cfg, OPT, seed=0, device="cpu")
     grads = []
     step = make_train_step(cfg, OPT, on_grads=lambda g: grads.append(
         whole_leaves(g)))
-    want = []
+    chained = []
     for k in range(STEPS):
         params, opt, m = step(params, opt, train_batch(cfg, B, S, "cpu", k))
-        want.append({n: float(v) for n, v in m.items()})
+        chained.append({n: float(v) for n, v in m.items()})
     rows = [r[0][0] for r in ranks]
     for r in rows:
         assert r["metrics"] == rows[0]["metrics"]
-    for got, one in zip(rows[0]["metrics"], want, strict=True):
-        assert abs(got["loss"] - one["loss"]) < SHARDED_TOL, (got, one)
-        assert abs(got["grad_norm"] - one["grad_norm"]) < SHARDED_TOL * max(
-            one["grad_norm"], 1), (got, one)
+    got = rows[0]["metrics"]
+    assert len(got) == STEPS == 2
+    _held(got[0], chained[0], SHARDED_TOL)
     mine, single = rows[0]["grads"][0], grads[0]
     assert sorted(mine) == sorted(single)
     worst = max((_rel_l2(mine[j], single[j]), j) for j in single)
     assert worst[0] < LEAF_REL_TOL, worst
+    state, on_mesh = rows[0]["states"][0], rows[0]["slots"][1]
+    _, own = REANCHORED.one_device_step(cfg, 1, state)
+    assert len(own) == len(on_mesh)
+    first = REANCHORED.dispatch_change(own[0], on_mesh[0])
+    assert first["slot_ulps_max"] <= SLOT_ULPS, first
+    assert first["scale_ulps_max"] <= SLOT_ULPS, first
+    assert (first["tie_distance_ulps_of_448"] or 0) <= SLOT_ULPS, first
+    shared, _ = REANCHORED.one_device_step(cfg, 1, state, on_mesh)
+    _held(got[1], shared, SHARDED_TOL)
+    _held(got[1], chained[1], STEP2_TOL)
 
 
 def test_ep_moe_forward_on_an_fp8_config_is_the_references(runs):

@@ -11,7 +11,8 @@ moves it, and step 2 runs from the resulting parameters.  Against the
 unperturbed run, for the e4m3 dispatch and the bf16 one, and with the
 perturbation on every element, only on those with |g| > 1e-5 or only on
 those with |g| <= 1e-5 (where AdamW's eps, 1e-8, could amplify it),
-prints one JSON line a run: |step 2's loss change|, the step-2 dispatch
+prints one JSON line a run: |step 2's loss change| and |step 2's grad
+norm change|, the step-2 dispatch
 table entries that differ (top-k flips), the step-2 e4m3 payload elements
 that round to another value (fp8 only), and the largest change of a
 slot's scale, relative.
@@ -41,8 +42,8 @@ SETS = {"all": None, "above": lambda g: g.abs() > SMALL,
 def run(cfg, seed=None, where=None):
     """Two train steps from seed 0's state; with ``seed``, step 1's
     gradients moved by -1, 0 or +1 ulp (where ``where`` holds).  Returns
-    (losses, step 2's dispatch tables, step 2's e4m3 payloads and
-    scales)."""
+    (losses, grad norms, step 2's dispatch tables, step 2's e4m3 payloads
+    and scales)."""
     params, opt = init_train_state(cfg, OPT, seed=0, device="cpu")
     routes, payloads = [], []
     route, quantize = MOE._route_group, MOE._quantize_local
@@ -67,7 +68,7 @@ def run(cfg, seed=None, where=None):
             g.add_(d)
 
     MOE._route_group, MOE._quantize_local = rec_route, rec_quantize
-    losses, at = [], []
+    losses, norms, at = [], [], []
     try:
         for k in range(2):
             at.append((len(routes), len(payloads)))
@@ -75,10 +76,11 @@ def run(cfg, seed=None, where=None):
             params, opt, m = make_train_step(cfg, OPT, on_grads=hook)(
                 params, opt, train_batch(cfg, B, S, "cpu", k))
             losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
     finally:
         MOE._route_group, MOE._quantize_local = route, quantize
     r2, q2 = at[1]
-    return losses, routes[r2:], payloads[q2:]
+    return losses, norms, routes[r2:], payloads[q2:]
 
 
 def main(argv=None) -> int:
@@ -89,13 +91,14 @@ def main(argv=None) -> int:
     base_cfg = reduced(get_config("kimi-k2-1t-a32b"))
     for dtype in ("float8_e4m3fn", "bfloat16"):
         cfg = dataclasses.replace(base_cfg, moe_dispatch_dtype=dtype)
-        losses0, routes0, pay0 = run(cfg)
+        losses0, norms0, routes0, pay0 = run(cfg)
         for name, where in SETS.items():
             for seed in range(args.seeds):
-                losses, routes, pay = run(cfg, seed, where)
+                losses, norms, routes, pay = run(cfg, seed, where)
                 row = dict(dispatch=dtype, perturbed=name, seed=seed,
                            loss2=losses[1], loss2_change=abs(
                                losses[1] - losses0[1]),
+                           grad_norm2_change=abs(norms[1] - norms0[1]),
                            dispatch_entries_changed=sum(
                                int((a != b).sum())
                                for a, b in zip(routes, routes0)))
