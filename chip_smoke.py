@@ -609,20 +609,30 @@ LOWERING_MOE_GROUPS, LOWERING_MOE_TOKENS = 8, 1024
 #:   partitioner does there (tools/embedding_layouts.py)
 LOWERING_TRAIN_8 = (("qwen2-7b", (1, 8), "float32"),
                     ("falcon-mamba-7b", (2, 2, 2), "bfloat16"))
-#: and in the same launch, the embedding lookup alone and its backward
-#: where the reference's partitioner moves the table: h2o-danube-3-4b's
-#: (32,000, 3840) bf16 table at pod 2 x data 2 x model 2, B 16, S 2048.
-#: The batch lies on ('pod', 'data'), the table's D on 'data' alone, and
-#: the table has fewer rows than the batch has tokens (32,768), so it
-#: moves (``parallel.act._TableToColumns``: one permute over 'data' and
-#: 'model' each way, of a rank's (V / 2, D / 2), staged through the host).
-#: A train step there needs those 32,768 tokens too: as one more case of
-#: LOWERING_TRAIN_8 it took 17.7 s a rank and 41 s of the launch (chip
-#: smoke, H100 80GB HBM3, 700 W); the table's move is the lookup's own.
-#: Each rank's output shard equals the plain lookup's, its table-gradient
-#: shard within SHARDED_LEAF_REL_TOL of the plain float32 gradient
+#: and in the same launch, the embedding lookup alone and its backward on
+#: h2o-danube-3-4b's (32,000, 3840) bf16 table at pod 2 x data 2 x model 2,
+#: B 16, in two of the three layouts the reference's partitioner gives it
+#: (``parallel.act.embed_layout``, read by tools/embedding_layouts.py).
+#: The batch lies on ('pod', 'data'), the table's D on 'data' alone:
+#: - S 2048 (32,768 tokens): the table has fewer rows than the batch has
+#:   tokens, so it moves (``parallel.act._TableToColumns``: one permute
+#:   over 'data' and 'model' each way, of a rank's (V / 2, D / 2));
+#: - S 2000 (32,000 tokens, as many as the table has rows): XLA gathers
+#:   the table's whole rows over 'model' (``parallel.act._rows_lookup``:
+#:   the row blocks gathered, the tokens permuted over 'data' and 'model',
+#:   the result gathered over ('pod', 'model') and its D over 'data', the
+#:   result's gradient over ('pod', 'data'), the table's all-reduced over
+#:   ('pod', 'model')).
+#: All staged through the host.  A train step at those 32,768 tokens took
+#: 17.7 s a rank and 41 s of the launch as one more case of
+#: LOWERING_TRAIN_8 (chip smoke, H100 80GB HBM3, 700 W); the lookup alone
+#: 0.94-2.35 s a rank.  Each rank's output shard equals the plain lookup's,
+#: its table-gradient shard within SHARDED_LEAF_REL_TOL of the plain
+#: float32 gradient
 TABLE_MOVE_ARCH, TABLE_MOVE_MESH = "h2o-danube-3-4b", (2, 2, 2)
-TABLE_MOVE_BATCH, TABLE_MOVE_SEQ = 16, 2048
+TABLE_MOVE_BATCH = 16
+#: (layout, S) of the lookup's cases
+TABLE_MOVE_CASES = (("table", 2048), ("rows", 2000))
 #: a rank's device memory budget: its allocator's reserved peak, 15.37 GB
 #: (12.59 GB of it allocated by the ep_moe forward), plus its CUDA context
 #: and cuBLAS workspace, ~0.6 GB, and slack; the card must have this free
@@ -3580,34 +3590,77 @@ def _lowering_singles(torch, dev) -> dict:
     return out
 
 
-def _table_move_check(ranks) -> dict:
-    """The TABLE_MOVE lookup on the rig's ranks: each rank's output shard
-    equal to the plain lookup's, its table-gradient shard within
-    SHARDED_LEAF_REL_TOL of the plain gradient, and the table moved by
-    one permute over 'data' and 'model' each way, of a rank's (V / M, D /
-    data), where the reference's partitioner moves it
-    (``parallel.act.moves_table``)."""
-    from repro_torch.parallel.act import moves_table
+def row_gather_collectives(V: int, D: int, B: int, S: int, mesh) -> list:
+    """The collectives of the row-gather lookup (``parallel.act.
+    _rows_lookup``) and its backward on a (pod, data, model) mesh whose
+    batch lies on ('pod', 'data'), in order, as (kind, mesh axes, elements
+    a rank), as the reference's HLO has them (the tokens' permute an
+    all-to-all here)."""
+    pod, data, M = mesh
+    return [("all-gather", "model", V * D // data),
+            ("all-to-all", "data+model", B * S // (pod * data)),
+            ("all-gather", "pod+model", B * S * D // data),
+            ("all-gather", "data", B * S * D),
+            ("all-gather", "pod+data", B * S * D),
+            ("all-reduce", "pod+model", V * D // data)]
+
+
+def _collective_kinds(collectives, mesh) -> list:
+    """A rank's collectives (op with the axes its group spans, operand
+    shapes) as (kind, axes, elements): an all-gather's elements its
+    result's."""
+    import math
+
+    sizes = dict(zip(("pod", "data", "model")[-len(mesh):], mesh))
+    out = []
+    for op, shapes in collectives:
+        axes = op.rsplit(" @", 1)[1]
+        n = sum(math.prod(sh) for sh in shapes)
+        kind = next(k for k in ("all-gather", "all-to-all", "all-reduce",
+                                "reduce-scatter") if _is_op(op, k))
+        if kind == "all-gather":
+            n *= math.prod(sizes[a] for a in axes.split("+"))
+        out.append((kind, axes, n))
+    return out
+
+
+def _table_move_check(case, ranks) -> dict:
+    """One TABLE_MOVE case on the rig's ranks: the layout
+    ``parallel.act.embed_layout`` picks is the case's; each rank's output
+    shard equal to the plain lookup's, its table-gradient shard within
+    SHARDED_LEAF_REL_TOL of the plain gradient; the table moved by one
+    permute over 'data' and 'model' each way, of a rank's (V / M, D /
+    data), where it moves, and the row-gather layout's collectives
+    (:func:`row_gather_collectives`) where the rows are gathered."""
+    from repro_torch.parallel.act import embed_layout
     from repro_torch.serve import serving_config
 
+    layout, S = case
     cfg = serving_config(TABLE_MOVE_ARCH, layers=1)
-    B, S = TABLE_MOVE_BATCH, TABLE_MOVE_SEQ
+    B = TABLE_MOVE_BATCH
     pod, data, M = TABLE_MOVE_MESH
-    assert moves_table(cfg.vocab_size, B * S // (pod * data), B * S, True)
-    block = (cfg.vocab_size // M, cfg.d_model // data)
+    V, D = cfg.vocab_size, cfg.d_model
+    assert embed_layout(V, D, B * S // (pod * data), B * S, data, M,
+                        True) == layout, case
+    block = (V // M, D // data)
     for r in ranks:
         assert r["out_max_abs"] == 0.0, r
         assert r["grad_rel_l2"] <= SHARDED_LEAF_REL_TOL, r
         moved = [tuple(c[1][0]) for c in r["collectives"]
                  if _is_op(c[0], "all-to-all")
                  and c[0].endswith(" @data+model")]
-        assert moved == [block] * 2, (moved, block)
-    return dict(arch=cfg.name, lookup_only=True,
+        if layout == "table":
+            assert moved == [block] * 2, (moved, block)
+        else:
+            got = _collective_kinds(r["collectives"], TABLE_MOVE_MESH)
+            assert got == row_gather_collectives(V, D, B, S,
+                                                 TABLE_MOVE_MESH), got
+    return dict(arch=cfg.name, lookup_only=True, layout=layout,
                 mesh=dict(zip(("pod", "data", "model"), TABLE_MOVE_MESH)),
-                batch=B, seq=S, rows=cfg.vocab_size,
+                batch=B, seq=S, rows=V,
                 out_max_abs=max(r["out_max_abs"] for r in ranks),
                 grad_rel_l2_max=max(r["grad_rel_l2"] for r in ranks),
-                table_permutes=2,
+                table_permutes=2 * (layout == "table"),
                 collectives=[c[0] for c in ranks[0]["collectives"]],
                 rank_seconds=[r["seconds"] for r in ranks])
 
@@ -3721,13 +3774,17 @@ def _lowering_train_check(np, cfg, single, ranks, mesh_shape, dev,
         # than the batch's tokens: the batch lies on 'pod', which holds no
         # shard of D), one permute over 'data' and 'model' in the forward
         # and one back in the backward, a rank's (V / M, D / data);
-        # elsewhere the tokens move and no table block does
-        from repro_torch.parallel.act import moves_table
+        # elsewhere the tokens move and no table block does (no step here
+        # lies in the band where XLA gathers the table's whole rows)
+        from repro_torch.parallel.act import embed_layout
 
         moved = [tuple(c[1][0]) for c in rows if _is_op(c[0], "all-to-all")
                  and c[0].endswith(" @data+model")]
         block = (cfg.vocab_size // M, cfg.d_model // mesh_shape[1])
-        table = moves_table(cfg.vocab_size, b * S, B * S, True)
+        layout = embed_layout(cfg.vocab_size, cfg.d_model, b * S, B * S,
+                              mesh_shape[1], M, True)
+        assert layout != "rows", (cfg.name, layout)
+        table = layout == "table"
         assert moved == [block] * 2 * table, (cfg.name, moved, block)
         facts["table_permutes"] = len(moved)
     # the optimizer: at most one all-reduce per (axes, dtype) of the
@@ -3976,9 +4033,10 @@ def sharded_phase(torch, np, dev) -> tuple:
                                      str(dev), 1, SHARDED_LEAF_ELEMENTS,
                                      True))
               for a, m, dt in LOWERING_TRAIN_8],
-            (embedding_rank, (serving_config(TABLE_MOVE_ARCH, layers=1),
-                              TABLE_MOVE_BATCH, TABLE_MOVE_SEQ,
-                              TABLE_MOVE_MESH, str(dev)))],
+            *[(embedding_rank, (serving_config(TABLE_MOVE_ARCH, layers=1),
+                                TABLE_MOVE_BATCH, S, TABLE_MOVE_MESH,
+                                str(dev)))
+              for _, S in TABLE_MOVE_CASES]],
             device=str(dev), stage_through_host=True)
     launch8_s = time.time() - t1
     lowering.append(_lowering_moe_check(
@@ -3990,8 +4048,9 @@ def sharded_phase(torch, np, dev) -> tuple:
         lowering.append(_lowering_train_check(
             np, cfg, single, [r[1 + j][0] for r in ranks8], mesh_shape,
             dev))
-    lowering.append(_table_move_check(
-        [r[1 + len(LOWERING_TRAIN_8)] for r in ranks8]))
+    for j, case in enumerate(TABLE_MOVE_CASES):
+        lowering.append(_table_move_check(
+            case, [r[1 + len(LOWERING_TRAIN_8) + j] for r in ranks8]))
     train["lowering"] = lowering
     memory["headroom"] = {SHARDED_RANKS: headroom,
                           LOWERING_MOE_RANKS: headroom8}
@@ -5052,10 +5111,13 @@ def run(torch, dev) -> int:
         emit(dict(phase="sharded_lowering", nvidia_smi=smi, **row))
         mesh = " x ".join(f"{a} {n}" for a, n in row["mesh"].items())
         if "lookup_only" in row:
+            how = (f" moved by {row['table_permutes']} permutes"
+                   if row["layout"] == "table" else
+                   "'s whole rows gathered over 'model' (collectives "
+                   "the reference's)")
             print(f"sharded lowering: {row['arch']} embedding lookup alone "
                   f"at {mesh}, B {row['batch']} S {row['seq']}: the "
-                  f"{row['rows']}-row table moved by "
-                  f"{row['table_permutes']} permutes, output equal to the "
+                  f"{row['rows']}-row table{how}, output equal to the "
                   f"plain lookup, table gradient within "
                   f"{row['grad_rel_l2_max']:.2e}; "
                   f"{max(row['rank_seconds']):.2f} s a rank ({smi})",

@@ -51,6 +51,8 @@ from typing import Any, Callable, Dict, List, Sequence
 
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
 __all__ = ["make_production_mesh", "make_local_mesh", "shard_batch",
            "LogicalMesh", "run_ranks", "stage_collectives_through_host",
            "staged_bytes", "reset_staged_bytes", "observe_staged"]
@@ -77,11 +79,11 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
     return LogicalMesh(shape, axes)
 
 
-def make_local_mesh(*shape: int, device: str = "cpu"):
+def make_local_mesh(*shape: int, device: str = DEFAULT_DEVICE):
     """A ``DeviceMesh`` over the initialised process group of as many ranks
     as its size: ``(data, model)``, or ``(pod, data, model)`` given three
     sizes (each 1 where not given); ``device`` is its device type
-    (``"cpu"`` or ``"cuda"``)."""
+    (``"cuda"`` by default, which raises without a card; ``"cpu"``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if len(shape) > 3:
@@ -89,7 +91,7 @@ def make_local_mesh(*shape: int, device: str = "cpu"):
                          f"model), got {shape}")
     axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
     sizes = tuple(shape) + (1,) * (len(axes) - len(shape))
-    return init_device_mesh(torch.device(device).type, sizes,
+    return init_device_mesh(resolve_device(device).type, sizes,
                             mesh_dim_names=axes)
 
 
@@ -425,14 +427,14 @@ def _peer_gone(error: str) -> bool:
                                     "Broken pipe"))
 
 
-def run_ranks(fn: Callable, world: int, *args, device: str = "cpu",
+def run_ranks(fn: Callable, world: int, *args, device: str = DEFAULT_DEVICE,
               stage_through_host: bool = False) -> List[Any]:
     """Run ``fn(rank, world, *args)`` on ``world`` new processes joined in
     one gloo process group, and return their results in rank order.
 
     ``fn`` must be importable from a module (``spawn`` pickles it by
     name), and so must its arguments and results.  Each rank runs torch on
-    one thread; with ``device="cuda"`` every rank uses the current card
+    one thread; with ``device="cuda"`` (the default) every rank uses the card
     (``cuda:0`` unless given), which gloo's collectives reach through the
     host.  ``stage_through_host`` installs
     :func:`stage_collectives_through_host` for ``device`` on every rank:
@@ -440,8 +442,11 @@ def run_ranks(fn: Callable, world: int, *args, device: str = "cpu",
     the traceback of a rank that failed on its own, not because a peer
     left (those read only that gloo's connection closed), or else with
     the exit status of the rank that ended without a result (killed by a
-    signal)."""
+    signal).  Raises before starting any rank where ``device`` is a card
+    and there is none."""
     import torch.multiprocessing as mp
+
+    resolve_device(device)
 
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
         store = os.path.join(tmp, "store")

@@ -14,9 +14,11 @@ reference's ``jax.checkpoint`` around its chunk body does.
 Sharded execution: with DTensor parameters and batch inside
 :class:`repro_torch.parallel.act.activation_mesh`, the embedded input and
 each loss chunk's logits are constrained where the reference constrains
-them; the embedding lookup looks up each model rank's own rows of the table
-(:func:`repro_torch.parallel.act.embed_rows`: zeros for the others' rows,
-then one all-reduce), and the per-position loss runs shard by shard
+them; the embedding lookup takes the layout the reference's partitioner
+gives it (:func:`repro_torch.parallel.act.embed_rows`: each model rank
+looks up its own rows of the table, zeros for the others' rows, then one
+all-reduce; or the table's rows move; or its whole rows are gathered over
+'model'), and the per-position loss runs shard by shard
 (:func:`repro_torch.parallel.act.per_shard`); where the vocabulary is
 sharded, each rank reduces its own block and three all-reduces of (B, c)
 complete the log-sum-exp and the label's logit, as the reference's
@@ -151,13 +153,16 @@ def _take_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _lookup(table, tokens, dims):
     """The embedding rows of ``tokens`` (dims: their labels).  On a mesh
-    whose model axis shards the table's rows, each rank looks up the rows
-    it owns (:func:`repro_torch.parallel.act.embed_rows`); elsewhere the
-    table is gathered whole first (DTensor has no sharding rule for an
-    indexed gather on a sharded table)."""
+    whose model axis shards the table's rows, the lookup runs in the layout
+    the reference's partitioner gives it
+    (:func:`repro_torch.parallel.act.embed_rows`: the tokens gathered and
+    each rank's own rows looked up, the table's rows moved, or its whole
+    rows gathered over 'model'), and the result is constrained to the
+    batch; elsewhere the table is gathered whole first (DTensor has no
+    sharding rule for an indexed gather on a sharded table)."""
     if is_sharded(table):
         got = embed_rows(table, tokens, _take_rows)
-        if got is not None:            # a partial sum over the model axis
+        if got is not None:
             return constrain(got, BATCH, *([None] * (got.dim() - 1)))
     return per_shard(_take_rows, (table, tokens), (("v", "d"), dims),
                      (dims + ("d",),), frozenset(dims))

@@ -26,7 +26,7 @@ __all__ = ["activation_mesh", "constrain", "BATCH", "TP",
            "contract_shards", "embed_rows", "shard_start",
            "gathered_product", "slice_to", "redistribute", "reduce_over",
            "reduced_grad", "permute", "axis_groups", "gather_dim",
-           "moves_table"]
+           "embed_layout"]
 
 # logical activation axes used by model code (resolved against the live mesh)
 BATCH = ("pod", "data")
@@ -312,14 +312,32 @@ def _grouped_steps(src: tuple, dst: tuple, shape: tuple, mesh) -> list:
 def _flat_group(mesh, dims: list):
     """The functional collectives' group of ``mesh``'s dims ``dims``: the
     mesh dim itself, or the mesh of several flattened in mesh order (made
-    once, on real tensors: a fake trace runs this under a fake mode)."""
+    once, on real tensors: a fake trace runs this under a fake mode).  Dims
+    that are not adjacent (('pod', 'model') beside 'data') are joined by a
+    mesh of ``mesh``'s own ranks with those dims last, whose last dim is
+    the group (the same ranks, in the same order, as DeviceMesh's
+    flattening of them)."""
+    from torch.distributed.device_mesh import DeviceMesh
     from torch.utils._python_dispatch import _disable_current_modes
 
     if len(dims) == 1:
         return (mesh, dims[0])
     names = tuple(mesh.mesh_dim_names[i] for i in dims)
-    with _disable_current_modes():
-        return (mesh[names]._flatten(), 0)
+    if list(dims) == list(range(dims[0], dims[0] + len(dims))):
+        with _disable_current_modes():
+            return (mesh[names]._flatten(), 0)
+    made = mesh.__dict__.setdefault("_repro_joined_groups", {})
+    if names not in made:
+        rest = [i for i in range(mesh.ndim) if i not in dims]
+        with _disable_current_modes():
+            layout = mesh.mesh.permute(*rest, *dims)
+            joined = DeviceMesh(
+                mesh.device_type,
+                layout.reshape(*layout.shape[:len(rest)], -1),
+                mesh_dim_names=tuple(mesh.mesh_dim_names[i] for i in rest)
+                + ("_".join(names),))
+        made[names] = (joined, len(rest))
+    return made[names]
 
 
 def _redistribute_grouped(x, mesh, placements):
@@ -712,47 +730,202 @@ def _batch_dims(x) -> set:
             if p == Shard(0) and x.device_mesh.size(i) > 1}
 
 
-def moves_table(rows: int, tokens_rank: int, tokens_batch: int,
-                spread: bool) -> bool:
-    """Whether the reference's partitioner moves an embedding table of
-    ``rows`` rows, sharded on its rows over the model axis, rather than the
-    tokens, for a lookup of ``tokens_rank`` tokens a rank out of a batch of
-    ``tokens_batch``; ``spread``: the batch lies on a mesh axis that holds
-    no shard of the table's D (('pod', 'data') beside D on 'data').  Read
-    from XLA's lowering of the reference's lookup alone
-    (``tools/embedding_layouts.py``: 16 x 16, 16 x 8, 8 x 16, 8 x 8 and 2 x
-    16 x 16 meshes, vocabularies of 2k to 2M rows, 4k to 64k tokens a rank,
-    the three parity cells among them): the table moves where it has fewer
-    rows than a rank has tokens, or, where ``spread``, fewer than the whole
-    batch has; the tokens move otherwise.  D and the mesh's sizes do not
-    enter.  Not ported: where the data and model axes are equally wide,
-    XLA gathers the table's whole rows over 'model' instead of moving the
-    tokens in a narrow band below rows = data * tokens_rank (16 x 16: 14 to
-    16 times a rank's tokens; 8 x 8: 8 times), and above the batch's tokens
-    where ``spread`` (2 x 16 x 16: 1 to 1.375 times); the port moves the
-    tokens there.  No config's cell reaches those bands."""
-    return rows < (tokens_batch if spread else tokens_rank)
+class _GatheredRows(torch.autograd.Function):
+    """A table's row block (V / M, D / data) all-gathered over 'model' to
+    whole rows (V, D / data), as the reference's partitioner gathers them
+    for its row-gather layout.  The gradient (V, D / data), a partial sum
+    over the ranks whose tokens it holds (``summed``: 'model', and 'pod'
+    where the table is whole on it), is completed in one all-reduce over
+    them, and each rank keeps its own row block (``own``), as the
+    reference's HLO reduces it (not a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, block, group, summed, own: int):
+        ctx.layout = (summed, own, block.shape[0])
+        return gather_dim(block, group, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed._functional_collectives as funcol
+
+        summed, own, rows = ctx.layout
+        g = funcol.all_reduce(grad.contiguous(), "sum", summed)
+        if isinstance(g, funcol.AsyncCollectiveTensor):
+            g = g.wait()
+        return g[own * rows:(own + 1) * rows], None, None, None
+
+
+class _Gathered(torch.autograd.Function):
+    """``t`` all-gathered from the ranks of ``group`` along ``dim``, whose
+    gradient, the same on every rank of the group, is this rank's own
+    slice (``own``) of it: nothing moves back."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim: int, own: int):
+        ctx.block = (dim, own, t.shape[dim])
+        return gather_dim(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, own, n = ctx.block
+        return grad.narrow(dim, own * n, n), None, None, None
+
+
+def _rows_lookup(table, tokens, take, d: int, m: int, spread: bool):
+    """``take(table, tokens)`` in the reference partitioner's row-gather
+    layout, on a mesh whose data and model axes (mesh dims ``d``, ``m``)
+    are equally wide: the table's row blocks all-gathered over 'model'
+    (whole rows, D still on 'data'); the tokens permuted over ('data',
+    'model') to the rank whose two coordinates are its own swapped (rank
+    (d, m) then holds the tokens of batch block m); each rank looks them up
+    in its D block; the result all-gathered over 'model' (over ('pod',
+    'model') where the batch lies on ('pod', 'data')): the whole batch, D
+    on 'data'.  Where the batch lies on 'pod' too (``spread``), its D is
+    then gathered over 'data' as well, as XLA does (it reports an
+    "involuntary full rematerialization"), and the caller's constraint
+    slices the batch.  The gradient: each rank's share of the table's,
+    from its own tokens and D block, all-reduced over the result's group;
+    the caller's constraint moves the result's own gradient (two
+    all-to-alls over 'data', or one all-gather over ('pod', 'data'))."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = table.device_mesh
+    n = mesh.size(m)
+    dims, at = [m], mesh.get_local_rank(m)
+    if spread:
+        p = list(mesh_axes(mesh)).index("pod")
+        dims, at = [p, m], at + mesh.get_local_rank(p) * n
+    group = _flat_group(mesh, dims)
+    whole = _GatheredRows.apply(table.to_local(), (mesh, m), group,
+                                mesh.get_local_rank(m))
+    own_ids = tokens.to_local()
+    ids = permute(own_ids, _swap_pairs(n), mesh.get_local_rank(d) * n
+                  + mesh.get_local_rank(m), n * n, _flat_group(mesh, [d, m]))
+    ids = own_ids if ids is None else ids
+    got = _Gathered.apply(take(whole, ids), group, 0, at)
+    last = got.dim() - 1
+    if spread:
+        got = _Gathered.apply(got, (mesh, d), last, mesh.get_local_rank(d))
+    out = [Shard(last) if i == d and not spread else Replicate()
+           for i in range(mesh.ndim)]
+    shape = (*tokens.shape, table.shape[1])
+    return DTensor.from_local(got, mesh, out, shape=torch.Size(shape),
+                              stride=tuple(int(np.prod(shape[i + 1:]))
+                                           for i in range(len(shape))))
+
+
+def _in_row_band(rows: int, d_model: int, tokens_batch: int, n: int,
+                 pod: int) -> bool:
+    """Whether ``rows`` lies in the band where the reference's partitioner
+    gathers an embedding table's whole rows (:func:`embed_layout`), on a
+    mesh whose data and model axes are both ``n`` wide, the batch's
+    ``tokens_batch`` tokens on 'data' (``pod`` 1) or on ('pod', 'data')."""
+    V, D, T = rows, d_model, tokens_batch
+    if pod == 1:
+        return T * D - 2 * n * n * T <= V * D < T * D + 2 * n * T
+    return T <= V and (V * pod * (n + 1) < T * n * (pod + 1)
+                       or V * D < T * D + 2 * n * T)
+
+
+def _rows_placed(table, tokens, d: Optional[int], m: int,
+                 spread: bool) -> bool:
+    """Whether ``table`` and ``tokens`` lie as the row-gather layout was
+    read: the table's rows on 'model', D on 'data' and nothing else
+    sharded; the tokens' batch on 'data' (and on 'pod' where ``spread``)
+    and nothing else; each dim dividing evenly."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if d is None:
+        return False
+    mesh = table.device_mesh
+    names = list(mesh_axes(mesh))
+    batch = {d} | ({names.index("pod")} if spread else set())
+    n = mesh.size(m)
+    B = int(np.prod([mesh.size(i) for i in batch]))
+    live = [i for i in range(mesh.ndim) if mesh.size(i) > 1]
+    return all(table.placements[i] == (Shard(0) if i == m else Shard(1)
+                                       if i == d else Replicate())
+               for i in live) and \
+        all(tokens.placements[i] == (Shard(0) if i in batch else Replicate())
+            for i in live) and \
+        table.shape[0] % n == 0 and table.shape[1] % n == 0 and \
+        tokens.shape[0] % B == 0
+
+
+def embed_layout(rows: int, d_model: int, tokens_rank: int,
+                 tokens_batch: int, data: int, model: int,
+                 spread: bool) -> str:
+    """The layout the reference's partitioner gives the lookup of an
+    embedding table of ``rows`` x ``d_model``, its rows sharded over the
+    model axis (``model`` ranks) and D over the data axis (``data``), for
+    ``tokens_rank`` tokens a rank out of a batch of ``tokens_batch``;
+    ``spread``: the batch lies on a mesh axis that holds no shard of the
+    table's D (('pod', 'data') beside D on 'data').  One of
+
+    * ``"table"``: the table's rows move (whole rows, D on 'model');
+    * ``"tokens"``: the tokens are gathered and each rank looks up its own
+      rows, a partial sum over 'model';
+    * ``"rows"``: the table's whole rows are all-gathered over 'model' (D
+      still on 'data') and the result over 'model' (:func:`_rows_lookup`).
+
+    Read from XLA's lowering of the reference's lookup alone
+    (``tools/embedding_layouts.py``: its 428-point grid and 2,638 more
+    points, every one agreeing) on 2 x 2 to 16 x 16, 16 x 8, 8 x 16, 4 x
+    8, and 2 to 8 pods of 2 x 2 to 16 x 16, D 256 to 7,168, 384 to 8,192
+    tokens a rank.  The table moves where it has fewer rows
+    than a rank has tokens, or, where ``spread``, than the batch has.  XLA
+    gathers whole rows only where the data and model axes are equally wide
+    (n ranks each; never on 16 x 8 or 8 x 16), in a band about the batch's
+    T tokens (:func:`_in_row_band`), for V rows and D columns:
+
+    * batch on 'data': T (1 - 2 n^2 / D) <= V < T (1 + 2 n / D); at D
+      4,096, 16 x 16 from 14 to 16.125 times a rank's tokens, 8 x 8 from
+      7.75 to 8.03, 2 x 2 from 1.996 to 2.002;
+    * batch on ('pod', 'data'), p pods: T <= V < T max(n (p + 1) / (p (n +
+      1)), 1 + 2 n / D): 2 x 16 x 16 below 1.4118 T, 2 x 8 x 8 4 / 3 T, 2
+      x 4 x 4 1.2 T, 3 x 8 x 8 1.185 T, 4 x 8 x 8 1.111 T; where p >= n
+      (2 x 2 x 2, 4 x 4 x 4, 8 x 8 x 8) below T (1 + 2 n / D) only.
+
+    In elements a rank, with R = V D / n the gathered rows and A = T D / n
+    the result gathered over 'model', the edges on 'data' read A - 2 n T
+    <= R < A + 2 T; no one comparison of the layouts' collective sizes
+    gives both, nor the bands over ('pod', 'data'), so they are stated as
+    read (tests/test_torch_lowering_faults.py holds both sides of every
+    edge).  Meshes of several pods whose data and model axes differ (2 x 8
+    x 4, 2 x 4 x 8) were not read: the rule there is the table or the
+    tokens, as before."""
+    if rows < (tokens_batch if spread else tokens_rank):
+        return "table"
+    pod = tokens_batch // (tokens_rank * data) if spread else 1
+    if data == model > 1 and _in_row_band(rows, d_model, tokens_batch,
+                                          model, pod):
+        return "rows"
+    return "tokens"
 
 
 def embed_rows(table, tokens, take):
     """``take(table, tokens)`` (the table's rows at the tokens) where the
-    DTensor ``table`` (V, D) is sharded on its rows over the model axis, as
-    the reference's partitioner runs it: the tokens are gathered whole
-    (a few bytes), and each rank looks up, in its own block of the table
-    (its rows, and its columns where FSDP shards D), the tokens whose rows
-    it owns, zeros for the rest.  The result is a partial sum over the
-    model axis, sharded on D where the table is; the caller's constraint
-    reduces it and moves the D shard onto the batch (an all-to-all).  The
-    table is never gathered.
+    DTensor ``table`` (V, D) is sharded on its rows over the model axis, in
+    the layout the reference's partitioner gives it (:func:`embed_layout`):
 
-    The table's rows move instead of the tokens' (:func:`_table_columns`:
-    whole rows, D on the model axis; each rank looks up its own tokens in
-    its own columns and the caller's constraint gathers D) where the
-    reference's partitioner moves them (:func:`moves_table`): falcon-mamba
-    at 16 x 16 (65,024 rows, 65,536 tokens a rank) and kimi-k2 at 2 x 16 x
-    16 (the batch on ('pod', 'data'), D on 'data' alone) move the table,
-    kimi-k2 at 16 x 16 (163,840 rows) the tokens.  Returns None where the
-    table's rows are not on the model axis (the caller gathers it)."""
+    * ``"tokens"``: the tokens are gathered whole (a few bytes), and each
+      rank looks up, in its own block of the table (its rows, and its
+      columns where FSDP shards D), the tokens whose rows it owns, zeros
+      for the rest.  The result is a partial sum over the model axis,
+      sharded on D where the table is; the caller's constraint reduces it
+      and moves the D shard onto the batch (an all-to-all).  The table is
+      never gathered;
+    * ``"table"``: the table's rows move instead (:func:`_table_columns`:
+      whole rows, D on the model axis; each rank looks up its own tokens in
+      its own columns and the caller's constraint gathers D);
+    * ``"rows"``: the table's whole rows are gathered over 'model', D
+      still on 'data' (:func:`_rows_lookup`).
+
+    falcon-mamba at 16 x 16 (65,024 rows, 65,536 tokens a rank) and kimi-k2
+    at 2 x 16 x 16 (the batch on ('pod', 'data'), D on 'data' alone) move
+    the table, kimi-k2 at 16 x 16 (163,840 rows) the tokens.  Returns None
+    where the table's rows are not on the model axis (the caller gathers
+    it)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -767,9 +940,14 @@ def embed_rows(table, tokens, take):
     d_dims = {i for i, p in enumerate(table.placements)
               if p == Shard(1) and mesh.size(i) > 1}
     spread = mesh.size(m) > 1 and not _batch_dims(tokens) <= d_dims
-    if moves_table(table.shape[0], tokens.to_local().numel(),
-                   tokens.numel(), spread) and \
-            table.shape[1] % mesh.size(m) == 0:
+    d = names.index("data") if "data" in names else None
+    layout = embed_layout(
+        table.shape[0], table.shape[1], tokens.to_local().numel(),
+        tokens.numel(), mesh.size(d) if d is not None else 1, mesh.size(m),
+        spread)
+    if layout == "rows" and _rows_placed(table, tokens, d, m, spread):
+        return _rows_lookup(table, tokens, take, d, m, spread)
+    if layout == "table" and table.shape[1] % mesh.size(m) == 0:
         whole = _table_columns(table, m)
         lead = tuple(f"x{i}" for i in range(tokens.dim()))
         return per_shard(take, (whole, tokens),

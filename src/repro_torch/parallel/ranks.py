@@ -292,7 +292,9 @@ def embedding_rank(rank: int, world: int, cfg, B: int, S: int, mesh_shape,
     the (V, D) table drawn normal with std 0.02 from ``torch`` seed 0 on
     the device, placed by ``param_pspecs``, ``train_batch``'s step-0
     tokens placed by ``batch_pspecs``, and the loss ``sum(x * c)`` with c
-    (B, S, D) normal from seed 1; the pass is counted by
+    (B, S, D) normal from seed 1, placed on the batch axes as the tokens
+    are (as the reference's lookup is lowered with it, so that the
+    result's gradient moves as there); the pass is counted by
     ``launch.dryrun.Accounting`` and timed.  Each rank holds its own shards to the
     plain lookup ``table[tokens]`` and the plain gradient (c's rows added
     into the table's, in float32) of the whole table it drew.  Returns
@@ -319,21 +321,24 @@ def embedding_rank(rank: int, world: int, cfg, B: int, S: int, mesh_shape,
     spec = sh.param_pspecs(cfg, mesh)["embed"]
     placed = sh.device_put({"embed": table}, sh.to_shardings(
         {"embed": spec}, mesh))["embed"].requires_grad_(True)
+    t_spec = sh.batch_pspecs(cfg, ShapeSpec("t", S, B, "train"),
+                             mesh)["tokens"]
     batch = sh.device_put({"tokens": tokens}, sh.to_shardings(
-        {"tokens": sh.batch_pspecs(cfg, ShapeSpec("t", S, B, "train"),
-                                   mesh)["tokens"]}, mesh))
+        {"tokens": t_spec}, mesh))
+    c_placed = sh.device_put({"c": c}, sh.to_shardings(
+        {"c": sh.P(*t_spec, None)}, mesh))["c"]
     acc = Accounting(dev.type, mesh)
     t0 = time.perf_counter()
     with sh.activation_mesh(mesh), _replicating(True), acc:
         x = _embed_in({"embed": placed}, batch, cfg)
-        (grad,) = torch.autograd.grad((x.float() * c).sum(), [placed])
+        (grad,) = torch.autograd.grad((x.float() * c_placed).sum(), [placed])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
     want_x = table[tokens.long()].to(x.dtype)
     want_g = torch.zeros(V, D, device=dev).index_add_(
         0, tokens.reshape(-1).long(), c.reshape(-1, D))
-    got_x = x.to_local().float()
+    got_x = x.to_local().detach().float()
     got_g = grad.to_local().float()
     own_g = _own(grad, mesh, grad.placements, want_g)
     return dict(

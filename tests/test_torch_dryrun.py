@@ -296,7 +296,7 @@ def launched(reference_cells):
         (D.accounted_train_step, (_real_cfg(), OPT, REAL_B, REAL_S,
                                   REAL_MESH, "cpu")),
         (sharded_serving_steps, (serve, SERVE_B, SERVE_S, REAL_MESH, "cpu",
-                                 SERVE_STEPS))])
+                                 SERVE_STEPS))], device="cpu")
 
 
 def _real_cfg():

@@ -23,10 +23,13 @@ each held on the CPU.
   equal to the reference's HLO: the output's gradient gathered over the R
   = 4 ranks of a kv group, dq / dk / dv gathered over the 4 groups, the
   group within 1 % of the reference's elements.
-* (D) the embedding's layout (the table's rows moved, or the tokens) equal
-  to the reference partitioner's at points on both sides of the rule, the
+* (D) the embedding's layout (the table's rows moved, the tokens moved,
+  or the table's whole rows gathered over 'model') equal to the reference
+  partitioner's at points on both sides of every edge of the rule, the
   three parity cells among them, read from the reference's lowering of
-  the lookup alone (a subprocess with 512 XLA host devices).
+  the lookup alone (a subprocess with 512 XLA host devices); the lookup
+  alone on 4 and 8 gloo ranks in each layout, equal to the plain lookup,
+  with the reference's collectives where the rows are gathered.
 """
 import dataclasses
 import importlib.util
@@ -76,13 +79,56 @@ EMBED_POINTS = [
     # (B 16, S 2048)
     [65024, 4096, 1, 512, [2, 2, 2]], [32000, 3840, 4, 2048, [2, 2, 2]]]
 #: (D): one point in each band where XLA gathers the table's whole rows
-#: over 'model' (a layout not ported: the port moves the tokens there):
-#: 16 x 16 at 15 times a rank's tokens, 8 x 8 at 8 times, 2 x 16 x 16 at
-#: 1.25 times the batch's (tools/embedding_layouts.py's grid: 11 of 140
-#: points lie in such bands)
+#: over 'model' (``act.embed_layout``'s "rows"): 16 x 16 at 15 times a
+#: rank's tokens, 8 x 8 at 8 times, 2 x 16 x 16 at 1.25 times the batch's
 ROW_GATHER_POINTS = [
     [61440, 4096, 1, 4096, [16, 16]], [32768, 4096, 1, 4096, [8, 8]],
     [163840, 7168, 1, 4096, [2, 16, 16]]]
+#: (D): where the bands' edges are read: (mesh, batch rows a rank, S, D),
+#: two token counts and two widths on each mesh with equal data and model
+#: axes, one on 16 x 8 and 8 x 16 (no band there)
+EDGE_CASES = [(mesh, Bl, S, D) for mesh in ([2, 2], [4, 4], [8, 8], [16, 16],
+                                            [2, 2, 2], [2, 4, 4], [2, 16, 16])
+              for Bl, S, D in ((1, 4096, 4096), (1, 1024, 2048))] + [
+    ([16, 8], 1, 4096, 4096), ([8, 16], 1, 4096, 4096)]
+#: (D): the lookup alone on gloo ranks (a reduced h2o-danube-3-4b, D 64,
+#: B 16, S 32: 512 tokens): (mesh, rows, layout)
+LOOKUP_CASES = {"500": ((2, 2, 2), 500, "table"),
+                "512": ((2, 2, 2), 512, "rows"),
+                "600": ((2, 2, 2), 600, "tokens"),
+                "2x2-512": ((2, 2), 512, "rows")}
+LOOKUP_B, LOOKUP_S = 16, 32
+
+
+def edge_points() -> list:
+    """Both sides of each edge of the row-gather band at EDGE_CASES, in
+    steps of the model axis (the table's rows shard evenly): the band's
+    first and last vocabularies and the ones just outside, found by
+    ``act.embed_layout`` itself; on 16 x 8 and 8 x 16, the batch's tokens
+    and a step either side."""
+    import math
+
+    from repro_torch.parallel.act import embed_layout
+
+    pts = []
+    for mesh, Bl, S, D in EDGE_CASES:
+        M, batch = mesh[-1], math.prod(mesh[:-1])
+        T, spread = Bl * S * batch, len(mesh) == 3
+
+        def layout(V):
+            return embed_layout(V, D, Bl * S, T, mesh[-2], M, spread)
+
+        if mesh[-2] != M:
+            pts += [[V, D, Bl, S, mesh] for V in (T - M, T, T + M)]
+            continue
+        band = [V for V in range(T // 2 // M * M, 2 * T, M)
+                if layout(V) == "rows"]
+        assert band and band == list(range(band[0], band[-1] + M, M)), mesh
+        pts += [[V, D, Bl, S, mesh] for V in (band[0] - M, band[0],
+                                              band[-1], band[-1] + M)]
+    return pts
+
+
 #: (A): the ranks' error against one device's, as a multiple of the
 #: emulated bf16 sum's from the same hidden states in rank order.  Gloo's
 #: ring sums each chunk in one of its 16 ring orders (a start rank, a
@@ -251,7 +297,7 @@ def final_norm_case():
         xhat = hf * torch.rsqrt(hf.pow(2).mean(-1, keepdim=True)
                                 + cfg.norm_eps)
     ranks = run_ranks(loss_grads_rank, A_MESH[0] * A_MESH[1], params, batch,
-                      cfg, A_MESH, ["final_norm"])
+                      cfg, A_MESH, ["final_norm"], device="cpu")
     return dict(cfg=cfg, loss=float(loss.detach()), one=one.float().numpy(),
                 y=y, xhat=xhat, head=params["head"],
                 labels=batch["labels"].reshape(-1), ranks=ranks)
@@ -388,61 +434,127 @@ def test_kv_group_backward_gathers_as_the_reference(cells):
 # --------------------------------------------------------------------------
 
 def test_embedding_rule_is_the_partitioners():
-    """(D) At EMBED_POINTS, ``act.moves_table`` (the rule ``embed_rows``
-    decides by) agrees with the reference partitioner's layout of the
-    lookup read by ``tools/embedding_layouts.py``: the table moves where it
-    has fewer rows than a rank has tokens (on a (data, model) mesh) or than
-    the batch has (on 2 x 16 x 16, the batch on ('pod', 'data') and D on
-    'data' alone); the tokens move otherwise.  The points lie on both
-    sides of each boundary (15 / 16 and 17 / 16 of it on 16 x 16), on
-    three meshes and the multi-pod one.  At ROW_GATHER_POINTS, one in each
-    band where XLA gathers the table's whole rows over 'model' instead, a
-    layout the port has not ported, the reference reads ``rows`` and the
-    port moves the tokens: the gap stays visible here until it is
-    ported."""
-    from repro_torch.parallel.act import moves_table
+    """(D) ``act.embed_layout`` (the rule ``embed_rows`` decides by) agrees
+    with the reference partitioner's layout of the lookup, read by
+    ``tools/embedding_layouts.py``: at EMBED_POINTS (the table or the
+    tokens: the table moves where it has fewer rows than a rank has tokens
+    on a (data, model) mesh, or than the batch has on 2 x 16 x 16, the
+    batch on ('pod', 'data') and D on 'data' alone; 15 / 16 and 17 / 16 of
+    it on 16 x 16), at ROW_GATHER_POINTS (one in each band where XLA
+    gathers the table's whole rows over 'model') and at both edges of the
+    row-gather band on every mesh of EDGE_CASES, the first and last
+    vocabularies inside it and the ones a step outside (no band on 16 x 8
+    or 8 x 16)."""
+    from repro_torch.parallel.act import embed_layout
 
-    got = _tool("embedding_layouts").read(EMBED_POINTS + ROW_GATHER_POINTS)
-    assert len(got) == len(EMBED_POINTS) + len(ROW_GATHER_POINTS)
-    sides = set()
-    for r in got[:len(EMBED_POINTS)]:
-        assert r["layout"] in ("table", "tokens"), r
-        spread = len(r["mesh"]) == 3
-        mine = moves_table(r["V"], r["tokens_rank"], r["tokens_batch"],
-                           spread)
-        assert mine == (r["layout"] == "table"), r
-        sides.add((spread, mine))
-    assert sides == {(False, True), (False, False), (True, True),
-                     (True, False)}
-    # the known gap, kept in sight: where XLA gathers whole rows, the port
-    # moves the tokens (ROADMAP Queue 3); porting that layout changes this
-    for r in got[len(EMBED_POINTS):]:
-        assert r["layout"] == "rows", r
-        assert not moves_table(r["V"], r["tokens_rank"], r["tokens_batch"],
-                               len(r["mesh"]) == 3), r
+    edges = edge_points()
+    points = EMBED_POINTS + ROW_GATHER_POINTS + edges
+    got = _tool("embedding_layouts").read(points)
+    assert len(got) == len(points)
+    seen = {}
+    for r in got:
+        mesh = r["mesh"]
+        spread = len(mesh) == 3
+        mine = embed_layout(r["V"], r["D"], r["tokens_rank"],
+                            r["tokens_batch"], mesh[-2], mesh[-1], spread)
+        assert mine == r["layout"], r
+        seen.setdefault(r["layout"], set()).add(spread)
+    assert [r["layout"] for r in got[:len(EMBED_POINTS)]].count("rows") == 0
+    assert {r["layout"] for r in got[len(EMBED_POINTS):][
+        :len(ROW_GATHER_POINTS)]} == {"rows"}
+    assert seen == {k: {False, True} for k in ("table", "tokens", "rows")}
+    # each band's edges: outside, inside, inside, outside
+    bands = [r["layout"] for r in got[-len(edges):]]
+    square = [c for c in EDGE_CASES if c[0][-2] == c[0][-1]]
+    assert bands[:4 * len(square)] == [
+        x for mesh, *_ in square for x in (
+            "table" if len(mesh) == 3 else "tokens", "rows", "rows",
+            "tokens")]
+    assert set(bands[4 * len(square):]) == {"tokens"}
 
 
-@pytest.mark.parametrize("rows", [500, 600])
-def test_embedding_lookup_alone_on_a_mesh_is_the_plain_lookup(rows):
-    """(D) The rig's ``embedding_rank`` (which ``chip_smoke.py`` runs at
-    h2o-danube-3-4b's published table) on 8 gloo ranks at pod 2 x data 2 x
-    model 2, a reduced h2o-danube-3-4b with B 16, S 32 (512 tokens): with
-    500 rows the table moves (``act.moves_table``: two permutes over
-    'data' and 'model' of a rank's (V / 2, D / 2)), with 600 the tokens
-    do; either way each rank's output shard equals the plain lookup and
-    its gradient shard the plain gradient within 1e-6 relative L2."""
+def _reference_kinds(rows) -> list:
+    """The reference's collectives of the lookup as (kind, axes, elements),
+    the loss's own scalar sum left out."""
+    return [(r["kind"], "+".join(r["axes"]), r["elements"]) for r in rows
+            if r["shapes"] != [[]]]
+
+
+def _port_kinds(collectives, mesh) -> list:
+    """The rig's collectives (op with the axes its group spans, operand
+    shapes) as :func:`_reference_kinds` reads the reference's: an
+    all-gather's elements are its result's, the permute of ``act.permute``
+    (an all-to-all over ('data', 'model')) a collective-permute."""
+    sizes = dict(zip(("pod", "data", "model")[-len(mesh):], mesh))
+    out = []
+    for op, shapes in collectives:
+        axes = op.rsplit(" @", 1)[1]
+        n = int(np.prod([int(np.prod(s)) for s in shapes]))
+        if "all_gather" in op:
+            kind = "all-gather"
+            n *= int(np.prod([sizes[a] for a in axes.split("+")]))
+        elif "all_to_all_single" in op and axes == "data+model":
+            kind = "collective-permute"
+        elif "all_to_all" in op or "all-to-all" in op:
+            kind = "all-to-all"
+        else:
+            kind = "all-reduce" if "all_reduce" in op else op
+        out.append((kind, axes, n))
+    return out
+
+
+@pytest.fixture(scope="module")
+def lookup_reference():
+    """The reference's collectives at each LOOKUP_CASES point."""
+    cfg = reduced_h2o()
+    points = [[rows, cfg.d_model, LOOKUP_B // int(np.prod(mesh[:-1])),
+               LOOKUP_S, list(mesh)]
+              for mesh, rows, _ in LOOKUP_CASES.values()]
+    got = _tool("embedding_layouts").read(points, collectives=True)
+    return dict(zip(LOOKUP_CASES, got))
+
+
+def reduced_h2o(rows: int = 512):
     from repro_torch.configs.base import reduced
-    from repro_torch.parallel.act import moves_table
 
-    cfg = dataclasses.replace(reduced(get_config("h2o-danube-3-4b")),
-                              vocab_size=rows)
-    B, S, mesh = 16, 32, (2, 2, 2)
-    moved = moves_table(rows, B * S // 4, B * S, True)
-    assert moved == (rows == 500)
+    return dataclasses.replace(reduced(get_config("h2o-danube-3-4b")),
+                               vocab_size=rows)
+
+
+@pytest.mark.parametrize("case", list(LOOKUP_CASES))
+def test_embedding_lookup_alone_on_a_mesh_is_the_plain_lookup(
+        case, lookup_reference):
+    """(D) The rig's ``embedding_rank`` (which ``chip_smoke.py`` runs at
+    h2o-danube-3-4b's published table) on gloo ranks, a reduced
+    h2o-danube-3-4b (D 64) with B 16, S 32 (512 tokens), in each of the
+    three layouts of ``act.embed_layout``, which agrees with the
+    reference's there: at pod 2 x data 2 x model 2 with 500 rows the table
+    moves (two permutes over 'data' and 'model' of a rank's (V / 2, D /
+    2)), with 512 the table's whole rows are gathered, with 600 the tokens
+    move; at data 2 x model 2 with 512 rows the rows are gathered.  Each
+    rank's output shard equals the plain lookup and its gradient shard the
+    plain gradient within 1e-6 relative L2; where the rows are gathered,
+    its collectives equal the reference's, kind, mesh axes and elements,
+    in the reference's order."""
+    from repro_torch.parallel.act import embed_layout
+
+    mesh, rows, layout = LOOKUP_CASES[case]
+    cfg = reduced_h2o(rows)
+    B, S = LOOKUP_B, LOOKUP_S
+    ref = lookup_reference[case]
+    batch = int(np.prod(mesh[:-1]))
+    assert ref["layout"] == layout == embed_layout(
+        rows, cfg.d_model, B * S // batch, B * S, mesh[-2], mesh[-1],
+        len(mesh) == 3)
     block = (rows // 2, cfg.d_model // 2)
-    for r in run_ranks(embedding_rank, 8, cfg, B, S, mesh):
+    for r in run_ranks(embedding_rank, batch * mesh[-1], cfg, B, S, mesh,
+                       device="cpu"):
         assert r["out_max_abs"] == 0.0, r
         assert r["grad_rel_l2"] < 1e-6, r
         permutes = [c[1] for c in r["collectives"]
-                    if "all_to_all" in c[0] and c[0].endswith("@data+model")]
-        assert permutes == [[block]] * (2 * moved), r["collectives"]
+                    if "all_to_all" in c[0] and c[0].endswith("@data+model")
+                    and c[1] == [block]]
+        assert len(permutes) == 2 * (layout == "table"), r["collectives"]
+        if layout == "rows":
+            assert _port_kinds(r["collectives"], mesh) == _reference_kinds(
+                ref["collectives"]), (r["collectives"], ref["collectives"])

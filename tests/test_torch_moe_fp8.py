@@ -471,7 +471,7 @@ def runs(tmp_path_factory):
                 (with_host_staging, ("cpu", moe_forward_rank,
                                      (wide, _dispatch_cfg(), MESH, "cpu",
                                       dts)))]
-        ranks = run_ranks(run_jobs, RANKS, jobs)
+        ranks = run_ranks(run_jobs, RANKS, jobs, device="cpu")
         _, err = proc.communicate(timeout=600)
     finally:
         proc.kill()

@@ -176,7 +176,7 @@ def test_per_shard_summed_labels_give_a_partial_sum():
     gradient.  Off a mesh the same call runs the function directly."""
     whole = (torch.arange(32, dtype=torch.float32).reshape(4, 8) % 7) - 3
     w = torch.arange(1, 5, dtype=torch.float32)
-    for r in run_ranks(summed_shards_rank, 4, (2, 2)):
+    for r in run_ranks(summed_shards_rank, 4, (2, 2), device="cpu"):
         assert r["placements"] == [("Shard", 0), ("Partial", None)]
         assert torch.equal(torch.from_numpy(r["y"]), whole.sum(-1))
         assert r["grad_placements"] == r["x_placements"] == [

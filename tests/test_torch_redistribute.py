@@ -81,7 +81,7 @@ def launched():
     return run_ranks(run_jobs, 4, [
         (grouped_redistribute_rank, ((2, 2), "cpu")),
         (with_host_staging, ("cpu", grouped_redistribute_rank,
-                             ((2, 2), "cpu", False)))])
+                             ((2, 2), "cpu", False)))], device="cpu")
 
 
 @pytest.fixture(scope="module")

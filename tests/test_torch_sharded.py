@@ -211,7 +211,7 @@ def runs(ep_inputs, pod_array, tmp_path_factory):
                 # the CPU
                 (with_host_staging, ("cpu", sharded_train_steps,
                                      (cfgs[:1], OPT, B, S, MESH, "cpu")))]
-        ranks = run_ranks(run_jobs, RANKS, jobs)
+        ranks = run_ranks(run_jobs, RANKS, jobs, device="cpu")
         _, err = proc.communicate(timeout=600)
     finally:
         proc.kill()
@@ -469,9 +469,9 @@ def test_run_ranks_returns_in_rank_order_and_raises_with_the_traceback():
     import math
     import operator
 
-    assert run_ranks(operator.truediv, 2) == [0.0, 0.5]
+    assert run_ranks(operator.truediv, 2, device="cpu") == [0.0, 0.5]
     with pytest.raises(RuntimeError, match="math domain error"):
-        run_ranks(math.log, 2)         # log(0, 2) on rank 0
+        run_ranks(math.log, 2, device="cpu")         # log(0, 2) on rank 0
 
 
 def _fails_on_rank_one(rank, world):
@@ -486,7 +486,7 @@ def test_run_ranks_names_the_rank_at_fault_not_its_peers():
     """A rank that fails leaves its peers failing in gloo's transport
     (the connection closed); the error raised is the failing rank's."""
     with pytest.raises(RuntimeError, match="rank 1 of 2") as err:
-        run_ranks(_fails_on_rank_one, 2)
+        run_ranks(_fails_on_rank_one, 2, device="cpu")
     assert "rank one's own fault" in str(err.value)
 
 
@@ -507,6 +507,6 @@ def _timed_turn(rank, world):
 def test_ranks_sharing_a_card_place_their_parameters_in_turn():
     """``sharded_train_steps``' placement on a card runs on one rank at a
     time, in rank order."""
-    spans = run_ranks(_timed_turn, 3)
+    spans = run_ranks(_timed_turn, 3, device="cpu")
     for (_, end), (start, _) in zip(spans, spans[1:]):
         assert end <= start, spans

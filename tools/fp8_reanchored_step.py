@@ -160,7 +160,7 @@ def _diff(a, b):
 def main() -> int:
     torch.set_num_threads(4)
     cfg = _cfg()
-    mesh = run_ranks(_rank, MESH[0] * MESH[1])[0]
+    mesh = run_ranks(_rank, MESH[0] * MESH[1], device="cpu")[0]
     for k, state in ((0, None), (1, mesh["states"][0])):
         m, seen = one_device_step(cfg, k, state)
         row = dict(step=k + 1, anchored=("seed 0" if state is None
